@@ -1,0 +1,122 @@
+"""Public user-facing API of the PyTorch port.
+
+:func:`compute_paths` takes the reference's ten arguments (scene, RX/TX
+positions and velocities, carrier frequency in GHz, counts) and returns
+``(los, scatter)`` :class:`~hermespy_rt_tpu_torch.tracer.ChannelInfo`
+objects with the reference's shapes: directions ``(num_rx, num_tx,
+num_rays, 3)``, complex64 gains and f32 ``tau``/``freq_shift``
+``(num_rx, num_tx, num_rays)``.  :func:`trace` is the extended entry point
+(scene objects, material tables, configs, ray segments).  Every entry point
+takes the ``device`` it runs on; tensors are made there.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .config import TracerConfig
+from .materials import MaterialTable, default_materials
+from .scene.hrt import load_hrt
+from .scene.model import HostScene, TriangleSoA, flatten_scene
+from .tracer import ChannelInfo, PathsResult, launch_directions, trace_paths
+
+__all__ = ["compute_paths", "trace", "prepare_scene", "load_scene"]
+
+SceneLike = Union[str, HostScene, TriangleSoA]
+
+
+def load_scene(path: str) -> HostScene:
+    """Load a scene file.  Only ``.hrt`` is read by this package so far."""
+    if not str(path).lower().endswith(".hrt"):
+        raise ValueError(f"unsupported scene format (only .hrt): {path}")
+    return load_hrt(path)
+
+
+def prepare_scene(scene: SceneLike, pad_to: int = 128,
+                  sort_triangles: bool = False,
+                  device="cpu") -> TriangleSoA:
+    """Resolve a path / host scene / prepared SoA to a TriangleSoA on
+    ``device`` (a prepared SoA is returned as it is)."""
+    if isinstance(scene, TriangleSoA):
+        return scene
+    host = scene if isinstance(scene, HostScene) else load_scene(scene)
+    return flatten_scene(host, pad_to=pad_to, sort_triangles=sort_triangles,
+                         device=device)
+
+
+@lru_cache(maxsize=16)
+def _cached_dirs(num_paths: int, order: str, device: str) -> torch.Tensor:
+    """Launch directions per (paths, order, device), made once: they are
+    host f64 trig over every path, which at 2^20 paths outweighs the traced
+    part of a trace (PERF.md).  Callers only read the tensor."""
+    return launch_directions(num_paths, order, device)
+
+
+def trace(scene: SceneLike,
+          rx_positions, tx_positions,
+          rx_velocities=None, tx_velocities=None,
+          carrier_frequency: float = 3.0,
+          config: Optional[TracerConfig] = None,
+          materials: Optional[MaterialTable] = None,
+          device="cpu") -> PathsResult:
+    """Full-featured tracing entry point on ``device`` (or, for a prepared
+    TriangleSoA, on the device that holds it)."""
+    cfg = config or TracerConfig()
+    if not isinstance(scene, TriangleSoA):
+        # Morton-sort large scenes outside reference parity, as the JAX
+        # package does; parity runs keep file order (it decides exact ties)
+        host = scene if isinstance(scene, HostScene) else load_scene(scene)
+        scene = flatten_scene(
+            host, sort_triangles=(cfg.parity != "reference"
+                                  and host.num_triangles >= 4096),
+            device=device)
+    tris = scene  # a prepared TriangleSoA runs on the device that holds it
+    mats = (materials if materials is not None
+            else default_materials(tris.device))
+    f32 = dict(dtype=torch.float32, device=tris.device)
+    rx_pos = torch.as_tensor(np.asarray(rx_positions, np.float32),
+                             **f32).reshape(-1, 3)
+    tx_pos = torch.as_tensor(np.asarray(tx_positions, np.float32),
+                             **f32).reshape(-1, 3)
+    rx_vel = (torch.zeros_like(rx_pos) if rx_velocities is None
+              else torch.as_tensor(np.asarray(rx_velocities, np.float32),
+                                   **f32).reshape(-1, 3))
+    tx_vel = (torch.zeros_like(tx_pos) if tx_velocities is None
+              else torch.as_tensor(np.asarray(tx_velocities, np.float32),
+                                   **f32).reshape(-1, 3))
+    dirs = _cached_dirs(cfg.num_paths, cfg.resolved_launch_order,
+                        str(tris.device))
+    return trace_paths(tris, mats, rx_pos, tx_pos, rx_vel, tx_vel,
+                       float(carrier_frequency), cfg, launch_dirs=dirs)
+
+
+def compute_paths(mesh_filepath: SceneLike,
+                  rx_positions, tx_positions,
+                  rx_velocities, tx_velocities,
+                  carrier_frequency: float,
+                  num_rx: int, num_tx: int,
+                  num_paths: int, num_bounces: int,
+                  device="cpu",
+                  **kwargs) -> Tuple[ChannelInfo, ChannelInfo]:
+    """Reference-compatible entry point: the reference's ten arguments, plus
+    the ``device`` to run on.  Returns ``(los, scatter)``, without gradient
+    (use :func:`trace` with a :class:`MaterialTable` for gradients).  Extra
+    keyword arguments go to :class:`TracerConfig` (e.g.
+    ``parity="physical"``, ``backend="torch"``)."""
+    rx_positions = np.asarray(rx_positions, np.float32).reshape(-1, 3)
+    tx_positions = np.asarray(tx_positions, np.float32).reshape(-1, 3)
+    if rx_positions.shape[0] != num_rx:
+        raise ValueError(f"rx_positions has {rx_positions.shape[0]} rows, expected {num_rx}")
+    if tx_positions.shape[0] != num_tx:
+        raise ValueError(f"tx_positions has {tx_positions.shape[0]} rows, expected {num_tx}")
+    cfg = TracerConfig(num_paths=num_paths, num_bounces=num_bounces, **kwargs)
+    # the default material table is made here and nothing outside can reach
+    # it, so no autograd graph is kept
+    with torch.no_grad():
+        result = trace(mesh_filepath, rx_positions, tx_positions,
+                       rx_velocities, tx_velocities, carrier_frequency,
+                       config=cfg, device=device)
+    return result.los, result.scatter

@@ -1,0 +1,137 @@
+// Brute-force Möller–Trumbore nearest hit for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernels hermespy_rt_tpu/ops/intersect_pallas.py::_kernel
+// (all rays) and ::_kernel_flags (rays with a liveness mask).  Those rewrite
+// Möller–Trumbore as triple-product matmuls over a centred scene to use the
+// TPU's matrix unit; this kernel computes the classic form instead, in f32,
+// in the operation order of the JAX golden
+// (hermespy_rt_tpu/ops/intersect.py::_mt_block and ::_nearest):
+//   pvec = d x e2, det = e1 . pvec, inv_det = 1 / det,
+//   u = (s . pvec) inv_det, qvec = s x e1, v = (d . qvec) inv_det,
+//   t = (e2 . qvec) inv_det                                   (s = o - v0)
+// Built with -fmad=false and without fast math, every product, sum and the
+// division are rounded on their own, exactly as the plain torch twin
+// (hermespy_rt_tpu_torch/ops/intersect.py::intersect_torch) rounds them, so
+// the two make the same hit decisions.
+//
+// Contract per ray r < R: the triangle k < T with the smallest valid t,
+// where valid means |det| >= FLT_EPS, -eps <= u <= 1+eps, v >= -eps,
+// u+v <= 1+eps, eps < t < 1e9 and k != exclude[r].  Ties go to the lower k
+// (ascending loop, strict <).  Output t[r] (+inf on a miss) and idx[r] (-1 on
+// a miss); hits with t > t_max become misses, and a dead ray (live[r] == 0)
+// reports a miss.
+//
+// What bounds it: FP32 ALU work, about 40 flops and one IEEE division per
+// (ray, triangle) pair: about 1e10 flops for 2^20 rays against 256 triangles.
+// The triangles are a few KB, so device memory is not the bound.  Design:
+// one thread per ray, 256 threads per block; the block stages triangles
+// through shared memory in tiles of 256 x (v0, e1, e2) = 9 KB, all threads of
+// a warp read the same triangle at once (a shared-memory broadcast), and each
+// thread keeps its running best (t, idx) in registers.  A block whose rays
+// are all dead writes misses and returns before touching a triangle, the
+// counterpart of _kernel_flags skipping dead ray tiles.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kThreads = 256;   // rays per block
+constexpr int kTile = 256;      // triangles staged per shared-memory tile
+constexpr float kEps = 1.1920928955078125e-07f;  // FLT_EPSILON
+constexpr float kTMax = 1e9f;
+
+__global__ void __launch_bounds__(kThreads) nearest_hit_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ v0, const float* __restrict__ e1,
+    const float* __restrict__ e2, int R, int T,
+    const int* __restrict__ exclude, const float* __restrict__ t_max,
+    float t_max_scalar, const unsigned char* __restrict__ live,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  // component-major tile: rows 0-2 v0, 3-5 e1, 6-8 e2
+  __shared__ float tri[9][kTile];
+
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const bool in_range = r < R;
+  const bool alive = in_range && (live == nullptr || live[r] != 0);
+  if (!__syncthreads_or(alive)) {
+    if (in_range) {
+      t_out[r] = CUDART_INF_F;
+      idx_out[r] = -1;
+    }
+    return;
+  }
+
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  int ex = -1;
+  if (alive) {
+    ox = o[3 * r]; oy = o[3 * r + 1]; oz = o[3 * r + 2];
+    dx = d[3 * r]; dy = d[3 * r + 1]; dz = d[3 * r + 2];
+    if (exclude != nullptr) ex = exclude[r];
+  }
+  float best_t = CUDART_INF_F;
+  int best_i = -1;
+
+  for (int base = 0; base < T; base += kTile) {
+    const int n = min(kTile, T - base);
+    __syncthreads();  // the previous tile has been consumed
+    for (int k = threadIdx.x; k < n; k += kThreads) {
+      const int g = 3 * (base + k);
+      tri[0][k] = v0[g]; tri[1][k] = v0[g + 1]; tri[2][k] = v0[g + 2];
+      tri[3][k] = e1[g]; tri[4][k] = e1[g + 1]; tri[5][k] = e1[g + 2];
+      tri[6][k] = e2[g]; tri[7][k] = e2[g + 1]; tri[8][k] = e2[g + 2];
+    }
+    __syncthreads();
+    if (!alive) continue;
+    for (int k = 0; k < n; ++k) {
+      const float v0x = tri[0][k], v0y = tri[1][k], v0z = tri[2][k];
+      const float e1x = tri[3][k], e1y = tri[4][k], e1z = tri[5][k];
+      const float e2x = tri[6][k], e2y = tri[7][k], e2z = tri[8][k];
+      const float px = dy * e2z - dz * e2y;
+      const float py = dz * e2x - dx * e2z;
+      const float pz = dx * e2y - dy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+      const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+      const float u = (sx * px + sy * py + sz * pz) * inv_det;
+      const float qx = sy * e1z - sz * e1y;
+      const float qy = sz * e1x - sx * e1z;
+      const float qz = sx * e1y - sy * e1x;
+      const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+      const bool valid = fabsf(det) >= kEps && u >= -kEps &&
+                         u <= 1.0f + kEps && v >= -kEps &&
+                         u + v <= 1.0f + kEps && t > kEps && t < kTMax &&
+                         base + k != ex;
+      if (valid && t < best_t) {
+        best_t = t;
+        best_i = base + k;
+      }
+    }
+  }
+
+  if (in_range) {
+    const float tm = t_max != nullptr ? t_max[r] : t_max_scalar;
+    const bool keep = alive && best_t <= tm;
+    t_out[r] = keep ? best_t : CUDART_INF_F;
+    idx_out[r] = keep ? best_i : -1;
+  }
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes.  Pointers are device pointers; exclude,
+// t_max and live may be null (none / use t_max_scalar / all live).  Launches
+// on `stream` and returns cudaGetLastError() of the launch.
+extern "C" int hrt_nearest_hit(const float* o, const float* d, const float* v0,
+                               const float* e1, const float* e2, int R, int T,
+                               const int* exclude, const float* t_max,
+                               float t_max_scalar, const unsigned char* live,
+                               float* t_out, int* idx_out, void* stream) {
+  if (R <= 0) return 0;
+  const dim3 grid((R + kThreads - 1) / kThreads);
+  nearest_hit_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      o, d, v0, e1, e2, R, T, exclude, t_max, t_max_scalar, live, t_out,
+      idx_out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,108 @@
+"""Public API of the PyTorch port: the shape and dtype contract of
+``tests/test_api.py``, argument validation, ``.hrt`` input, agreement of
+``compute_paths`` with the JAX package's, and that importing the port
+leaves JAX out."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import hermespy_rt_tpu as J
+import hermespy_rt_tpu_torch as hrt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_reference_shape_contract():
+    num_rx, num_tx, num_paths, num_bounces = 2, 3, 100, 3
+    rng = np.random.default_rng(0)
+    rx = rng.uniform(-1, 1, (num_rx, 3))
+    tx = rng.uniform(-1, 1, (num_tx, 3)) + np.array([0, 0, 2.0])
+    z_rx, z_tx = np.zeros((num_rx, 3)), np.zeros((num_tx, 3))
+    los, scatter = hrt.compute_paths(
+        hrt.box_scene(), rx, tx, z_rx, z_tx, 3.0,
+        num_rx, num_tx, num_paths, num_bounces, device="cpu")
+
+    assert los.num_rays == 1
+    assert ((num_rx, num_tx, 1, 3) == los.directions_rx.shape
+            == los.directions_tx.shape)
+    assert ((num_rx, num_tx, 1) == los.a_te.shape == los.a_tm.shape
+            == los.tau.shape == los.freq_shift.shape)
+    assert scatter.num_rays == num_bounces * num_paths
+    assert ((num_rx, num_tx, scatter.num_rays, 3)
+            == scatter.directions_rx.shape == scatter.directions_tx.shape)
+    assert ((num_rx, num_tx, scatter.num_rays) == scatter.a_te.shape
+            == scatter.a_tm.shape == scatter.tau.shape
+            == scatter.freq_shift.shape)
+    for info in (los, scatter):
+        assert info.a_te.dtype == info.a_tm.dtype == torch.complex64
+        assert info.tau.dtype == info.freq_shift.dtype == torch.float32
+        assert info.directions_rx.dtype == torch.float32
+        assert info.tau.device.type == "cpu"
+
+
+def test_compute_paths_matches_jax_on_hrt_file(tmp_path):
+    path = str(tmp_path / "reflector.hrt")
+    J.save_hrt(J.simple_reflector_scene(), path)
+    rx, tx = np.array([[0., 0., .15]]), np.array([[0., 0., .151]])
+    z = np.zeros((1, 3))
+    los_j, sc_j = J.compute_paths(path, rx, tx, z, z, 3.0, 1, 1, 500, 2,
+                                  backend="jnp")
+    los_t, sc_t = hrt.compute_paths(path, rx, tx, z, z, 3.0, 1, 1, 500, 2,
+                                    backend="torch")
+    assert float(los_t.a_te.abs()[0, 0, 0]) == 1.0
+    np.testing.assert_allclose(los_t.a_te.numpy(), np.asarray(los_j.a_te),
+                               rtol=1e-6)
+    a_j, a_t = np.asarray(sc_j.a_te), sc_t.a_te.numpy()
+    assert ((np.abs(a_j) > 0) == (np.abs(a_t) > 0)).mean() > 0.995
+    m = (np.abs(a_j) > 0) & (np.abs(a_t) > 0)
+    np.testing.assert_allclose(a_t[m], a_j[m], rtol=1e-4,
+                               atol=np.abs(a_j[m]).max() * 1e-5)
+
+
+def test_row_count_validation():
+    with pytest.raises(ValueError):
+        hrt.compute_paths(hrt.box_scene(), np.zeros((2, 3)), np.zeros((1, 3)),
+                          np.zeros((2, 3)), np.zeros((1, 3)), 3.0,
+                          1, 1, 10, 1)
+    with pytest.raises(ValueError):
+        hrt.compute_paths(hrt.box_scene(), np.zeros((1, 3)), np.zeros((1, 3)),
+                          np.zeros((1, 3)), np.zeros((1, 3)), 3.0,
+                          1, 1, 10, 1, backend="pallas")
+
+
+def test_unsupported_scene_format():
+    with pytest.raises(ValueError):
+        hrt.load_scene("scene.xml")
+
+
+def test_trace_returns_rays_info():
+    res = hrt.trace(hrt.box_scene(), [[1., 1., 1.]], [[-1., -1., 2.]],
+                    config=hrt.TracerConfig(num_paths=64, num_bounces=2))
+    ri = res.rays_scatter
+    assert ri.origins.shape == (1, 3, 64, 3)
+    assert ri.active.shape == (1, 3, 64)
+    assert bool(ri.active[0, 0].all())
+    assert res.rays_los.origins.shape == (1, 1, 1, 3)
+    assert res.los_blocked.shape == (1, 1)
+
+
+def test_prepare_scene_passes_soa_through():
+    soa = hrt.prepare_scene(hrt.box_scene(), pad_to=64)
+    assert soa.pad_triangles == 64 and soa.num_triangles == 12
+    assert hrt.prepare_scene(soa) is soa
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, hermespy_rt_tpu_torch, hermespy_rt_tpu_torch.convert,"
+            " hermespy_rt_tpu_torch.ops.intersect_cuda; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'hermespy_rt_tpu.')) "
+            "or m == 'hermespy_rt_tpu'); print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
