@@ -30,15 +30,18 @@ class TracerConfig:
       launch_order: "fibonacci" (reference path order), "coherent"
                    (the same directions in direction-Morton order) or "auto"
                    ("fibonacci" under reference parity, else "coherent").
-      ray_chunk:   rays per chunk of the plain torch nearest-hit query; bounds
+      ray_chunk:   rays per chunk of the plain torch nearest-hit query (on
+                   every backend, whenever the rays are on the CPU); bounds
                    its ``[chunk, T]`` temporaries.
       rx_query_rays: most rays in one shadow query; larger all-RX batches
                    are split into equal RX groups run one after another.
       grad_geometry: keep fetched triangle geometry differentiable; False
                    detaches it (material gradients are unchanged).
       backend:     nearest-hit implementation: "torch" (plain tensor ops),
-                   "cuda" (the hand-written kernel) or "auto" ("cuda" for
-                   CUDA tensors, "torch" for CPU tensors).
+                   "cuda" (the hand-written kernel) or "auto".  "cuda" and
+                   "auto" both call the kernel's wrapper, which runs the
+                   plain version for CPU tensors and launches the kernel, or
+                   raises, for CUDA tensors.
     """
 
     num_paths: int = 10_000

@@ -73,17 +73,14 @@ class PathsResult:
     los_blocked: Optional[torch.Tensor] = None  # bool[NRx, NTx]
 
 
-def _select_intersect(cfg: TracerConfig, device: torch.device):
-    """The nearest-hit function for ``cfg.backend`` on ``device``; no
-    fallback from one to the other."""
-    backend = cfg.backend
-    if backend == "auto":
-        backend = "cuda" if device.type == "cuda" else "torch"
-    if backend == "cuda":
-        return nearest_hit
-    return lambda o, d, tris, exclude=None, t_max=None, live=None: \
-        intersect_torch(o, d, tris, chunk_size=cfg.ray_chunk,
-                        exclude=exclude, t_max=t_max, live=live)
+def _select_intersect(cfg: TracerConfig):
+    """The nearest-hit function for ``cfg.backend``: the plain twin for
+    ``"torch"``, else the kernel's wrapper, which alone decides by the rays'
+    device (twin on CPU tensors, kernel or raise on CUDA ones)."""
+    fn = intersect_torch if cfg.backend == "torch" else nearest_hit
+    return lambda o, d, tris, exclude=None, t_max=None, live=None: fn(
+        o, d, tris, chunk_size=cfg.ray_chunk, exclude=exclude, t_max=t_max,
+        live=live)
 
 
 class LocalSceneAccess:
@@ -94,7 +91,7 @@ class LocalSceneAccess:
     def __init__(self, tris: TriangleSoA, cfg: TracerConfig,
                  eta: EtaPrecomputed):
         self.tris = tris
-        self._intersect = _select_intersect(cfg, tris.device)
+        self._intersect = _select_intersect(cfg)
         self._grad_geometry = cfg.grad_geometry
         mat = tris.material
         eta_cols = torch.stack([getattr(eta, f)[mat] for f in ETA_FIELDS],
