@@ -70,9 +70,12 @@ def _assert_slots_close(ref, ours, label, vec=False):
 
 
 # every scene in both parities at nrx = 3 (the reference parity's clobber
-# chain runs across RX); nrx = 1 once, as its code path is the same
+# chain runs across RX); nrx = 1, whose code path is the same, on one scene
+# per parity
 TRACE_CASES = [(name, 3, parity) for parity in ("reference", "physical")
-               for name in sorted(SCENES)] + [("soup", 1, "reference")]
+               for name in sorted(SCENES)] + [("soup", 1, "reference"),
+                                              ("box", 1, "physical"),
+                                              ("reflector", 1, "physical")]
 
 
 @pytest.mark.parametrize("name,nrx,parity", TRACE_CASES)
@@ -180,3 +183,40 @@ def test_compact_rays_and_rx_groups_do_not_change_outputs():
     for other in outs[1:]:
         for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
             assert torch.equal(getattr(outs[0], f), getattr(other, f)), f
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda", "auto"])
+def test_backend_on_cpu_runs_the_twin_with_ray_chunk(backend, monkeypatch):
+    """Every backend answers CPU rays with the plain twin at the config's
+    ``ray_chunk``; the kernel's wrapper alone makes that device decision and
+    launches nothing."""
+    import hermespy_rt_tpu_torch.ops.intersect_cuda as ic
+    import hermespy_rt_tpu_torch.tracer as tr
+    chunks = []
+    real = ic.intersect_torch
+
+    def spy(*args, chunk_size, **kw):
+        chunks.append(chunk_size)
+        return real(*args, chunk_size=chunk_size, **kw)
+
+    monkeypatch.setattr(ic, "intersect_torch", spy)
+    monkeypatch.setattr(tr, "intersect_torch", spy)
+    soa, rx, tx, rxv, txv = _inputs("box", 3)
+    launches = ic.nearest_hit.launches
+    with torch.no_grad():
+        res = trace_paths(soa_from_jax(vars(soa)),
+                          materials_from_jax(vars(jax_materials())), rx, tx,
+                          rxv, txv, 3.0,
+                          TracerConfig(num_paths=256, num_bounces=2,
+                                       backend=backend, ray_chunk=100,
+                                       keep_rays=False, compact_rays=True))
+    assert ic.nearest_hit.launches == launches
+    assert chunks == [100] * 5                # LoS + 2 x (bounce, shadow)
+    with torch.no_grad():
+        ref = trace_paths(soa_from_jax(vars(soa)),
+                          materials_from_jax(vars(jax_materials())), rx, tx,
+                          rxv, txv, 3.0,
+                          TracerConfig(num_paths=256, num_bounces=2,
+                                       keep_rays=False))
+    for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
+        assert torch.equal(getattr(res.scatter, f), getattr(ref.scatter, f)), f
