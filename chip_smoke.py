@@ -5,30 +5,47 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. build    -- compile the nearest-hit kernel library from
-               ``hermespy_rt_tpu_torch/csrc/intersect.cu`` with nvcc.
-2. kernel   -- the kernel against its plain torch twin on the card, on the
-               street canyon (or its stand-in) and the box scene: 2^18 rays
-               from the launch point and 2^18 from random origins, with
-               exclude, scalar and per-ray t_max, and live masks.  Every hit
-               decision that differs must be an f64 edge/tie case
-               (tests/utils.py::assert_flips_explained) and t must agree to
-               rtol 2e-5 where the decision agrees.
-3. trace    -- ``compute_paths`` at 2^20 paths, 3 bounces, reference parity,
+1. build    -- compile the kernel library (every ``hermespy_rt_tpu_torch/
+               csrc/*.cu``) with one nvcc call.
+2. kernel   -- the nearest-hit kernel against its plain torch twin on the
+               card, on the street canyon (or its stand-in) and the box
+               scene: 2^18 rays from the launch point and 2^18 from random
+               origins, with exclude, scalar and per-ray t_max, and live
+               masks.  Every hit decision that differs must be an f64
+               edge/tie case (tests/utils.py::assert_flips_explained) and t
+               must agree to rtol 2e-5 where the decision agrees.
+3. trace    -- the op path (``shade="xla"``, PR 1's main path):
+               ``compute_paths`` at 2^20 paths, 3 bounces, reference parity,
                nrx = 1 and 4, through the kernel: its launch count, finite
                outputs, a written scatter; at 2^16 paths the same trace with
                the plain twin must agree; forward queries/s of both.  Every
                kernel query of the two 2^20-path traces is recorded.
-4. path     -- each recorded query (LoS, 2^20-ray bounce, 2^20 x nrx shadow
-               queries with their exclude and live operands) re-run through
-               the twin and held to the tier of phase 2; dead rays miss and
-               no ray hits its excluded triangle.  Then the kernel's and the
-               twin's time per query on the recorded nrx = 4 bounce and
-               shadow queries.
+4. path     -- each recorded query re-run through the twin and held to the
+               tier of phase 2; then the kernel's and the twin's time on the
+               recorded nrx = 4 bounce and shadow queries.
 5. profile  -- one torch.profiler window per nrx over a warm 2^20-path
-               ``compute_paths``: device busy time, the kernel's share,
-               device operations, host time.
-6. grad     -- one backward of sum |a_te|^2 + |a_tm|^2 to the material table.
+               ``compute_paths`` (op path): device busy, device operations,
+               host time.
+6. grad     -- one op-path backward of sum |a_te|^2 + |a_tm|^2 to the
+               material table.
+7. train    -- this slice's main path, the material-calibration step of
+               ``bench.py``: ``trace(shade="fused", grad_positions=False,
+               grad_geometry=False)`` at 2^20 paths, B = 3, reference
+               parity, compact and coherent rays, loss (sum |a_te|^2 +
+               |a_tm|^2) 1e9, backward to the ``MaterialTable``, at nrx = 1
+               and 4.  Launch counts are zeroed just before one step and
+               read just after (nearest_hit 7, bounce_pre 3, bounce_post 3,
+               loop_bwd_slim 1), and that step's kernel calls are recorded.
+               Forward and forward+backward queries/s of the fused path and
+               of the op path, in turns.  At 2^16 paths the fused gradients
+               agree with the op path's and the scatter slots agree.
+8. fused_kernel -- every recorded fused kernel call of the 2^20-path steps
+               held against its plain version on the same inputs: equal
+               decisions, geometric rows equal, values within their tier;
+               then each kernel's and its plain version's device time
+               (profiler) and time between CUDA events, and its bound.
+9. profile_step -- one profiler window over one forward+backward step at
+               nrx = 1, of the fused path and of the op path.
 
 Then the kernel summary, the card's name and power limit, and the result
 line.  Without a CUDA device it exits non-zero and prints no result.
@@ -42,13 +59,21 @@ import sys
 import time
 import types
 
+import warnings
+
 import numpy as np
 import torch
 
-from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
-                                   default_materials, trace)
+from hermespy_rt_tpu_torch import (MaterialTable, TracerConfig,
+                                   compute_paths, default_materials, trace)
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS
+from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
+from hermespy_rt_tpu_torch.ops._cuda_build import LIBRARY
+from hermespy_rt_tpu_torch.ops.bounce_fused import (bounce_post_plain,
+                                                    bounce_pre_plain,
+                                                    loop_bwd_slim_plain)
+from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
 from hermespy_rt_tpu_torch.ops.geometry import fibonacci_sphere
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch
 from hermespy_rt_tpu_torch.ops.intersect_cuda import SOURCE, nearest_hit
@@ -64,6 +89,50 @@ PATHS = 1 << 20          # main-path paths per trace
 SMALL_PATHS = 1 << 16    # paths of the kernel-vs-twin trace and the backward
 KERNEL_RAYS = 1 << 18    # rays per kernel-vs-twin query
 TWIN_CHUNK = 1 << 15     # ray chunk of the plain twin on the card
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device memory rate
+# and f32 rate outside the tensor cores.  The bound of a kernel is the larger
+# of its bytes (each input read once, each output written once) over the
+# first and its f32 operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations counted in the kernels' sources (mul, add, sub, div, sqrt
+# and each libm call as one): nearest hit per (live ray, triangle) pair
+# (csrc/intersect.cu: 46 mul/add/sub and one division); the pre stage per
+# ray plus per (ray, RX); the post stage per (ray, RX); the backward per live
+# ray and bounce (pre vjp) plus per written (ray, RX) and bounce (post vjp)
+# (csrc/bounce_fused.cu), each rounded up.
+NEAREST_HIT_OPS_PER_PAIR = 47
+PRE_OPS_PER_RAY, PRE_OPS_PER_RX = 180, 30
+POST_OPS_PER_RX = 150
+BWD_PRE_OPS, BWD_POST_OPS = 120, 100
+# Tier of the fused kernels against their plain versions: decisions equal;
+# value rows within 3e-5 of their row's largest magnitude
+# (tests/test_bounce_fused.py::_assert_close_rows), a complex value's
+# (re, im) rows and a vector's components taken together; the backward's material
+# gradients, pushed through precompute_eta to the material parameters,
+# within 3e-5 of each leaf's largest magnitude plus 1e-16
+# (tests/test_bounce_fused.py:125), against the plain version in float64
+# (the plain version's own index_add_ sums ~10^6 terms per material in f32
+# atomics, which alone drift by ~1e-4 of the sum).
+ROW_RTOL = 3e-5
+LEAF_RTOL, LEAF_ATOL = 3e-5, 1e-16
+AMP_GROUPS = ((0, 1), (2, 3), (4,), (5,))   # state and output rows
+VEC_GROUPS = ((0, 1, 2),)                    # a vector's components
+# fused vs op-path material gradients at 2^16 paths: ~10^5 f32 terms per
+# material summed in different orders on the two paths (random-walk
+# rounding ~sqrt(N) 2^-24 ~ 2e-5 of the sum), the tier of
+# tests/test_torch_tracer.py's gradient test
+PATH_GRAD_RTOL = 1e-4
+FUSED = ("bounce_pre", "bounce_post", "loop_bwd_slim")
+KERNELS = {"nearest_hit": nearest_hit,
+           **{name: getattr(fused_ops, name) for name in FUSED}}
+PLAIN = {"bounce_pre": bounce_pre_plain, "bounce_post": bounce_post_plain,
+         "loop_bwd_slim": loop_bwd_slim_plain}
+REPLACES = {"nearest_hit": "hermespy_rt_tpu/ops/intersect_pallas.py:369",
+            "bounce_pre": "hermespy_rt_tpu/ops/bounce_fused.py:344",
+            "bounce_post": "hermespy_rt_tpu/ops/bounce_fused.py:684",
+            "loop_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:1170"}
 
 
 class SmokeFailure(RuntimeError):
@@ -103,6 +172,37 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_pair(run_k, run_p, reps_k=20, reps_p=3):
+    """Kernel and plain times in ms, in turns: plain, kernel, kernel, plain.
+    CUDA events around back-to-back calls: this includes any gap the host
+    leaves between launches."""
+    p1 = cuda_ms(run_p, reps_p)
+    k1 = cuda_ms(run_k, reps_k)
+    k2 = cuda_ms(run_k, reps_k)
+    p2 = cuda_ms(run_p, reps_p)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_ms(fn, reps, kernel=None):
+    """Device time in ms per call of ``fn``: the device events' own times
+    (torch.profiler) over ``reps`` calls after one warm-up, only those of
+    ``kernel`` when it is named.  Unlike :func:`time_pair` it leaves out the
+    host's gaps between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and (kernel is None or f"{kernel}_kernel" in e.key)]
+    return sum(_device_ms(e) for e in ev) / reps
 
 
 def flips_check():
@@ -170,12 +270,14 @@ def recording():
 
 def phase_build():
     t0 = time.perf_counter()
-    lib = nearest_hit.build()
+    lib = LIBRARY.build()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in nearest_hit.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit(phase="build", ok=True, seconds=secs,
-         library=os.path.relpath(str(lib), REPO), ptxas=ptxas, gpu=smi())
+    ptxas = [ln.strip() for ln in LIBRARY.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit(phase="build", ok=True, seconds=secs, nvcc_seconds=LIBRARY.build_seconds,
+         library=os.path.relpath(str(lib), REPO),
+         sources=[os.path.relpath(str(x), REPO) for x in LIBRARY.sources],
+         ptxas=ptxas, gpu=smi())
 
 
 def phase_kernel(scenes, dev):
@@ -225,7 +327,7 @@ def phase_kernel(scenes, dev):
 
 
 def slots_agree(ref, ours, label):
-    ref, ours = ref.cpu().numpy(), ours.cpu().numpy()
+    ref, ours = ref.detach().cpu().numpy(), ours.detach().cpu().numpy()
     w_r, w_o = np.abs(ref) > 0, np.abs(ours) > 0
     if ref.ndim == 4:
         w_r, w_o = w_r.any(-1), w_o.any(-1)
@@ -332,12 +434,19 @@ def phase_path(recorded):
         run_k = lambda: nearest_hit(o, d, tris, **kw)  # noqa: E731
         run_p = lambda: intersect_torch(o, d, tris,  # noqa: E731
                                         chunk_size=TWIN_CHUNK, **kw)
-        p1 = cuda_ms(run_p, 3)
-        k1 = cuda_ms(run_k, 20)
-        k2 = cuda_ms(run_k, 20)
-        p2 = cuda_ms(run_p, 3)
-        timing[label] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                             rays=o.shape[0], T=tris.pad_triangles)
+        wall_ms, plain_wall_ms = time_pair(run_k, run_p)
+        ms = device_ms(run_k, 20, "nearest_hit")
+        plain_ms = device_ms(run_p, 3)
+        live = kw.get("live")
+        n_live = o.shape[0] if live is None else int(live.sum())
+        t_k, i_k = q[4], q[5]
+        bound_ms, bound_by = bound(
+            nbytes(o, d, *kw.values(), tris.v0, tris.e1, tris.e2, t_k, i_k),
+            NEAREST_HIT_OPS_PER_PAIR * n_live * tris.pad_triangles)
+        timing[label] = dict(ms=ms, plain_ms=plain_ms, wall_ms=wall_ms,
+                             plain_wall_ms=plain_wall_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             rays=o.shape[0], live=n_live,
+                             T=tris.pad_triangles)
         emit(phase="kernel_time", query=label, **timing[label], gpu=smi())
     return worst, total_flips, timing
 
@@ -409,6 +518,380 @@ def phase_grad(host, dev):
     emit(phase="grad", ok=True, loss=float(loss.detach()), grad_abs_max=gmax)
 
 
+def nbytes(*xs):
+    """Bytes of the tensors among ``xs``, each counted once."""
+    return sum(x.numel() * x.element_size() for x in xs
+               if isinstance(x, torch.Tensor))
+
+
+def bound(n_bytes, n_ops):
+    """(least time in ms on an H100 SXM, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def ulp_gap(a, b):
+    """Largest distance in f32 units in the last place between ``a``, ``b``."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def rows_close(k, p, rtol, label, groups=None):
+    """|k - p| within ``rtol`` of the largest |p| of its row (rays on the
+    last axis), or of its group of rows: a complex value's (re, im) pair, a
+    vector's three components, whose small parts come from cancellation of
+    the large ones.  Returns the max abs error."""
+    k2, p2 = k.double(), p.double()
+    scale = p2.abs().amax(dim=-1, keepdim=True)
+    for g in groups or ():
+        scale[..., list(g), :] = scale[..., list(g), :].amax(dim=-2,
+                                                             keepdim=True)
+    err = (k2 - p2).abs()
+    check(bool((err <= rtol * scale).all()),
+          f"{label}: {int((err > rtol * scale).sum())} values beyond "
+          f"{rtol} of their row's max")
+    return float(err.max()) if err.numel() else 0.0
+
+
+@contextlib.contextmanager
+def recording_fused():
+    """Stands in for the three fused wrappers inside the tracer: forwards each
+    call to the wrapper (which counts the launch) and keeps its inputs and the
+    kernel's outputs."""
+    calls = {name: [] for name in FUSED}
+
+    def recorder(name):
+        def call(*args):
+            out = KERNELS[name](*args)
+            calls[name].append((args, out))
+            return out
+        return call
+
+    for name in FUSED:
+        setattr(fused_ops, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name in FUSED:
+            setattr(fused_ops, name, KERNELS[name])
+
+
+def material_grads(mats, d_eta_tab):
+    """The material parameters' gradients from a cotangent of the
+    per-material eta table, through precompute_eta (autograd)."""
+    eta = precompute_eta(mats, FREQ_GHZ)
+    tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS], dim=-1)
+    params = [getattr(mats, f) for f in MATERIAL_FIELDS]
+    gs = torch.autograd.grad(tab, params, grad_outputs=d_eta_tab.float(),
+                             allow_unused=True)
+    return {f: torch.zeros_like(p) if g is None else g
+            for f, p, g in zip(MATERIAL_FIELDS, params, gs)}
+
+
+def leaves_close(g_k, g_p, rtol, atol, label):
+    """Each leaf within ``rtol`` of its largest |g_p| plus ``atol``.
+    Returns the largest error as a share of its leaf's max."""
+    worst = 0.0
+    for f in g_p:
+        a, b = g_p[f].double(), g_k[f].double()
+        scale = float(a.abs().max())
+        err = float((a - b).abs().max())
+        check(err <= rtol * max(scale, 1e-30) + atol,
+              f"{label}: leaf {f} err {err} > {rtol} x {scale} + {atol}")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+    return worst
+
+
+def as_rows(x, vector):
+    """Rays on the last axis: ``[..., R, 3]`` vectors become ``[..., 3, R]``."""
+    return x.movedim(-1, -2) if vector else x
+
+
+def hold_pre(spec, args, k, label):
+    p = bounce_pre_plain(spec, *args)
+    for f in ("crossing", "excl", "live", "mat"):
+        check(torch.equal(getattr(k, f), getattr(p, f)),
+              f"{label}: decision {f} differs")
+    vectors = ("o2", "d2", "sh_o", "sh_d")
+    fields = vectors + ("d2rx", "t_self", "ex", "res", "st2")
+    groups = {f: VEC_GROUPS for f in vectors}
+    groups["st2"] = AMP_GROUPS
+    ulps = {f: ulp_gap(getattr(k, f), getattr(p, f)) for f in fields}
+    err = max(rows_close(as_rows(getattr(k, f), f in vectors),
+                         as_rows(getattr(p, f), f in vectors), ROW_RTOL,
+                         f"{label}: {f}", groups.get(f)) for f in fields)
+    return err, ulps
+
+
+def hold_post(spec, args, k, label):
+    p = bounce_post_plain(spec, *args)
+    check(torch.equal(k.write, p.write), f"{label}: decision write differs")
+    err = max(rows_close(k.out, p.out, ROW_RTOL, f"{label}: out",
+                         AMP_GROUPS),
+              rows_close(k.res, p.res, ROW_RTOL, f"{label}: res"))
+    return err, {"out": ulp_gap(k.out, p.out), "res": ulp_gap(k.res, p.res)}
+
+
+def hold_bwd(spec, args, k, mats, label):
+    """The kernel's backward against the plain version in float64 (and, for
+    the record, in float32) on the same inputs."""
+    eta_tab, st_all, live_all, mat_all, res_pre, res_post, d_out = args
+    up = lambda x: x.double()  # noqa: E731
+    d_st0_p, d_tab_p = loop_bwd_slim_plain(
+        spec, up(eta_tab), up(st_all), live_all, mat_all, up(res_pre),
+        up(res_post), up(d_out))
+    d_st0_k, d_tab_k = k
+    rows_close(d_st0_k, d_st0_p, ROW_RTOL, f"{label}: d_st0", AMP_GROUPS)
+    share = leaves_close(material_grads(mats, d_tab_k),
+                         material_grads(mats, d_tab_p), LEAF_RTOL, LEAF_ATOL,
+                         f"{label}: material gradients")
+    _, d_tab_p32 = loop_bwd_slim_plain(spec, *args)
+    return (float((d_tab_k.double() - d_tab_p).abs().max()), share,
+            float((d_tab_p32.double() - d_tab_p).abs().max()))
+
+
+def calib_config(paths, nrx, fused):
+    """bench.py's material-calibration flags on the port."""
+    kw = dict(shade="fused", grad_positions=False) if fused else {}
+    with warnings.catch_warnings():   # coherent order under reference parity
+        warnings.simplefilter("ignore")
+        return TracerConfig(num_paths=paths, num_bounces=BOUNCES,
+                            parity="reference", compact_rays=True,
+                            launch_order="coherent", keep_rays=False,
+                            grad_geometry=False, **kw)
+
+
+def calib_step(tris, nrx, mats, cfg, backward=True):
+    """One step: trace, loss (sum |a_te|^2 + |a_tm|^2) 1e9 as bench.py,
+    backward to the material table."""
+    mats.zero_grad(set_to_none=True)
+    with torch.set_grad_enabled(backward):
+        res = trace(tris, rx_positions(nrx), TX, carrier_frequency=FREQ_GHZ,
+                    config=cfg, materials=mats)
+        loss = (res.scatter.a_te.abs().square().sum()
+                + res.scatter.a_tm.abs().square().sum()) * 1e9
+        if backward:
+            loss.backward()
+    torch.cuda.synchronize()
+    return res, loss
+
+
+def grads_of(mats):
+    return {f: (torch.zeros_like(getattr(mats, f)) if getattr(mats, f).grad
+                is None else getattr(mats, f).grad.clone())
+            for f in MATERIAL_FIELDS}
+
+
+def phase_train(tris, dev):
+    """This slice's main path.  Returns per nrx the launch counts of one
+    step and its recorded fused kernel calls."""
+    mats = default_materials(dev)
+    expected = {"nearest_hit": 1 + 2 * BOUNCES, "bounce_pre": BOUNCES,
+                "bounce_post": BOUNCES, "loop_bwd_slim": 1}
+    counts, recorded = {}, {}
+    for nrx in (1, 4):
+        cfgs = {"fused": calib_config(PATHS, nrx, True),
+                "xla": calib_config(PATHS, nrx, False)}
+        calib_step(tris, nrx, mats, cfgs["fused"])             # warm-up
+        with recording_fused() as calls:
+            for kern in KERNELS.values():
+                kern.launches = 0
+            res, loss = calib_step(tris, nrx, mats, cfgs["fused"])
+            counts[nrx] = {n: kern.launches for n, kern in KERNELS.items()}
+        recorded[nrx] = calls
+        check(counts[nrx] == expected,
+              f"nrx={nrx}: launches {counts[nrx]}, expected {expected}")
+        for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
+            x = getattr(res.scatter, f)
+            x = torch.view_as_real(x) if x.is_complex() else x
+            check(bool(torch.isfinite(x).all()), f"nrx={nrx}: {f} not finite")
+        check(tuple(res.scatter.a_te.shape) == (nrx, 1, BOUNCES * PATHS),
+              f"nrx={nrx}: scatter shape {tuple(res.scatter.a_te.shape)}")
+        g = grads_of(mats)
+        check(all(bool(torch.isfinite(v).all()) for v in g.values())
+              and any(float(v.abs().max()) > 0 for v in g.values()),
+              f"nrx={nrx}: material gradients not finite or all zero")
+        loss_value = float(loss.detach())
+        del res, loss
+
+        # in turns: op path, fused, fused, op path
+        times = {}
+        for bwd in (False, True):
+            for shade in ("xla", "fused", "fused", "xla"):
+                calib_step(tris, nrx, mats, cfgs[shade], backward=bwd)
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    calib_step(tris, nrx, mats, cfgs[shade], backward=bwd)
+                times.setdefault((shade, bwd), []).append(
+                    (time.perf_counter() - t0) / 3)
+        queries = BOUNCES * PATHS * (1 + nrx)
+        step_s = {f"{shade}_{'fwd_bwd' if bwd else 'fwd'}": sum(v) / len(v)
+                  for (shade, bwd), v in times.items()}
+
+        # fused against the op path at 2^16 paths: gradients and slots
+        grads, scat = {}, {}
+        for shade in ("xla", "fused"):
+            m = default_materials(dev)
+            res, _ = calib_step(tris, nrx, m,
+                                calib_config(SMALL_PATHS, nrx,
+                                             shade == "fused"))
+            grads[shade], scat[shade] = grads_of(m), res.scatter
+        grad_share = leaves_close(grads["fused"], grads["xla"],
+                                  PATH_GRAD_RTOL, LEAF_ATOL,
+                                  f"nrx={nrx}: fused vs op-path gradients")
+        agree = {f: slots_agree(getattr(scat["xla"], f),
+                                getattr(scat["fused"], f), f)
+                 for f in ("a_te", "a_tm", "tau", "freq_shift",
+                           "directions_rx")}
+        emit(phase="train", nrx=nrx, paths=PATHS, bounces=BOUNCES, ok=True,
+             gpu=smi(), launches=counts[nrx], loss=loss_value,
+             step_s=step_s, all_step_s={f"{k[0]}_{k[1]}": v
+                                        for k, v in times.items()},
+             queries_per_s={k: queries / v for k, v in step_s.items()},
+             grad_vs_op_path_max_leaf_share=grad_share,
+             slot_agreement_2_16=agree)
+    return counts, recorded
+
+
+def phase_fused_kernel(recorded, dev):
+    """Every recorded fused kernel call against its plain version; then the
+    times and bounds of the first call of each kernel, per nrx."""
+    mats = default_materials(dev)
+    summary = {name: dict(max_abs_err=0.0) for name in FUSED}
+    for nrx, calls in recorded.items():
+        for name in FUSED:
+            for i, (args, out) in enumerate(calls[name]):
+                spec, rest = args[0], args[1:]
+                label = f"{name}/nrx={nrx}/call{i}"
+                if name == "bounce_pre":
+                    err, ulps = hold_pre(spec, rest, out, label)
+                    extra = dict(ulps=ulps)
+                elif name == "bounce_post":
+                    err, ulps = hold_post(spec, rest, out, label)
+                    extra = dict(ulps=ulps)
+                else:
+                    err, share, err32 = hold_bwd(spec, rest, out, mats, label)
+                    extra = dict(grad_max_leaf_share=share,
+                                 plain_f32_vs_f64_max_abs=err32)
+                summary[name]["max_abs_err"] = max(
+                    summary[name]["max_abs_err"], err)
+                emit(phase="fused_kernel", kernel=name, nrx=nrx, call=i,
+                     R=rest[1].shape[-1] if name == "loop_bwd_slim"
+                     else rest[0].shape[0], max_abs_err=err, **extra)
+
+        # a table of 300 materials, ids drawn over all of them (most >= 256):
+        # the per-ray shared-memory atomics and the int32 ids
+        args, out = calls["loop_bwd_slim"][0]
+        spec, rest = args[0], list(args[1:])
+        rng = np.random.default_rng(nrx)
+        m300 = material_table_300(dev, rng)
+        eta = precompute_eta(m300, FREQ_GHZ)
+        rest[0] = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
+                              dim=-1).detach()
+        rest[3] = torch.as_tensor(rng.integers(0, 300, rest[3].shape),
+                                  dtype=torch.int32, device=dev)
+        k = KERNELS["loop_bwd_slim"](spec, *rest)
+        err, share, _ = hold_bwd(spec, rest, k, m300,
+                                 f"loop_bwd_slim/nrx={nrx}/300 materials")
+        emit(phase="fused_kernel", kernel="loop_bwd_slim", nrx=nrx,
+             materials=300, max_abs_err=err, grad_max_leaf_share=share)
+
+        for name in FUSED:
+            args, out = calls[name][0]
+            spec, rest = args[0], args[1:]
+            outs = list(out)
+            n_bytes = nbytes(*rest, *outs)
+            if name == "loop_bwd_slim":
+                eta_tab, st_all, live_all, mat_all, _, res_post, _ = rest
+                n_live = int(live_all.sum())
+                n_write = int((res_post[:, :, 5] > 0).sum())
+                n_ops = n_live * BWD_PRE_OPS + n_write * BWD_POST_OPS
+                # what this run's data needs: res_pre (3 rows) where the ray
+                # is live, res_post and d_out rows 0-4 where the (ray, RX)
+                # was written, their row 5 (wf, freq) everywhere
+                n_bytes = (nbytes(eta_tab, st_all, live_all, mat_all, *outs)
+                           + 12 * n_live + 8 * res_post[:, :, 5].numel()
+                           + 40 * n_write)
+            elif name == "bounce_pre":
+                R = rest[0].shape[0]
+                n_ops = R * (PRE_OPS_PER_RAY + PRE_OPS_PER_RX * nrx)
+            else:
+                n_ops = rest[0].shape[0] * nrx * POST_OPS_PER_RX
+            bound_ms, bound_by = bound(n_bytes, n_ops)
+            run_k = lambda: KERNELS[name](spec, *rest)  # noqa: E731,B023
+            run_p = lambda: PLAIN[name](spec, *rest)    # noqa: E731,B023
+            wall_ms, plain_wall_ms = time_pair(run_k, run_p)
+            timing = dict(ms=device_ms(run_k, 20, name),
+                          plain_ms=device_ms(run_p, 3), wall_ms=wall_ms,
+                          plain_wall_ms=plain_wall_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, bytes=n_bytes,
+                          ops=n_ops)
+            summary[name].setdefault("timing", {})[nrx] = timing
+            emit(phase="fused_kernel_time", kernel=name, nrx=nrx, **timing,
+                 gpu=smi())
+    return summary
+
+
+def material_table_300(dev, rng):
+    """A 300-row material table: the 17 ITU rows repeated, with s and
+    s1_alpha spread so that the rows differ."""
+    base = default_materials("cpu")
+    cols = {f: np.resize(getattr(base, f).detach().numpy(), 300)
+            for f in MATERIAL_FIELDS}
+    cols["s"] = rng.uniform(0.1, 0.6, 300).astype(np.float32)
+    cols["s1_alpha"] = rng.uniform(1.0, 4.0, 300).astype(np.float32)
+    return MaterialTable(cols, device=dev)
+
+
+def phase_profile_step(tris, dev):
+    """One profiler window over a warm forward+backward step at nrx = 1, of
+    the fused path and of the op path: device busy, the four kernels' times
+    and launches, device operations and the idle share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mats = default_materials(dev)
+    for shade in ("fused", "xla"):
+        cfg = calib_config(PATHS, 1, shade == "fused")
+        calib_step(tris, 1, mats, cfg)                         # warm-up
+        t0 = time.perf_counter()
+        calib_step(tris, 1, mats, cfg)
+        unprofiled_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            calib_step(tris, 1, mats, cfg)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = prof.key_averages()
+        dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
+        host_ms = sum(e.self_cpu_time_total for e in rows
+                      if e.device_type == DeviceType.CPU) / 1e3
+        out = dict(phase="profile_step", shade=shade, nrx=1, paths=PATHS,
+                   wall_ms=wall_ms, unprofiled_wall_ms=unprofiled_ms,
+                   host_self_ms=host_ms, gpu=smi())
+        if dev_rows:
+            busy = sum(_device_ms(e) for e in dev_rows)
+            per = {}
+            for name in KERNELS:
+                ev = [e for e in dev_rows if f"{name}_kernel" in e.key]
+                per[name] = dict(ms=sum(_device_ms(e) for e in ev),
+                                 launches=sum(e.count for e in ev))
+            top = sorted(dev_rows, key=_device_ms, reverse=True)[:8]
+            out.update(device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+                       idle_share_unprofiled=1.0 - busy / unprofiled_ms,
+                       kernels=per, device_ops=sum(e.count for e in dev_rows),
+                       top_device=[[e.key[:60], _device_ms(e), e.count]
+                                   for e in top])
+        else:
+            out.update(device_busy_ms=None,
+                       note="the profiler recorded no device events")
+        emit(**out)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA GPU",
@@ -437,19 +920,44 @@ def main():
     phase_profile(main_scene, dev)
     phase_grad(main_scene, dev)
 
+    tris = flatten_scene(main_scene, device=dev)
+    counts, recorded = phase_train(tris, dev)
+    fused = phase_fused_kernel(recorded, dev)
+    del recorded
+    phase_profile_step(tris, dev)
+
     t = timing["bounce_2^20"]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "nearest_hit", "route": "cuda",
         "source": os.path.relpath(str(SOURCE), REPO),
-        "replaces": "hermespy_rt_tpu/ops/intersect_pallas.py:369",
+        "replaces": REPLACES["nearest_hit"],
         "also_replaces": "hermespy_rt_tpu/ops/intersect_pallas.py:388",
-        "launches": launches, "max_abs_err": max(max_err, path_err),
-        "flips": flips, "path_flips": path_flips,
-        "path_max_abs_err": path_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "launches": counts[1]["nearest_hit"] + counts[4]["nearest_hit"],
+        "launches_per_step": {n: c["nearest_hit"] for n, c in counts.items()},
+        "op_path_launches": launches,
+        "max_abs_err": max(max_err, path_err), "flips": flips,
+        "path_flips": path_flips, "path_max_abs_err": path_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "wall_ms": t["wall_ms"], "plain_wall_ms": t["plain_wall_ms"],
         "shadow_ms": timing["shadow_4x2^20"]["ms"],
-        "shadow_plain_ms": timing["shadow_4x2^20"]["plain_ms"]}]}),
-        flush=True)
+        "shadow_plain_ms": timing["shadow_4x2^20"]["plain_ms"],
+        "shadow_bound_ms": timing["shadow_4x2^20"]["bound_ms"]}]
+    for name in FUSED:
+        t1 = fused[name]["timing"][1]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(str(fused_ops.SOURCE), REPO),
+            "replaces": REPLACES[name],
+            "launches": counts[1][name] + counts[4][name],
+            "launches_per_step": {n: c[name] for n, c in counts.items()},
+            "max_abs_err": fused[name]["max_abs_err"],
+            "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+            "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+            "library_ms": None, "wall_ms": t1["wall_ms"],
+            "plain_wall_ms": t1["plain_wall_ms"],
+            "nrx4": fused[name]["timing"][4]})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 
 The port of :mod:`hermespy_rt_tpu` (JAX on a TPU) to PyTorch on an NVIDIA
 H100.  It covers the forward trace (LoS pass, specular bounces, scatter to
-every RX, both parity modes) with material gradients through autograd; its
-nearest-hit query is a hand-written CUDA kernel (``csrc/intersect.cu``) with
-a plain torch twin that CPU tensors use.  This package imports torch and
-never JAX.
+every RX, both parity modes) with material gradients through autograd, and
+the material-calibration path (``shade="fused"``): each bounce as two fused
+kernels and the whole loop's material backward as one
+(``csrc/bounce_fused.cu``).  The nearest-hit query is a hand-written CUDA
+kernel too (``csrc/intersect.cu``).  Every kernel has a plain torch version
+that CPU tensors use.  Entry points run on the card unless the caller asks
+for the CPU.  This package imports torch and never JAX.
 """
 from .api import compute_paths, trace, prepare_scene, load_scene
 from .config import TracerConfig

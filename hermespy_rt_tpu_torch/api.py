@@ -7,7 +7,9 @@ objects with the reference's shapes: directions ``(num_rx, num_tx,
 num_rays, 3)``, complex64 gains and f32 ``tau``/``freq_shift``
 ``(num_rx, num_tx, num_rays)``.  :func:`trace` is the extended entry point
 (scene objects, material tables, configs, ray segments).  Every entry point
-takes the ``device`` it runs on; tensors are made there.
+takes the ``device`` it runs on, the card (``"cuda"``) unless the caller asks
+for the CPU; tensors are made there.  A ``"cuda"`` call on a machine without
+a card raises, as torch does: nothing falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def load_scene(path: str) -> HostScene:
 
 def prepare_scene(scene: SceneLike, pad_to: int = 128,
                   sort_triangles: bool = False,
-                  device="cpu") -> TriangleSoA:
+                  device="cuda") -> TriangleSoA:
     """Resolve a path / host scene / prepared SoA to a TriangleSoA on
     ``device`` (a prepared SoA is returned as it is)."""
     if isinstance(scene, TriangleSoA):
@@ -61,7 +63,7 @@ def trace(scene: SceneLike,
           carrier_frequency: float = 3.0,
           config: Optional[TracerConfig] = None,
           materials: Optional[MaterialTable] = None,
-          device="cpu") -> PathsResult:
+          device="cuda") -> PathsResult:
     """Full-featured tracing entry point on ``device`` (or, for a prepared
     TriangleSoA, on the device that holds it)."""
     cfg = config or TracerConfig()
@@ -99,13 +101,13 @@ def compute_paths(mesh_filepath: SceneLike,
                   carrier_frequency: float,
                   num_rx: int, num_tx: int,
                   num_paths: int, num_bounces: int,
-                  device="cpu",
+                  device="cuda",
                   **kwargs) -> Tuple[ChannelInfo, ChannelInfo]:
     """Reference-compatible entry point: the reference's ten arguments, plus
     the ``device`` to run on.  Returns ``(los, scatter)``, without gradient
     (use :func:`trace` with a :class:`MaterialTable` for gradients).  Extra
     keyword arguments go to :class:`TracerConfig` (e.g.
-    ``parity="physical"``, ``backend="torch"``)."""
+    ``parity="physical"``, ``backend="torch"``, ``shade="fused"``)."""
     rx_positions = np.asarray(rx_positions, np.float32).reshape(-1, 3)
     tx_positions = np.asarray(tx_positions, np.float32).reshape(-1, 3)
     if rx_positions.shape[0] != num_rx:

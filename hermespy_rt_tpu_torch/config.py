@@ -37,6 +37,18 @@ class TracerConfig:
                    are split into equal RX groups run one after another.
       grad_geometry: keep fetched triangle geometry differentiable; False
                    detaches it (material gradients are unchanged).
+      shade:       bounce shading: "xla" (the default; the name is the JAX
+                   package's) runs it as torch ops, whose autograd gives
+                   every gradient; "fused" runs each bounce as two fused
+                   kernels around the shadow query and the whole loop's
+                   material backward as one kernel
+                   (``ops/bounce_fused_cuda.py``).  "fused" needs
+                   ``grad_positions=False``.
+      grad_positions: False declares positions, launch geometry and the
+                   carrier scalars constants of the backward: only the
+                   material table (and the launch state) get gradients.
+                   Requires ``grad_geometry=False``.  The "xla" path
+                   ignores it, as in the JAX package.
       backend:     nearest-hit implementation: "torch" (plain tensor ops),
                    "cuda" (the hand-written kernel) or "auto".  "cuda" and
                    "auto" both call the kernel's wrapper, which runs the
@@ -55,6 +67,8 @@ class TracerConfig:
     launch_order: str = "auto"
     compact_rays: bool = False
     grad_geometry: bool = True
+    shade: str = "xla"
+    grad_positions: bool = True
 
     @property
     def resolved_launch_order(self) -> str:
@@ -84,3 +98,17 @@ class TracerConfig:
                              f"{self.rx_query_rays}")
         if self.ray_chunk <= 0:
             raise ValueError(f"ray_chunk must be > 0, got {self.ray_chunk}")
+        if self.shade == "pallas":
+            raise ValueError("shade='pallas' (the TPU reflection-half shading "
+                             "kernel) is not ported yet; use 'xla' or 'fused'")
+        if self.shade not in ("xla", "fused"):
+            raise ValueError(f"shade must be 'xla' or 'fused', got {self.shade!r}")
+        if not self.grad_positions and self.grad_geometry:
+            raise ValueError("grad_positions=False requires grad_geometry="
+                             "False (the cross-bounce vertex chain rides the "
+                             "ray operand it stops)")
+        if self.shade == "fused" and self.grad_positions:
+            raise ValueError("shade='fused' requires grad_positions=False: "
+                             "the port has the whole-loop materials-only "
+                             "backward; the full per-stage backward is not "
+                             "ported yet")

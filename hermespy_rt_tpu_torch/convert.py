@@ -4,7 +4,9 @@ Both take plain numpy arrays keyed by field name (for example
 ``{f.name: np.asarray(getattr(table, f.name)) for f in
 dataclasses.fields(table)}`` of a JAX ``MaterialTable`` or ``TriangleSoA``),
 so this package never imports JAX, and the two packages compute on the same
-parameters in comparisons.
+parameters in comparisons.  They are the tests' harness, so unlike the
+package's entry points (which default to the card) they default to the CPU,
+where the JAX reference runs.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ __all__ = ["materials_from_jax", "soa_from_jax"]
 
 def materials_from_jax(arrays: Mapping[str, object],
                        device="cpu") -> MaterialTable:
-    """MaterialTable from the ten ``[M]`` columns ``a`` … ``s3_alpha``."""
+    """MaterialTable from the ten ``[M]`` columns ``a`` … ``s3_alpha``, of
+    any row count ``M``."""
     return MaterialTable({f: np.asarray(arrays[f], np.float32)
                           for f in MATERIAL_FIELDS}, device=device)
 

@@ -76,7 +76,7 @@ class MaterialTable(nn.Module):
     """Dense, differentiable material table: ten f32 ``[M]`` parameters
     indexed by material id (``eps' = a f^b``, ``sigma = c f^d``, f in GHz)."""
 
-    def __init__(self, columns: Dict[str, object], device="cpu"):
+    def __init__(self, columns: Dict[str, object], device="cuda"):
         super().__init__()
         for f in MATERIAL_FIELDS:
             t = torch.as_tensor(np.array(columns[f], np.float32),
@@ -88,7 +88,7 @@ class MaterialTable(nn.Module):
         return self.a.shape[0]
 
 
-def default_materials(device="cpu") -> MaterialTable:
+def default_materials(device="cuda") -> MaterialTable:
     """The 17-row ITU-R P.2040-3 table used by the reference tracer."""
     rows = np.asarray(_ITU_ROWS, dtype=np.float32)
     return MaterialTable({f: rows[:, i] for i, f in enumerate(MATERIAL_FIELDS)},

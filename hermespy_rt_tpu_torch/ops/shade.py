@@ -26,7 +26,9 @@ def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
     """``hit`` is the fetch dict (v0/e1/e2/normal/velocity, [R, 3] each),
     ``eta`` an :class:`~hermespy_rt_tpu_torch.ops.fresnel.EtaPrecomputed` of
     [R] rows.  Returns ``(o', d', ate_re', ate_im', atm_re', atm_im', tau',
-    freq', theta, cos_t1, ndot)``."""
+    freq', theta, cos_t1, ndot, sin_t1, fscale)``: the last two are the
+    residuals at which the fused path's material backward re-evaluates the
+    Fresnel chain."""
     n = hit["normal"]
     vel = hit["velocity"]
 
@@ -68,4 +70,4 @@ def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
 
     freq2 = freq + torch.where(live, dot3(d_ref - d, vel) * k_dop, 0.0)
     return (o2, d2, ate_re2, ate_im2, atm_re2, atm_im2, tau2, freq2,
-            theta, cos_t1, ndot)
+            theta, cos_t1, ndot, sin_t1, fscale)

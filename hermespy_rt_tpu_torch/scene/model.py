@@ -111,7 +111,7 @@ def _morton_order(centroids: np.ndarray) -> np.ndarray:
 
 def flatten_scene(scene: HostScene, pad_to: int = 128,
                   sort_triangles: bool = False,
-                  device="cpu") -> TriangleSoA:
+                  device="cuda") -> TriangleSoA:
     """Flatten all meshes into a padded :class:`TriangleSoA` on ``device``.
 
     Normals are computed once, in float32 and in the reference's operation

@@ -12,16 +12,24 @@ Hit indices are decisions without gradient; every differentiable quantity is
 re-derived from the gathered triangle row, so ``loss.backward()`` reaches the
 material table (and, with ``grad_geometry``, the triangle payload) through
 plain autograd.  The bounce scan of the JAX package is a Python loop here.
+
+With ``shade="fused"`` (and ``grad_positions=False``) the bounce loop runs
+instead as :class:`FusedLoopSlim`: per bounce two fused kernels around the
+shadow query, and one kernel for the whole loop's material backward
+(``ops/bounce_fused_cuda.py``), as the JAX package's ``fused_loop_slim``.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .config import TracerConfig
+from .ops import bounce_fused_cuda as fused_ops
+from .ops.bounce_fused import FusedSpec
 from .ops.fresnel import ETA_FIELDS, EtaPrecomputed, precompute_eta
 from .ops.geometry import dot3, fast_acos, fibonacci_sphere
 from .ops.intersect import FLT_EPS, intersect_torch
@@ -86,7 +94,8 @@ def _select_intersect(cfg: TracerConfig):
 class LocalSceneAccess:
     """The whole triangle SoA on this device, with the per-hit payload
     (triangle basis, normal, velocity, material eta row) in ONE ``[T, 27]``
-    table so that a hit fetch is a single row gather."""
+    table so that a hit fetch is a single row gather, the per-material eta
+    rows ``[M, 12]`` and the int32 triangle materials (the fused path's)."""
 
     def __init__(self, tris: TriangleSoA, cfg: TracerConfig,
                  eta: EtaPrecomputed):
@@ -99,6 +108,9 @@ class LocalSceneAccess:
         self._table = torch.cat(
             [tris.v0, tris.e1, tris.e2, tris.normal, tris.velocity, eta_cols],
             dim=-1)                                                   # [T, 27]
+        self._eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
+                                    dim=-1)                           # [M, 12]
+        self._material = mat.to(torch.int32)
 
     def intersect(self, o, d, t_max=None, exclude=None, live=None):
         """Nearest hit ``(t f32[R] (+inf miss), idx i32[R] (-1 miss))``;
@@ -228,8 +240,8 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     hit = access.fetch(safe)
     mat_rows = hit["eta"]
     (o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, theta, cos_t1,
-     ndot) = shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
-                     hit, mat_rows, fslm, k_dop)
+     ndot, _, _) = shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq,
+                           live, hit, mat_rows, fslm, k_dop)
     n = hit["normal"]
     vel = hit["velocity"]
     s_row, s1_row = mat_rows.s, mat_rows.s1_alpha
@@ -352,6 +364,116 @@ def launch_state(tx_pos, tx_vel, launch_dirs, k_dop):
     return (o0, d0, ones, zeros, ones, zeros, zeros, act, freq0, pidx0)
 
 
+def _fused_forward(access: LocalSceneAccess, spec: FusedSpec,
+                   cfg: TracerConfig, rx_pos, sc, st0, o, d, act, pidx,
+                   save: bool):
+    """The fused bounce loop's forward: per bounce the nearest hit, the pre
+    kernel, one all-RX shadow query and the post kernel.  Returns the
+    stacked per-bounce outputs ``(out [B, nrx, 6, R], write bool[B, nrx, R],
+    sh_d [B, nrx, R, 3], live bool[B, R], o2 [B, R, 3] | None, d2 ...)`` and,
+    with ``save``, the residuals of the material backward ``(st_all
+    [B+1, 6, R], live, mat i32[B, R], res_pre [B, 3, R], res_post
+    [B, nrx, 6, R])``, else None."""
+    nrx, R = spec.nrx, o.shape[0]
+    table = access._table.detach()
+    st = st0.detach()
+    outs, writes, sh_ds, lives, o2s, d2s = ([] for _ in range(6))
+    sts, mats, res_pre, res_post = [st], [], [], []
+    for _ in range(cfg.num_bounces):
+        _, idx = access.intersect(o, d, exclude=pidx,
+                                  live=act if cfg.compact_rays else None)
+        pre = fused_ops.bounce_pre(spec, o, d, st, act, idx, table,
+                                   access._material, rx_pos, sc)
+        t_max = (None if spec.parity == "reference"
+                 else (pre.d2rx - 2.0 * spec.eps_o).reshape(-1))
+        excl_q = pre.excl[None].expand(nrx, R).reshape(-1)
+        live_q = (pre.live[None].expand(nrx, R).reshape(-1)
+                  if cfg.compact_rays else None)
+        t_o, idx_o = _shadow_intersect(access, pre.sh_o, pre.sh_d, t_max,
+                                       excl_q, cfg, live=live_q)
+        post = fused_ops.bounce_post(
+            spec, pre.d2, pre.st2, pre.ex, pre.sh_d, pre.d2rx, pre.t_self,
+            pre.crossing, pre.excl, pre.live, t_o.reshape(nrx, R),
+            idx_o.reshape(nrx, R), table, sc)
+        outs.append(post.out)
+        writes.append(post.write)
+        sh_ds.append(pre.sh_d)
+        lives.append(pre.live)
+        if cfg.keep_rays:
+            o2s.append(pre.o2)
+            d2s.append(pre.d2)
+        if save:
+            sts.append(pre.st2)
+            mats.append(pre.mat)
+            res_pre.append(pre.res)
+            res_post.append(post.res)
+        o, d, st, act, pidx = pre.o2, pre.d2, pre.st2, pre.live, pre.excl
+    primal = tuple(torch.stack(xs) if xs else None
+                   for xs in (outs, writes, sh_ds, lives, o2s, d2s))
+    if not save:
+        return primal, None
+    resid = (torch.stack(sts), primal[3], torch.stack(mats),
+             torch.stack(res_pre), torch.stack(res_post))
+    return primal, resid
+
+
+class FusedLoopSlim(torch.autograd.Function):
+    """The whole fused bounce loop as one autograd node, as the JAX
+    package's ``fused_loop_slim``: the forward runs :func:`_fused_forward`
+    and keeps its residuals; the backward is ONE ``loop_bwd_slim`` launch,
+    which returns the cotangents of the per-material eta table ``eta_tab``
+    [M, 12] and of the launch state ``st0`` [6, R].  Autograd carries the
+    former on through ``precompute_eta`` to the material parameters.  The
+    payload table enters detached and the queries are decisions, so nothing
+    else receives a gradient (``grad_positions=False``)."""
+
+    @staticmethod
+    def forward(ctx, eta_tab, st0, spec, run):
+        primal, resid = run(save=True)
+        ctx.spec = spec
+        ctx.save_for_backward(eta_tab, *resid)
+        ctx.mark_non_differentiable(*(x for x in primal[1:]
+                                      if x is not None))
+        return primal
+
+    @staticmethod
+    def backward(ctx, d_out, *_):
+        eta_tab, st_all, live_all, mat_all, res_pre, res_post = (
+            ctx.saved_tensors)
+        d_st0, d_eta_tab = fused_ops.loop_bwd_slim(
+            ctx.spec, eta_tab.detach(), st_all, live_all, mat_all, res_pre,
+            res_post, d_out.contiguous())
+        return d_eta_tab, d_st0, None, None
+
+
+def run_fused_loop_slim(access: LocalSceneAccess, rx_pos, state0, fslm,
+                        k_dop, cfg: TracerConfig):
+    """The fused bounce loop from the :func:`launch_state` tuple, its
+    outputs in the per-bounce ``ys`` layout of :func:`assemble_scatter`.
+    Residuals are kept only when a gradient can be asked for."""
+    o, d, ate_re, ate_im, atm_re, atm_im, tau, act, freq, pidx = state0
+    spec = FusedSpec(nrx=rx_pos.shape[0], parity=cfg.parity,
+                     eps_o=cfg.occlusion_offset)
+    st0 = torch.stack([ate_re, ate_im, atm_re, atm_im, tau, freq])
+    sc = torch.stack([fslm, k_dop]).detach()
+    run = partial(_fused_forward, access, spec=spec, cfg=cfg, rx_pos=rx_pos,
+                  sc=sc, st0=st0, o=o, d=d, act=act, pidx=pidx)
+    eta_tab = access._eta_tab
+    if torch.is_grad_enabled() and (eta_tab.requires_grad
+                                    or st0.requires_grad):
+        out, write, sh_d, live, o2, d2 = FusedLoopSlim.apply(eta_tab, st0,
+                                                             spec, run)
+    else:
+        (out, write, sh_d, live, o2, d2), _ = run(save=False)
+    ys = []
+    for b in range(cfg.num_bounces):
+        ys.append((out[b, :, 0], out[b, :, 1], out[b, :, 2], out[b, :, 3],
+                   out[b, :, 4], out[b, :, 5],
+                   torch.where(write[b][..., None], -sh_d[b], 0.0))
+                  + ((o2[b], d2[b], live[b]) if cfg.keep_rays else ()))
+    return ys
+
+
 def assemble_scatter(ys, d0, o0, nrx, ntx, P, B, keep_rays: bool):
     """Stack the per-bounce outputs into the reference ChannelInfo layout
     ``(rx, tx, bounce*path)`` plus the per-bounce RaysInfo."""
@@ -428,11 +550,14 @@ def trace_paths(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
 
     state = launch_state(tx_pos, tx_vel, launch_dirs, k_dop)
     o0, d0 = state[0], state[1]
-    ys = []
-    for _ in range(B):
-        state, y = bounce_step(state, access=access, rx_pos=rx_pos,
-                               fslm=fslm, k_dop=k_dop, cfg=cfg)
-        ys.append(y)
+    if cfg.shade == "fused":
+        ys = run_fused_loop_slim(access, rx_pos, state, fslm, k_dop, cfg)
+    else:
+        ys = []
+        for _ in range(B):
+            state, y = bounce_step(state, access=access, rx_pos=rx_pos,
+                                   fslm=fslm, k_dop=k_dop, cfg=cfg)
+            ys.append(y)
     scatter, rays_scatter = assemble_scatter(ys, d0, o0, nrx, ntx, P, B,
                                              cfg.keep_rays)
     return PathsResult(los=los, scatter=scatter, rays_los=rays_los,

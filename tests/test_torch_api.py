@@ -2,6 +2,7 @@
 ``tests/test_api.py``, argument validation, ``.hrt`` input, agreement of
 ``compute_paths`` with the JAX package's, and that importing the port
 leaves JAX out."""
+import inspect
 import os
 import subprocess
 import sys
@@ -52,7 +53,7 @@ def test_compute_paths_matches_jax_on_hrt_file(tmp_path):
     los_j, sc_j = J.compute_paths(path, rx, tx, z, z, 3.0, 1, 1, 500, 2,
                                   backend="jnp")
     los_t, sc_t = hrt.compute_paths(path, rx, tx, z, z, 3.0, 1, 1, 500, 2,
-                                    backend="torch")
+                                    backend="torch", device="cpu")
     assert float(los_t.a_te.abs()[0, 0, 0]) == 1.0
     np.testing.assert_allclose(los_t.a_te.numpy(), np.asarray(los_j.a_te),
                                rtol=1e-6)
@@ -67,11 +68,11 @@ def test_row_count_validation():
     with pytest.raises(ValueError):
         hrt.compute_paths(hrt.box_scene(), np.zeros((2, 3)), np.zeros((1, 3)),
                           np.zeros((2, 3)), np.zeros((1, 3)), 3.0,
-                          1, 1, 10, 1)
+                          1, 1, 10, 1, device="cpu")
     with pytest.raises(ValueError):
         hrt.compute_paths(hrt.box_scene(), np.zeros((1, 3)), np.zeros((1, 3)),
                           np.zeros((1, 3)), np.zeros((1, 3)), 3.0,
-                          1, 1, 10, 1, backend="pallas")
+                          1, 1, 10, 1, backend="pallas", device="cpu")
 
 
 def test_unsupported_scene_format():
@@ -81,7 +82,8 @@ def test_unsupported_scene_format():
 
 def test_trace_returns_rays_info():
     res = hrt.trace(hrt.box_scene(), [[1., 1., 1.]], [[-1., -1., 2.]],
-                    config=hrt.TracerConfig(num_paths=64, num_bounces=2))
+                    config=hrt.TracerConfig(num_paths=64, num_bounces=2),
+                    device="cpu")
     ri = res.rays_scatter
     assert ri.origins.shape == (1, 3, 64, 3)
     assert ri.active.shape == (1, 3, 64)
@@ -91,14 +93,15 @@ def test_trace_returns_rays_info():
 
 
 def test_prepare_scene_passes_soa_through():
-    soa = hrt.prepare_scene(hrt.box_scene(), pad_to=64)
+    soa = hrt.prepare_scene(hrt.box_scene(), pad_to=64, device="cpu")
     assert soa.pad_triangles == 64 and soa.num_triangles == 12
     assert hrt.prepare_scene(soa) is soa
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, hermespy_rt_tpu_torch, hermespy_rt_tpu_torch.convert,"
-            " hermespy_rt_tpu_torch.ops.intersect_cuda; "
+            " hermespy_rt_tpu_torch.ops.intersect_cuda,"
+            " hermespy_rt_tpu_torch.ops.bounce_fused_cuda, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hermespy_rt_tpu.')) "
             "or m == 'hermespy_rt_tpu'); print(bad); sys.exit(1 if bad else 0)")
@@ -106,3 +109,14 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU; on a
+    machine without one, the default raises as torch does (no fallback)."""
+    for fn in (hrt.compute_paths, hrt.trace, hrt.prepare_scene,
+               hrt.default_materials, hrt.flatten_scene, hrt.MaterialTable):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            hrt.default_materials()

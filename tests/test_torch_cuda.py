@@ -1,20 +1,28 @@
-"""Tests of the CUDA nearest-hit kernel on the card.
+"""Tests of the CUDA kernels on the card.
 
 They need an NVIDIA GPU with nvcc and skip elsewhere.  The file imports no
-JAX, so it runs where JAX is absent; run it without the repo's conftest
-(which imports JAX):
+JAX, so it runs where JAX is absent; run it from the repo root without the
+repo's conftest (which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The kernel must make exactly the decisions of its plain torch twin on the
-same card (both round every product and sum on its own, in the same order),
-and the trace through it must agree with the trace through the twin to the
-tier of ``tests/test_pallas.py``."""
+The nearest-hit kernel must make exactly the decisions of its plain torch
+twin on the same card (both round every product and sum on its own, in the
+same order), and the trace through it must agree with the trace through the
+twin to the tier of ``tests/test_pallas.py``.  The fused bounce kernels are
+held against their plain versions with ``chip_smoke.py``'s checks (equal
+decisions, values within their tier, the backward against the plain version
+in float64), and one fused forward+backward step against the op path."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from hermespy_rt_tpu_torch import compute_paths
+import chip_smoke as smoke
+from hermespy_rt_tpu_torch import compute_paths, default_materials
+from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
+from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch
 from hermespy_rt_tpu_torch.ops.intersect_cuda import nearest_hit
 from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene,
@@ -105,3 +113,80 @@ def test_trace_through_kernel_matches_twin(dev):
             if m.any():
                 np.testing.assert_allclose(b[m], a[m], rtol=1e-4,
                                            atol=np.abs(a[m]).max() * 1e-5)
+
+
+def _soup(dev, n_materials, seed=0):
+    """The stand-in scene; with more than 17 materials its triangles get ids
+    drawn over the whole table (most of them >= 256 for 300)."""
+    tris = flatten_scene(random_soup_scene(234, seed=0, extent=90.0,
+                                           tri_size=8.0), device=dev)
+    if n_materials == 17:
+        return tris, default_materials(dev)
+    rng = np.random.default_rng(seed)
+    ids = torch.as_tensor(rng.integers(0, n_materials, tris.pad_triangles),
+                          device=dev)
+    return (dataclasses.replace(tris, material=ids),
+            smoke.material_table_300(dev, rng))
+
+
+@pytest.mark.parametrize("parity,nrx,n_materials",
+                         [("reference", 1, 17), ("physical", 3, 300)])
+def test_fused_kernels_equal_plain(dev, parity, nrx, n_materials):
+    tris, mats = _soup(dev, n_materials)
+    cfg = dataclasses.replace(smoke.calib_config(1 << 16, nrx, True),
+                              parity=parity)
+    with smoke.recording_fused() as calls:
+        smoke.calib_step(tris, nrx, mats, cfg)
+    assert [len(calls[n]) for n in smoke.FUSED] == [3, 3, 1]
+    for i, (args, out) in enumerate(calls["bounce_pre"]):
+        smoke.hold_pre(args[0], args[1:], out, f"pre{i}")
+    for i, (args, out) in enumerate(calls["bounce_post"]):
+        smoke.hold_post(args[0], args[1:], out, f"post{i}")
+    args, out = calls["loop_bwd_slim"][0]
+    smoke.hold_bwd(args[0], args[1:], out, mats, "loop_bwd_slim")
+
+
+def test_fused_step_matches_op_path(dev):
+    tris, _ = _soup(dev, 17)
+    nrx = 2
+    grads, scat, launches = {}, {}, {}
+    for shade in ("xla", "fused"):
+        mats = default_materials(dev)
+        for kern in smoke.KERNELS.values():
+            kern.launches = 0
+        res, _ = smoke.calib_step(tris, nrx, mats, smoke.calib_config(
+            1 << 14, nrx, shade == "fused"))
+        launches[shade] = {n: k.launches for n, k in smoke.KERNELS.items()}
+        grads[shade], scat[shade] = smoke.grads_of(mats), res.scatter
+    assert launches["fused"] == {"nearest_hit": 7, "bounce_pre": 3,
+                                 "bounce_post": 3, "loop_bwd_slim": 1}
+    assert launches["xla"] == {"nearest_hit": 7, "bounce_pre": 0,
+                               "bounce_post": 0, "loop_bwd_slim": 0}
+    smoke.leaves_close(grads["fused"], grads["xla"], smoke.PATH_GRAD_RTOL,
+                       smoke.LEAF_ATOL, "fused vs op path")
+    for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
+        smoke.slots_agree(getattr(scat["xla"], f), getattr(scat["fused"], f),
+                          f)
+
+
+def test_fused_kernels_reject_bad_operands(dev):
+    spec = FusedSpec(nrx=1)
+    R, T = 64, 128
+    f = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                     device=dev)
+    ok = dict(o=f(R, 3), d=f(R, 3), st=f(6, R),
+              act=torch.ones(R, dtype=torch.bool, device=dev), idx=i32(R),
+              table=f(T, 27), material=i32(T), rx_pos=f(1, 3), sc=f(2))
+    fused_ops.bounce_pre(spec, *ok.values())
+    torch.cuda.synchronize()
+    for name, bad in (("idx", torch.zeros(R, dtype=torch.int64, device=dev)),
+                      ("o", f(3, R).t()), ("table", f(T, 26)),
+                      ("st", f(6, R).cpu()), ("material", i32(T).long())):
+        with pytest.raises(ValueError):
+            fused_ops.bounce_pre(spec, *{**ok, name: bad}.values())
+    with pytest.raises(ValueError):
+        fused_ops.loop_bwd_slim(
+            spec, f(fused_ops.MAX_MATERIALS + 1, 12), f(2, 6, R),
+            torch.ones((1, R), dtype=torch.bool, device=dev), i32(1, R),
+            f(1, 3, R), f(1, 1, 6, R), f(1, 1, 6, R))

@@ -55,7 +55,7 @@ def test_fast_acos_matches(rng):
 
 
 def test_material_table():
-    t = default_materials()
+    t = default_materials(device="cpu")
     j = jax_materials()
     assert t.num_materials == NUM_MATERIALS == 17
     for f in MATERIAL_FIELDS:
@@ -68,7 +68,7 @@ def test_material_table():
 
 @pytest.mark.parametrize("f_ghz", [0.5, 3.0, 28.0, 70.0])
 def test_precompute_eta_matches(f_ghz):
-    ours = tfres.precompute_eta(default_materials(), f_ghz)
+    ours = tfres.precompute_eta(default_materials(device="cpu"), f_ghz)
     ref = jfres.precompute_eta(jax_materials(), f_ghz)
     for f in tfres.ETA_FIELDS:
         _close(getattr(ours, f), getattr(ref, f))
@@ -139,8 +139,8 @@ def test_config_validation():
                 dict(launch_order="random"), dict(ray_chunk=0)):
         with pytest.raises(ValueError):
             TracerConfig(**bad)
-    with pytest.raises(TypeError):   # JAX-only knobs are not accepted
-        TracerConfig(shade="fused")
+    with pytest.raises(TypeError):   # knobs not ported yet are not accepted
+        TracerConfig(transmission=True)
     assert TracerConfig().resolved_launch_order == "fibonacci"
     assert (TracerConfig(parity="physical").resolved_launch_order
             == "coherent")

@@ -21,7 +21,8 @@ SCENES = {
 @pytest.mark.parametrize("sort", [False, True])
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_flatten_scene_bit_equal(name, sort):
-    ours = ts.flatten_scene(SCENES[name](ts), sort_triangles=sort)
+    ours = ts.flatten_scene(SCENES[name](ts), sort_triangles=sort,
+                             device="cpu")
     ref = js.flatten_scene(SCENES[name](js), sort_triangles=sort)
     assert ours.num_triangles == ref.num_triangles
     assert ours.pad_triangles == ref.pad_triangles
@@ -34,7 +35,7 @@ def test_flatten_scene_bit_equal(name, sort):
 
 
 def test_padding_triangles_are_zero():
-    soa = ts.flatten_scene(ts.box_scene(), pad_to=128)
+    soa = ts.flatten_scene(ts.box_scene(), pad_to=128, device="cpu")
     assert soa.pad_triangles == 128
     for f in ("v0", "e1", "e2", "normal", "velocity"):
         assert not getattr(soa, f)[12:].any()
