@@ -14,7 +14,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                masks.  Every hit decision that differs must be an f64
                edge/tie case (tests/utils.py::assert_flips_explained) and t
                must agree to rtol 2e-5 where the decision agrees.
-3. trace    -- the op path (``shade="xla"``, PR 1's main path):
+3. trace    -- the op path (``shade="xla"``), forward only:
                ``compute_paths`` at 2^20 paths, 3 bounces, reference parity,
                nrx = 1 and 4, through the kernel: its launch count, finite
                outputs, a written scatter; at 2^16 paths the same trace with
