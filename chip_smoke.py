@@ -41,9 +41,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                agree with the op path's and the scatter slots agree.
 8. fused_kernel -- every recorded fused kernel call of the 2^20-path steps
                held against its plain version on the same inputs: equal
-               decisions, geometric rows equal, values within their tier;
-               then each kernel's and its plain version's device time
-               (profiler) and time between CUDA events, and its bound.
+               decisions, geometric rows equal, values within their tier
+               (ulp gaps per row); the backward on a 300-row material table,
+               within its tier and twice to the same bits; then each
+               kernel's and its plain version's device time (profiler) and
+               time between CUDA events, and its bound (the bytes and
+               operations this run's data needs).
 9. profile_step -- one profiler window over one forward+backward step at
                nrx = 1, of the fused path and of the op path.
 
@@ -59,26 +62,25 @@ import sys
 import time
 import types
 
-import warnings
-
 import numpy as np
 import torch
 
-from hermespy_rt_tpu_torch import (MaterialTable, TracerConfig,
-                                   compute_paths, default_materials, trace)
+from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
+                                   default_materials, trace)
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops._cuda_build import LIBRARY
-from hermespy_rt_tpu_torch.ops.bounce_fused import (bounce_post_plain,
-                                                    bounce_pre_plain,
-                                                    loop_bwd_slim_plain)
 from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
 from hermespy_rt_tpu_torch.ops.geometry import fibonacci_sphere
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch
 from hermespy_rt_tpu_torch.ops.intersect_cuda import SOURCE, nearest_hit
 from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene, load_hrt,
                                          random_soup_scene)
+from hermespy_rt_tpu_torch.testing import (
+    FUSED, KERNELS, LEAF_ATOL, OUTPUT_FIELDS, PATH_GRAD_RTOL, PLAIN, check,
+    calibration_config, calibration_step, grads_of, hold_bwd, hold_post,
+    hold_pre, leaves_close, material_table, recording_fused, slots_agree)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CANYON = os.path.join(REPO, "scenes", "simple_street_canyon_with_cars.hrt")
@@ -106,42 +108,12 @@ NEAREST_HIT_OPS_PER_PAIR = 47
 PRE_OPS_PER_RAY, PRE_OPS_PER_RX = 180, 30
 POST_OPS_PER_RX = 150
 BWD_PRE_OPS, BWD_POST_OPS = 120, 100
-# Tier of the fused kernels against their plain versions: decisions equal;
-# value rows within 3e-5 of their row's largest magnitude
-# (tests/test_bounce_fused.py::_assert_close_rows), a complex value's
-# (re, im) rows and a vector's components taken together; the backward's material
-# gradients, pushed through precompute_eta to the material parameters,
-# within 3e-5 of each leaf's largest magnitude plus 1e-16
-# (tests/test_bounce_fused.py:125), against the plain version in float64
-# (the plain version's own index_add_ sums ~10^6 terms per material in f32
-# atomics, which alone drift by ~1e-4 of the sum).
-ROW_RTOL = 3e-5
-LEAF_RTOL, LEAF_ATOL = 3e-5, 1e-16
-AMP_GROUPS = ((0, 1), (2, 3), (4,), (5,))   # state and output rows
-VEC_GROUPS = ((0, 1, 2),)                    # a vector's components
-# fused vs op-path material gradients at 2^16 paths: ~10^5 f32 terms per
-# material summed in different orders on the two paths (random-walk
-# rounding ~sqrt(N) 2^-24 ~ 2e-5 of the sum), the tier of
-# tests/test_torch_tracer.py's gradient test
-PATH_GRAD_RTOL = 1e-4
-FUSED = ("bounce_pre", "bounce_post", "loop_bwd_slim")
-KERNELS = {"nearest_hit": nearest_hit,
-           **{name: getattr(fused_ops, name) for name in FUSED}}
-PLAIN = {"bounce_pre": bounce_pre_plain, "bounce_post": bounce_post_plain,
-         "loop_bwd_slim": loop_bwd_slim_plain}
+# The tolerances of the kernels against their plain versions, with their
+# reasons, are in hermespy_rt_tpu_torch/testing.py.
 REPLACES = {"nearest_hit": "hermespy_rt_tpu/ops/intersect_pallas.py:369",
             "bounce_pre": "hermespy_rt_tpu/ops/bounce_fused.py:344",
             "bounce_post": "hermespy_rt_tpu/ops/bounce_fused.py:684",
             "loop_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:1170"}
-
-
-class SmokeFailure(RuntimeError):
-    pass
-
-
-def check(cond, msg):
-    if not cond:
-        raise SmokeFailure(msg)
 
 
 def emit(**kw):
@@ -326,22 +298,6 @@ def phase_kernel(scenes, dev):
     return worst, total_flips
 
 
-def slots_agree(ref, ours, label):
-    ref, ours = ref.detach().cpu().numpy(), ours.detach().cpu().numpy()
-    w_r, w_o = np.abs(ref) > 0, np.abs(ours) > 0
-    if ref.ndim == 4:
-        w_r, w_o = w_r.any(-1), w_o.any(-1)
-    agree = float((w_r == w_o).mean())
-    check(agree > 0.995, f"{label}: slot agreement {agree}")
-    m = w_r & w_o
-    if m.any():
-        a, b = ref[m], ours[m]
-        tol = 1e-4 * np.abs(a) + 1e-5 * np.abs(a).max()
-        check(bool((np.abs(a - b) <= tol).all()),
-              f"{label}: agreeing slots differ beyond rtol 1e-4")
-    return agree
-
-
 def run_paths(host, nrx, dev, backend, paths, **kw):
     """The main path: ``compute_paths`` as bench.py drives it."""
     los, sc = compute_paths(host, rx_positions(nrx), TX, np.zeros((nrx, 3)),
@@ -370,7 +326,7 @@ def phase_trace(host, scene_name, dev):
               f"nrx={nrx}: {n_launch} kernel launches < {1 + 2 * BOUNCES}")
         check(len(rec.queries) == n_launch,
               f"nrx={nrx}: {len(rec.queries)} queries, {n_launch} launches")
-        for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
+        for f in OUTPUT_FIELDS:
             for part, info in (("los", los), ("scatter", sc)):
                 x = getattr(info, f)
                 x = torch.view_as_real(x) if x.is_complex() else x
@@ -386,8 +342,7 @@ def phase_trace(host, scene_name, dev):
         _, sc_p = run_paths(host, nrx, dev, "torch", SMALL_PATHS,
                             ray_chunk=TWIN_CHUNK)
         agree = {f: slots_agree(getattr(sc_p, f), getattr(sc_k, f), f)
-                 for f in ("a_te", "a_tm", "tau", "freq_shift",
-                           "directions_rx")}
+                 for f in OUTPUT_FIELDS}
 
         queries = BOUNCES * P * (1 + nrx)
         times = {}
@@ -532,158 +487,15 @@ def bound(n_bytes, n_ops):
                                  else "operations")
 
 
-def ulp_gap(a, b):
-    """Largest distance in f32 units in the last place between ``a``, ``b``."""
-    def ordered(x):
-        i = x.contiguous().view(torch.int32).long()
-        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
-    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
-
-
-def rows_close(k, p, rtol, label, groups=None):
-    """|k - p| within ``rtol`` of the largest |p| of its row (rays on the
-    last axis), or of its group of rows: a complex value's (re, im) pair, a
-    vector's three components, whose small parts come from cancellation of
-    the large ones.  Returns the max abs error."""
-    k2, p2 = k.double(), p.double()
-    scale = p2.abs().amax(dim=-1, keepdim=True)
-    for g in groups or ():
-        scale[..., list(g), :] = scale[..., list(g), :].amax(dim=-2,
-                                                             keepdim=True)
-    err = (k2 - p2).abs()
-    check(bool((err <= rtol * scale).all()),
-          f"{label}: {int((err > rtol * scale).sum())} values beyond "
-          f"{rtol} of their row's max")
-    return float(err.max()) if err.numel() else 0.0
-
-
-@contextlib.contextmanager
-def recording_fused():
-    """Stands in for the three fused wrappers inside the tracer: forwards each
-    call to the wrapper (which counts the launch) and keeps its inputs and the
-    kernel's outputs."""
-    calls = {name: [] for name in FUSED}
-
-    def recorder(name):
-        def call(*args):
-            out = KERNELS[name](*args)
-            calls[name].append((args, out))
-            return out
-        return call
-
-    for name in FUSED:
-        setattr(fused_ops, name, recorder(name))
-    try:
-        yield calls
-    finally:
-        for name in FUSED:
-            setattr(fused_ops, name, KERNELS[name])
-
-
-def material_grads(mats, d_eta_tab):
-    """The material parameters' gradients from a cotangent of the
-    per-material eta table, through precompute_eta (autograd)."""
-    eta = precompute_eta(mats, FREQ_GHZ)
-    tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS], dim=-1)
-    params = [getattr(mats, f) for f in MATERIAL_FIELDS]
-    gs = torch.autograd.grad(tab, params, grad_outputs=d_eta_tab.float(),
-                             allow_unused=True)
-    return {f: torch.zeros_like(p) if g is None else g
-            for f, p, g in zip(MATERIAL_FIELDS, params, gs)}
-
-
-def leaves_close(g_k, g_p, rtol, atol, label):
-    """Each leaf within ``rtol`` of its largest |g_p| plus ``atol``.
-    Returns the largest error as a share of its leaf's max."""
-    worst = 0.0
-    for f in g_p:
-        a, b = g_p[f].double(), g_k[f].double()
-        scale = float(a.abs().max())
-        err = float((a - b).abs().max())
-        check(err <= rtol * max(scale, 1e-30) + atol,
-              f"{label}: leaf {f} err {err} > {rtol} x {scale} + {atol}")
-        worst = max(worst, err / scale if scale > 0 else 0.0)
-    return worst
-
-
-def as_rows(x, vector):
-    """Rays on the last axis: ``[..., R, 3]`` vectors become ``[..., 3, R]``."""
-    return x.movedim(-1, -2) if vector else x
-
-
-def hold_pre(spec, args, k, label):
-    p = bounce_pre_plain(spec, *args)
-    for f in ("crossing", "excl", "live", "mat"):
-        check(torch.equal(getattr(k, f), getattr(p, f)),
-              f"{label}: decision {f} differs")
-    vectors = ("o2", "d2", "sh_o", "sh_d")
-    fields = vectors + ("d2rx", "t_self", "ex", "res", "st2")
-    groups = {f: VEC_GROUPS for f in vectors}
-    groups["st2"] = AMP_GROUPS
-    ulps = {f: ulp_gap(getattr(k, f), getattr(p, f)) for f in fields}
-    err = max(rows_close(as_rows(getattr(k, f), f in vectors),
-                         as_rows(getattr(p, f), f in vectors), ROW_RTOL,
-                         f"{label}: {f}", groups.get(f)) for f in fields)
-    return err, ulps
-
-
-def hold_post(spec, args, k, label):
-    p = bounce_post_plain(spec, *args)
-    check(torch.equal(k.write, p.write), f"{label}: decision write differs")
-    err = max(rows_close(k.out, p.out, ROW_RTOL, f"{label}: out",
-                         AMP_GROUPS),
-              rows_close(k.res, p.res, ROW_RTOL, f"{label}: res"))
-    return err, {"out": ulp_gap(k.out, p.out), "res": ulp_gap(k.res, p.res)}
-
-
-def hold_bwd(spec, args, k, mats, label):
-    """The kernel's backward against the plain version in float64 (and, for
-    the record, in float32) on the same inputs."""
-    eta_tab, st_all, live_all, mat_all, res_pre, res_post, d_out = args
-    up = lambda x: x.double()  # noqa: E731
-    d_st0_p, d_tab_p = loop_bwd_slim_plain(
-        spec, up(eta_tab), up(st_all), live_all, mat_all, up(res_pre),
-        up(res_post), up(d_out))
-    d_st0_k, d_tab_k = k
-    rows_close(d_st0_k, d_st0_p, ROW_RTOL, f"{label}: d_st0", AMP_GROUPS)
-    share = leaves_close(material_grads(mats, d_tab_k),
-                         material_grads(mats, d_tab_p), LEAF_RTOL, LEAF_ATOL,
-                         f"{label}: material gradients")
-    _, d_tab_p32 = loop_bwd_slim_plain(spec, *args)
-    return (float((d_tab_k.double() - d_tab_p).abs().max()), share,
-            float((d_tab_p32.double() - d_tab_p).abs().max()))
-
-
 def calib_config(paths, nrx, fused):
     """bench.py's material-calibration flags on the port."""
-    kw = dict(shade="fused", grad_positions=False) if fused else {}
-    with warnings.catch_warnings():   # coherent order under reference parity
-        warnings.simplefilter("ignore")
-        return TracerConfig(num_paths=paths, num_bounces=BOUNCES,
-                            parity="reference", compact_rays=True,
-                            launch_order="coherent", keep_rays=False,
-                            grad_geometry=False, **kw)
+    return calibration_config(paths, BOUNCES, fused)
 
 
 def calib_step(tris, nrx, mats, cfg, backward=True):
-    """One step: trace, loss (sum |a_te|^2 + |a_tm|^2) 1e9 as bench.py,
-    backward to the material table."""
-    mats.zero_grad(set_to_none=True)
-    with torch.set_grad_enabled(backward):
-        res = trace(tris, rx_positions(nrx), TX, carrier_frequency=FREQ_GHZ,
-                    config=cfg, materials=mats)
-        loss = (res.scatter.a_te.abs().square().sum()
-                + res.scatter.a_tm.abs().square().sum()) * 1e9
-        if backward:
-            loss.backward()
-    torch.cuda.synchronize()
-    return res, loss
-
-
-def grads_of(mats):
-    return {f: (torch.zeros_like(getattr(mats, f)) if getattr(mats, f).grad
-                is None else getattr(mats, f).grad.clone())
-            for f in MATERIAL_FIELDS}
+    """One step of bench.py's workload at ``nrx`` receivers."""
+    return calibration_step(tris, rx_positions(nrx), TX, FREQ_GHZ, mats, cfg,
+                            backward=backward)
 
 
 def phase_train(tris, dev):
@@ -705,7 +517,7 @@ def phase_train(tris, dev):
         recorded[nrx] = calls
         check(counts[nrx] == expected,
               f"nrx={nrx}: launches {counts[nrx]}, expected {expected}")
-        for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
+        for f in OUTPUT_FIELDS:
             x = getattr(res.scatter, f)
             x = torch.view_as_real(x) if x.is_complex() else x
             check(bool(torch.isfinite(x).all()), f"nrx={nrx}: {f} not finite")
@@ -745,8 +557,7 @@ def phase_train(tris, dev):
                                   f"nrx={nrx}: fused vs op-path gradients")
         agree = {f: slots_agree(getattr(scat["xla"], f),
                                 getattr(scat["fused"], f), f)
-                 for f in ("a_te", "a_tm", "tau", "freq_shift",
-                           "directions_rx")}
+                 for f in OUTPUT_FIELDS}
         emit(phase="train", nrx=nrx, paths=PATHS, bounces=BOUNCES, ok=True,
              gpu=smi(), launches=counts[nrx], loss=loss_value,
              step_s=step_s, all_step_s={f"{k[0]}_{k[1]}": v
@@ -757,9 +568,42 @@ def phase_train(tris, dev):
     return counts, recorded
 
 
+def fused_work(name, spec, rest, outs):
+    """(bytes, f32 operations) that one call of fused kernel ``name`` must
+    move and do on this run's data: each input it needs read once, each
+    output written once."""
+    nrx = spec.nrx
+    if name == "bounce_pre":
+        R = rest[0].shape[0]
+        return (nbytes(*rest, *outs),
+                R * (PRE_OPS_PER_RAY + PRE_OPS_PER_RX * nrx))
+    if name == "bounce_post":
+        # ex row 2 (the incidence n.d) is read only under physical parity
+        ex = rest[2]
+        unused = 0 if spec.parity == "physical" else nbytes(ex[2])
+        return (nbytes(*rest, *outs) - unused,
+                rest[0].shape[0] * nrx * POST_OPS_PER_RX)
+    # the backward: a (ray, RX) is written only where the ray is live, so a
+    # dead ray needs its freq cotangents (d_out row 5) only; a live ray its
+    # material, state rows 0-3, the 3 res_pre rows and res_post row 5 (wf)
+    # per RX; a live ray written at that bounce its next state rows 0-3
+    # once, and res_post and d_out rows 0-4 per written RX
+    eta_tab, _, live_all, _, _, res_post, d_out = rest
+    written = res_post[:, :, 5] > 0                     # [B, nrx, R]
+    n_live = int(live_all.sum())
+    n_write = int(written.sum())
+    n_written_rays = int(written.any(dim=1).sum())
+    n_bytes = (nbytes(eta_tab, live_all, *outs)
+               + nbytes(d_out[:, :, 5])
+               + n_live * (4 + 16 + 12 + 4 * nrx)
+               + 16 * n_written_rays + 40 * n_write)
+    return n_bytes, n_live * BWD_PRE_OPS + n_write * BWD_POST_OPS
+
+
 def phase_fused_kernel(recorded, dev):
-    """Every recorded fused kernel call against its plain version; then the
-    times and bounds of the first call of each kernel, per nrx."""
+    """Every recorded fused kernel call against its plain version; the
+    backward on a 300-row material table, run twice to the same bits; then
+    the times and bounds of the first call of each kernel, per nrx."""
     mats = default_materials(dev)
     summary = {name: dict(max_abs_err=0.0) for name in FUSED}
     for nrx, calls in recorded.items():
@@ -774,7 +618,8 @@ def phase_fused_kernel(recorded, dev):
                     err, ulps = hold_post(spec, rest, out, label)
                     extra = dict(ulps=ulps)
                 else:
-                    err, share, err32 = hold_bwd(spec, rest, out, mats, label)
+                    err, share, err32 = hold_bwd(spec, rest, out, mats,
+                                                 FREQ_GHZ, label)
                     extra = dict(grad_max_leaf_share=share,
                                  plain_f32_vs_f64_max_abs=err32)
                 summary[name]["max_abs_err"] = max(
@@ -784,43 +629,33 @@ def phase_fused_kernel(recorded, dev):
                      else rest[0].shape[0], max_abs_err=err, **extra)
 
         # a table of 300 materials, ids drawn over all of them (most >= 256):
-        # the per-ray shared-memory atomics and the int32 ids
-        args, out = calls["loop_bwd_slim"][0]
+        # the int32 ids and the warps of mixed materials, whose sums must
+        # come out the same in every run
+        args, _ = calls["loop_bwd_slim"][0]
         spec, rest = args[0], list(args[1:])
         rng = np.random.default_rng(nrx)
-        m300 = material_table_300(dev, rng)
+        m300 = material_table(300, rng, dev)
         eta = precompute_eta(m300, FREQ_GHZ)
         rest[0] = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
                               dim=-1).detach()
         rest[3] = torch.as_tensor(rng.integers(0, 300, rest[3].shape),
                                   dtype=torch.int32, device=dev)
         k = KERNELS["loop_bwd_slim"](spec, *rest)
-        err, share, _ = hold_bwd(spec, rest, k, m300,
-                                 f"loop_bwd_slim/nrx={nrx}/300 materials")
+        label = f"loop_bwd_slim/nrx={nrx}/300 materials"
+        err, share, _ = hold_bwd(spec, rest, k, m300, FREQ_GHZ, label)
+        again = KERNELS["loop_bwd_slim"](spec, *rest)
+        check(all(torch.equal(a, b) for a, b in zip(k, again)),
+              f"{label}: two runs differ")
+        run_300 = lambda: KERNELS["loop_bwd_slim"](spec, *rest)  # noqa: E731
         emit(phase="fused_kernel", kernel="loop_bwd_slim", nrx=nrx,
-             materials=300, max_abs_err=err, grad_max_leaf_share=share)
+             materials=300, max_abs_err=err, grad_max_leaf_share=share,
+             same_bits_twice=True,
+             ms=device_ms(run_300, 20, "loop_bwd_slim"), gpu=smi())
 
         for name in FUSED:
             args, out = calls[name][0]
             spec, rest = args[0], args[1:]
-            outs = list(out)
-            n_bytes = nbytes(*rest, *outs)
-            if name == "loop_bwd_slim":
-                eta_tab, st_all, live_all, mat_all, _, res_post, _ = rest
-                n_live = int(live_all.sum())
-                n_write = int((res_post[:, :, 5] > 0).sum())
-                n_ops = n_live * BWD_PRE_OPS + n_write * BWD_POST_OPS
-                # what this run's data needs: res_pre (3 rows) where the ray
-                # is live, res_post and d_out rows 0-4 where the (ray, RX)
-                # was written, their row 5 (wf, freq) everywhere
-                n_bytes = (nbytes(eta_tab, st_all, live_all, mat_all, *outs)
-                           + 12 * n_live + 8 * res_post[:, :, 5].numel()
-                           + 40 * n_write)
-            elif name == "bounce_pre":
-                R = rest[0].shape[0]
-                n_ops = R * (PRE_OPS_PER_RAY + PRE_OPS_PER_RX * nrx)
-            else:
-                n_ops = rest[0].shape[0] * nrx * POST_OPS_PER_RX
+            n_bytes, n_ops = fused_work(name, spec, rest, list(out))
             bound_ms, bound_by = bound(n_bytes, n_ops)
             run_k = lambda: KERNELS[name](spec, *rest)  # noqa: E731,B023
             run_p = lambda: PLAIN[name](spec, *rest)    # noqa: E731,B023
@@ -834,17 +669,6 @@ def phase_fused_kernel(recorded, dev):
             emit(phase="fused_kernel_time", kernel=name, nrx=nrx, **timing,
                  gpu=smi())
     return summary
-
-
-def material_table_300(dev, rng):
-    """A 300-row material table: the 17 ITU rows repeated, with s and
-    s1_alpha spread so that the rows differ."""
-    base = default_materials("cpu")
-    cols = {f: np.resize(getattr(base, f).detach().numpy(), 300)
-            for f in MATERIAL_FIELDS}
-    cols["s"] = rng.uniform(0.1, 0.6, 300).astype(np.float32)
-    cols["s1_alpha"] = rng.uniform(1.0, 4.0, 300).astype(np.float32)
-    return MaterialTable(cols, device=dev)
 
 
 def phase_profile_step(tris, dev):

@@ -32,12 +32,17 @@
 // plain version's guards: total internal reflection, the safe square roots,
 // the complex division's zero-denominator branch and the scattering
 // normalisation's threshold.  The 6-row state cotangent is carried in
-// registers.  The eta cotangent is summed per MATERIAL (the [M, 12] table,
-// not per triangle) in shared memory: a warp whose contributing rays share
-// one material reduces with shuffles and adds once, otherwise each ray adds
-// with a shared atomic.  Each block writes its partial table; the wrapper
-// sums the partials in a fixed order.  Shared-memory atomics add in no fixed
-// order, so the table's last bits vary from run to run.
+// registers.  A (ray, RX) is written only where the ray is live (the post
+// stage's write), so a dead ray reads only its freq cotangents; a live ray
+// reads its material, state rows 0-3 and pre residuals, and its next state
+// rows 0-3 and post residuals only where an RX was written.  The eta
+// cotangent is summed per MATERIAL (the [M, 12] table, not per triangle)
+// without atomics, in a fixed order: each warp keeps its own table in shared
+// memory; for each material among its live rays, in order of the lowest
+// lane, it sums that material's rays with a shuffle tree and lane 0 adds the
+// sum.  Each block sums its warps' tables in warp order into its partial;
+// the wrapper sums the partials in a fixed order.  The result is the same
+// from run to run.
 
 #include <cuda_runtime.h>
 
@@ -373,7 +378,8 @@ __global__ void __launch_bounds__(kThreads) bounce_post_kernel(PostArgs a) {
   const float fslm = __ldg(a.sc), k_dop = __ldg(a.sc + 1);
   float st2[6];
   for (int j = 0; j < 6; ++j) st2[j] = a.st2[j * R + r];
-  const float theta = a.ex[r], cos_t1 = a.ex[R + r], ndot = a.ex[2 * R + r];
+  const float theta = a.ex[r], cos_t1 = a.ex[R + r];
+  const float ndot = a.physical ? a.ex[2 * R + r] : 0.0f;  // physical only
   const float two_eps = 2.0f * a.eps_o;
 
   float th_c = theta, cos_c = cos_t1;  // the reference clobber chain
@@ -569,75 +575,85 @@ __device__ __forceinline__ void pre_vjp(const float* eta, float cos_t1,
   d_eta[kEtaInvIm] = d_qim / eap2;
 }
 
+// blockDim.x is a multiple of 32 up to kThreads, chosen by the host so that
+// the warps' tables fit in shared memory
 __global__ void __launch_bounds__(kThreads) loop_bwd_slim_kernel(BwdArgs a) {
-  extern __shared__ float acc[];  // [M, 12]
+  extern __shared__ float acc[];  // [blockDim.x / 32, M, 12]
   const int n_acc = a.M * kEta;
-  for (int i = threadIdx.x; i < n_acc; i += kThreads) acc[i] = 0.0f;
+  const int n_warps = blockDim.x / 32;
+  for (int i = threadIdx.x; i < n_warps * n_acc; i += blockDim.x)
+    acc[i] = 0.0f;
   __syncthreads();
+  float* wacc = acc + (threadIdx.x / 32) * n_acc;  // this warp's table
   const size_t R = a.R;
   const int lane = threadIdx.x & 31;
 
   // every lane of a warp runs every iteration (the warp reduction below
   // needs them all); rays past R contribute nothing
-  for (int base = blockIdx.x * kThreads; base < a.R;
-       base += gridDim.x * kThreads) {
+  for (int base = blockIdx.x * blockDim.x; base < a.R;
+       base += gridDim.x * blockDim.x) {
     const int r = base + threadIdx.x;
     const bool in = r < a.R;
     float dc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     for (int b = a.B - 1; b >= 0; --b) {
       const size_t br = b * R + r;
       const bool live = in && a.live[br] != 0;
-      const int m = in ? a.mat[br] : 0;
+      int m = 0;
       float d_eta[kEta];
       for (int j = 0; j < kEta; ++j) d_eta[j] = 0.0f;
       if (in) {
-        float eta[kEta], st[6], st2[6], dst2[6] = {0.0f, 0.0f, 0.0f,
-                                                   0.0f, 0.0f, 0.0f};
-        for (int j = 0; j < kEta; ++j)
-          eta[j] = __ldg(a.eta_tab + m * kEta + j);
-        for (int j = 0; j < 6; ++j) {
-          st[j] = a.st_all[(b * 6 + j) * R + r];
-          st2[j] = a.st_all[((b + 1) * 6 + j) * R + r];
-        }
-        float d_s = 0.0f, d_s1a = 0.0f;
-        for (int k = 0; k < a.nrx; ++k) {
-          const size_t off = (static_cast<size_t>(b) * a.nrx + k) * 6 * R + r;
-          const float* rp = a.res_post + off;
-          const float* dout = a.d_out + off;
-          const float wf = rp[5 * R];
-          dst2[5] += dout[5 * R];
-          if (wf > 0.0f) {
-            dst2[4] += dout[4 * R];
-            post_rx_vjp(rp, dout, R, wf, eta[kEtaS], eta[kEtaS1Alpha], st2,
-                        dst2, &d_s, &d_s1a);
-          }
-        }
-        for (int j = 0; j < 6; ++j) dst2[j] += dc[j];
-        dc[4] = dst2[4];
-        dc[5] = dst2[5];
+        const size_t b_off = static_cast<size_t>(b) * a.nrx * 6 * R + r;
+        float dst2[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int k = 0; k < a.nrx; ++k)
+          dst2[5] += a.d_out[b_off + (k * 6 + 5) * R];
         if (live) {
+          m = a.mat[br];
+          float eta[kEta], st[4], st2[4];
+          for (int j = 0; j < kEta; ++j)
+            eta[j] = __ldg(a.eta_tab + m * kEta + j);
+          bool have_st2 = false;
+          float d_s = 0.0f, d_s1a = 0.0f;
+          for (int k = 0; k < a.nrx; ++k) {
+            const float* rp = a.res_post + b_off + k * 6 * R;
+            const float* dout = a.d_out + b_off + k * 6 * R;
+            const float wf = rp[5 * R];
+            if (wf > 0.0f) {
+              if (!have_st2) {
+                for (int j = 0; j < 4; ++j)
+                  st2[j] = a.st_all[((b + 1) * 6 + j) * R + r];
+                have_st2 = true;
+              }
+              dst2[4] += dout[4 * R];
+              post_rx_vjp(rp, dout, R, wf, eta[kEtaS], eta[kEtaS1Alpha],
+                          st2, dst2, &d_s, &d_s1a);
+            }
+          }
+          for (int j = 0; j < 6; ++j) dst2[j] += dc[j];
+          dc[4] = dst2[4];
+          dc[5] = dst2[5];
+          for (int j = 0; j < 4; ++j) st[j] = a.st_all[(b * 6 + j) * R + r];
           const float* rq = a.res_pre + b * 3 * R + r;
           pre_vjp(eta, rq[0], rq[R], rq[2 * R], st, dst2, dc, d_eta);
+          d_eta[kEtaS] += d_s;
+          d_eta[kEtaS1Alpha] += d_s1a;
         } else {
-          for (int j = 0; j < 4; ++j) dc[j] = dst2[j];
+          dc[5] += dst2[5];  // rows 0-4 pass through unchanged
         }
-        d_eta[kEtaS] += d_s;
-        d_eta[kEtaS1Alpha] += d_s1a;
       }
 
-      // add this bounce's eta cotangent to the block's material table
-      const unsigned contrib = __ballot_sync(0xffffffffu, live);
-      if (contrib == 0u) continue;
-      const int m0 = __shfl_sync(0xffffffffu, m, __ffs(contrib) - 1);
-      if (__all_sync(0xffffffffu, !live || m == m0)) {
+      // add this bounce's eta cotangent to the warp's material table: one
+      // material at a time, that of the lowest lane still pending
+      unsigned pending = __ballot_sync(0xffffffffu, live);
+      while (pending != 0u) {
+        const int m0 = __shfl_sync(0xffffffffu, m, __ffs(pending) - 1);
+        const bool mine = live && m == m0;
         for (int j = 0; j < kEta; ++j) {
-          float v = live ? d_eta[j] : 0.0f;
+          float v = mine ? d_eta[j] : 0.0f;
           for (int off = 16; off > 0; off >>= 1)
             v += __shfl_xor_sync(0xffffffffu, v, off);
-          if (lane == 0) atomicAdd(acc + m0 * kEta + j, v);
+          if (lane == 0) wacc[m0 * kEta + j] += v;
         }
-      } else if (live) {
-        for (int j = 0; j < kEta; ++j) atomicAdd(acc + m * kEta + j, d_eta[j]);
+        pending &= ~__ballot_sync(0xffffffffu, mine);
       }
     }
     if (in)
@@ -645,7 +661,11 @@ __global__ void __launch_bounds__(kThreads) loop_bwd_slim_kernel(BwdArgs a) {
   }
   __syncthreads();
   float* part = a.d_tab_part + static_cast<size_t>(blockIdx.x) * n_acc;
-  for (int i = threadIdx.x; i < n_acc; i += kThreads) part[i] = acc[i];
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+    float s = 0.0f;
+    for (int w = 0; w < n_warps; ++w) s += acc[w * n_acc + i];
+    part[i] = s;
+  }
 }
 
 }  // namespace
@@ -686,17 +706,21 @@ extern "C" int hrt_bounce_post(
   return static_cast<int>(cudaGetLastError());
 }
 
-// d_tab_part holds n_blocks partial [M, 12] tables; the launch uses M * 12
-// floats of dynamic shared memory per block.
+// d_tab_part holds n_blocks partial [M, 12] tables; each block of `threads`
+// (a multiple of 32, at most 256) uses threads / 32 * M * 12 floats of
+// dynamic shared memory.
 extern "C" int hrt_loop_bwd_slim(const float* eta_tab, int M,
                                  const float* st_all,
                                  const unsigned char* live, const int* mat,
                                  const float* res_pre, const float* res_post,
                                  const float* d_out, int R, int B, int nrx,
                                  float* d_st0, float* d_tab_part, int n_blocks,
-                                 void* stream) {
+                                 int threads, void* stream) {
   if (R <= 0 || n_blocks <= 0) return 0;
-  const size_t smem = static_cast<size_t>(M) * kEta * sizeof(float);
+  if (threads <= 0 || threads > kThreads || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      static_cast<size_t>(threads / 32) * M * kEta * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         loop_bwd_slim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -705,7 +729,7 @@ extern "C" int hrt_loop_bwd_slim(const float* eta_tab, int M,
   }
   const BwdArgs a{eta_tab, M,   st_all, live,  mat,   res_pre, res_post,
                   d_out,   R,   B,      nrx,   d_st0, d_tab_part};
-  loop_bwd_slim_kernel<<<n_blocks, kThreads, smem,
+  loop_bwd_slim_kernel<<<n_blocks, threads, smem,
                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,10 +30,11 @@ __all__ = ["bounce_pre", "bounce_post", "loop_bwd_slim", "SOURCE",
 SOURCE = CSRC / "bounce_fused.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
-# the loop backward keeps one [M, 12] f32 table in a block's shared memory
-# (at most 227 KB on Hopper)
-MAX_MATERIALS = 232448 // (4 * len(ETA_FIELDS))
-_BWD_THREADS = 256
+# the loop backward keeps one [M, 12] f32 table per warp in a block's shared
+# memory (at most 227 KB on Hopper): up to 8 warps a block, fewer for large M
+_SMEM_BYTES = 232448
+_TABLE_BYTES_PER_MATERIAL = 4 * len(ETA_FIELDS)
+MAX_MATERIALS = _SMEM_BYTES // _TABLE_BYTES_PER_MATERIAL
 
 
 class _Checker:
@@ -170,9 +171,10 @@ class LoopBwdSlimKernel:
     """Wrapper of ``loop_bwd_slim_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.loop_bwd_slim_plain`.
     The kernel leaves one partial ``[M, 12]`` table per block; this wrapper
-    sums them over the block axis, in a fixed order."""
+    sums them over the block axis, in a fixed order, so the result is the
+    same from run to run."""
 
-    _ARGTYPES = (_P, _I) + (_P,) * 6 + (_I, _I, _I, _P, _P, _I, _P)
+    _ARGTYPES = (_P, _I) + (_P,) * 6 + (_I, _I, _I, _P, _P, _I, _I, _P)
 
     def __init__(self):
         self.launches = 0
@@ -201,8 +203,10 @@ class LoopBwdSlimKernel:
         d_st0 = torch.empty((6, R), dtype=_F32, device=dev)
         # a grid of a few waves of blocks, each walking its share of the
         # rays, keeps the partial tables few
+        threads = 32 * min(8, _SMEM_BYTES // (max(M, 1)
+                                              * _TABLE_BYTES_PER_MATERIAL))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_blocks = max(1, min(-(-R // _BWD_THREADS), 8 * sms))
+        n_blocks = max(1, min(-(-R // threads), 8 * sms))
         part = torch.empty((n_blocks, M, len(ETA_FIELDS)), dtype=_F32,
                            device=dev)
         if R == 0 or B == 0:
@@ -211,7 +215,7 @@ class LoopBwdSlimKernel:
             self._fn = LIBRARY.function("hrt_loop_bwd_slim", self._ARGTYPES)
         with torch.cuda.device(dev):
             err = self._fn(ptrs[0], M, *ptrs[1:], R, B, nrx, d_st0.data_ptr(),
-                           part.data_ptr(), n_blocks,
+                           part.data_ptr(), n_blocks, threads,
                            torch.cuda.current_stream(dev).cuda_stream)
         _raise_on("loop_bwd_slim", err)
         self.launches += 1

@@ -101,7 +101,8 @@ def test_prepare_scene_passes_soa_through():
 def test_import_leaves_jax_out():
     code = ("import sys, hermespy_rt_tpu_torch, hermespy_rt_tpu_torch.convert,"
             " hermespy_rt_tpu_torch.ops.intersect_cuda,"
-            " hermespy_rt_tpu_torch.ops.bounce_fused_cuda, chip_smoke; "
+            " hermespy_rt_tpu_torch.ops.bounce_fused_cuda,"
+            " hermespy_rt_tpu_torch.testing, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hermespy_rt_tpu.')) "
             "or m == 'hermespy_rt_tpu'); print(bad); sys.exit(1 if bad else 0)")

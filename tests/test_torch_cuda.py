@@ -10,17 +10,18 @@ The nearest-hit kernel must make exactly the decisions of its plain torch
 twin on the same card (both round every product and sum on its own, in the
 same order), and the trace through it must agree with the trace through the
 twin to the tier of ``tests/test_pallas.py``.  The fused bounce kernels are
-held against their plain versions with ``chip_smoke.py``'s checks (equal
-decisions, values within their tier, the backward against the plain version
-in float64), and one fused forward+backward step against the op path."""
+held against their plain versions with the checks of
+``hermespy_rt_tpu_torch/testing.py`` (equal decisions, values within their
+tier, the backward against the plain version in float64 and the same bits
+in two runs), and one fused forward+backward step against the op path."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-import chip_smoke as smoke
 from hermespy_rt_tpu_torch import compute_paths, default_materials
+from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch
@@ -29,6 +30,16 @@ from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene,
                                          random_soup_scene)
 
 pytestmark = pytest.mark.cuda
+
+RX = np.array([[10.0, 5.0, 2.0], [11.5, 3.0, 2.25], [13.0, 1.0, 2.5]],
+              np.float32)
+TX = np.array([[-20.0, -10.0, 10.0]], np.float32)
+FREQ = 3.0
+
+
+def _step(tris, nrx, mats, paths, fused, **kw):
+    cfg = checks.calibration_config(paths, 3, fused, **kw)
+    return checks.calibration_step(tris, RX[:nrx], TX, FREQ, mats, cfg)
 
 
 @pytest.fixture()
@@ -126,24 +137,24 @@ def _soup(dev, n_materials, seed=0):
     ids = torch.as_tensor(rng.integers(0, n_materials, tris.pad_triangles),
                           device=dev)
     return (dataclasses.replace(tris, material=ids),
-            smoke.material_table_300(dev, rng))
+            checks.material_table(n_materials, rng, dev))
 
 
 @pytest.mark.parametrize("parity,nrx,n_materials",
                          [("reference", 1, 17), ("physical", 3, 300)])
 def test_fused_kernels_equal_plain(dev, parity, nrx, n_materials):
     tris, mats = _soup(dev, n_materials)
-    cfg = dataclasses.replace(smoke.calib_config(1 << 16, nrx, True),
-                              parity=parity)
-    with smoke.recording_fused() as calls:
-        smoke.calib_step(tris, nrx, mats, cfg)
-    assert [len(calls[n]) for n in smoke.FUSED] == [3, 3, 1]
+    with checks.recording_fused() as calls:
+        _step(tris, nrx, mats, 1 << 16, True, parity=parity)
+    assert [len(calls[n]) for n in checks.FUSED] == [3, 3, 1]
     for i, (args, out) in enumerate(calls["bounce_pre"]):
-        smoke.hold_pre(args[0], args[1:], out, f"pre{i}")
+        checks.hold_pre(args[0], args[1:], out, f"pre{i}")
     for i, (args, out) in enumerate(calls["bounce_post"]):
-        smoke.hold_post(args[0], args[1:], out, f"post{i}")
+        checks.hold_post(args[0], args[1:], out, f"post{i}")
     args, out = calls["loop_bwd_slim"][0]
-    smoke.hold_bwd(args[0], args[1:], out, mats, "loop_bwd_slim")
+    checks.hold_bwd(args[0], args[1:], out, mats, FREQ, "loop_bwd_slim")
+    again = fused_ops.loop_bwd_slim(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 def test_fused_step_matches_op_path(dev):
@@ -152,21 +163,20 @@ def test_fused_step_matches_op_path(dev):
     grads, scat, launches = {}, {}, {}
     for shade in ("xla", "fused"):
         mats = default_materials(dev)
-        for kern in smoke.KERNELS.values():
+        for kern in checks.KERNELS.values():
             kern.launches = 0
-        res, _ = smoke.calib_step(tris, nrx, mats, smoke.calib_config(
-            1 << 14, nrx, shade == "fused"))
-        launches[shade] = {n: k.launches for n, k in smoke.KERNELS.items()}
-        grads[shade], scat[shade] = smoke.grads_of(mats), res.scatter
+        res, _ = _step(tris, nrx, mats, 1 << 14, shade == "fused")
+        launches[shade] = {n: k.launches for n, k in checks.KERNELS.items()}
+        grads[shade], scat[shade] = checks.grads_of(mats), res.scatter
     assert launches["fused"] == {"nearest_hit": 7, "bounce_pre": 3,
                                  "bounce_post": 3, "loop_bwd_slim": 1}
     assert launches["xla"] == {"nearest_hit": 7, "bounce_pre": 0,
                                "bounce_post": 0, "loop_bwd_slim": 0}
-    smoke.leaves_close(grads["fused"], grads["xla"], smoke.PATH_GRAD_RTOL,
-                       smoke.LEAF_ATOL, "fused vs op path")
-    for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
-        smoke.slots_agree(getattr(scat["xla"], f), getattr(scat["fused"], f),
-                          f)
+    checks.leaves_close(grads["fused"], grads["xla"], checks.PATH_GRAD_RTOL,
+                        checks.LEAF_ATOL, "fused vs op path")
+    for f in checks.OUTPUT_FIELDS:
+        checks.slots_agree(getattr(scat["xla"], f), getattr(scat["fused"], f),
+                           f)
 
 
 def test_fused_kernels_reject_bad_operands(dev):

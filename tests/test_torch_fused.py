@@ -23,39 +23,40 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import chip_smoke as smoke
 import hermespy_rt_tpu.scene as js
 from hermespy_rt_tpu.config import TracerConfig as JaxConfig
 from hermespy_rt_tpu.materials import default_materials as jax_materials
 from hermespy_rt_tpu.ops import bounce_fused as jfused
 from hermespy_rt_tpu.tracer import trace_paths as jax_trace
 from hermespy_rt_tpu_torch import TracerConfig, trace_paths
+from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.convert import materials_from_jax, soa_from_jax
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops.bounce_fused import loop_bwd_slim_plain
 
-AMP, VEC = smoke.AMP_GROUPS, smoke.VEC_GROUPS
-FUSED = smoke.FUSED
-FREQ = smoke.FREQ_GHZ
+AMP, VEC = checks.AMP_GROUPS, checks.VEC_GROUPS
+FUSED = checks.FUSED
+FREQ = 3.0
 
 
 def _rows_close(ours, ref, label, groups=None):
-    """chip_smoke's tier: within 3e-5 of the row's (or row group's) largest
+    """The kernels' tier: within 3e-5 of the row's (or row group's) largest
     magnitude, rays on the last axis."""
-    smoke.rows_close(torch.as_tensor(np.asarray(ours)),
-                     torch.as_tensor(np.array(ref)), smoke.ROW_RTOL, label,
-                     groups)
+    checks.rows_close(torch.as_tensor(np.asarray(ours)),
+                      torch.as_tensor(np.array(ref)), checks.ROW_RTOL, label,
+                      groups)
 
 
 def _leaves_close(ours, ref, label):
     """Each material leaf within 3e-5 of its largest magnitude plus 1e-16."""
-    smoke.leaves_close(ours, ref, smoke.LEAF_RTOL, smoke.LEAF_ATOL, label)
+    checks.leaves_close(ours, ref, checks.LEAF_RTOL, checks.LEAF_ATOL, label)
 
 
 def _param_grads(mats, d_eta_tab):
-    return smoke.material_grads(mats, torch.tensor(np.asarray(d_eta_tab)))
+    return checks.material_grads(mats, torch.tensor(np.asarray(d_eta_tab)),
+                                 FREQ)
 
 
 def _fused_cfg(**kw):
@@ -82,7 +83,7 @@ def _stage_calls(parity, nrx):
     mats = materials_from_jax(vars(jax_materials()))
     rx = np.asarray(SOUP["rx"][:nrx], np.float32)
     tx = np.asarray(SOUP["tx"], np.float32)
-    with smoke.recording_fused() as calls:
+    with checks.recording_fused() as calls:
         res = trace_paths(soa_from_jax(vars(soa)), mats, rx, tx,
                           np.zeros_like(rx), np.zeros_like(tx), FREQ,
                           _fused_cfg(parity=parity))
@@ -226,7 +227,7 @@ def test_fused_trace_matches_jax(name, parity, nrx):
                                        atol=np.abs(a[m]).max() * 1e-5,
                                        err_msg=f)
     assert (np.abs(_np(ours.scatter.a_te)) > 0).any()
-    _leaves_close(smoke.grads_of(mats),
+    _leaves_close(checks.grads_of(mats),
                   {f: torch.tensor(np.asarray(getattr(g_ref, f)))
                    for f in MATERIAL_FIELDS}, "material gradients")
 
@@ -254,7 +255,7 @@ def test_300_materials_fused_equals_op_path():
         res = trace_paths(soa_from_jax(arrays), mats, rx, tx,
                           np.zeros_like(rx), np.zeros_like(tx), FREQ, cfg)
         _loss(res).backward()
-        grads[shade], outs[shade] = smoke.grads_of(mats), res.scatter
+        grads[shade], outs[shade] = checks.grads_of(mats), res.scatter
     assert float(grads["xla"]["a"][256:].abs().max()) > 0
     _leaves_close(grads["fused"], grads["xla"], "300 materials")
     for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
