@@ -50,13 +50,49 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 9. profile_step -- one profiler window over one forward+backward step at
                nrx = 1, of the fused path and of the op path.
 
+The large-scene path, on the config-5 city (``scene.make_city``: 131,072
+triangles, written as a Sionna XML + PLY scene, read back by
+``load_scene``, Morton-sorted), TX (-120, 80, 45), RX (30, -40, 1.5) +
+k (1.5, -2, 0.25), 3 GHz, B = 3, physical parity, coherent launch order,
+compact rays; every query goes through the visit-list walk (prepass kernel,
+a stable sort, walk kernel):
+
+A. city       -- write, read and flatten the city: triangles, host seconds,
+                 fine tiles and coarse boxes, the materials in use.
+B. walk       -- record the queries of one 2^20-path forward (nrx = 1) and
+                 its launches; per query the prepass kernel against its
+                 plain version (reach, key and visit rows equal), the walk
+                 kernel against its plain version on every 16th ray tile
+                 (0 flips) and against the brute kernel on every ray (nearest
+                 mode: every flip an f64 edge/tie case, counted; any-hit
+                 mode: `blocked` equal, each reported hit a valid hit within
+                 its limit); visit-list lengths; device times of prepass,
+                 sort and walk, their plain versions' and their bounds.
+C. city_equal -- a 14,336-triangle city at 2^14 paths: walk=True against
+                 walk=False, both parities, nrx = 1 and 4, every output equal
+                 bit for bit.
+D. city_fwd   -- ``compute_paths`` on the city at 2^20 paths, nrx = 1: mean
+                 of 3 after a warm-up, queries/s, launches, one profiler
+                 window; then once with ``walk=False`` (the brute kernel),
+                 every scatter output equal to the walk's.
+E. city_train -- the calibration step (``shade="fused", grad_positions=
+                 False``) on the city at 2^20 paths, nrx = 1 and 4: launches
+                 of one step, forward+backward mean of 3, material gradients
+                 finite and nonzero; at 2^16 paths the fused step against
+                 the op path (slots agree, gradients within their tier).
+F. city_loss  -- ``benchmarks/config5_e2e.py``'s loss once through the op
+                 path: gradients to the materials and the TX position,
+                 finite and nonzero; wall and device busy.
+
 Then the kernel summary, the card's name and power limit, and the result
 line.  Without a CUDA device it exits non-zero and prints no result.
 """
 import contextlib
 import importlib.util
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -68,15 +104,21 @@ import torch
 from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
                                    default_materials, trace)
 from hermespy_rt_tpu_torch import tracer as tracer_module
-from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS
+from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS, MATERIAL_NAMES
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
-from hermespy_rt_tpu_torch.ops._cuda_build import LIBRARY
+from hermespy_rt_tpu_torch.ops import walk_cuda
+from hermespy_rt_tpu_torch.ops._cuda_build import BUILD_DIR, LIBRARY
 from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
 from hermespy_rt_tpu_torch.ops.geometry import fibonacci_sphere
-from hermespy_rt_tpu_torch.ops.intersect import intersect_torch
+from hermespy_rt_tpu_torch.ops.intersect import intersect_torch, mt_hit
 from hermespy_rt_tpu_torch.ops.intersect_cuda import SOURCE, nearest_hit
+from hermespy_rt_tpu_torch.ops.walk import (prepare_walk, prepass_plain,
+                                            query_limits, visit_rows,
+                                            walk_plain)
 from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene, load_hrt,
+                                         load_scene, make_city,
                                          random_soup_scene)
+from hermespy_rt_tpu_torch.tracer import trace_paths
 from hermespy_rt_tpu_torch.testing import (
     FUSED, KERNELS, LEAF_ATOL, OUTPUT_FIELDS, PATH_GRAD_RTOL, PLAIN, check,
     calibration_config, calibration_step, grads_of, hold_bwd, hold_post,
@@ -108,9 +150,24 @@ NEAREST_HIT_OPS_PER_PAIR = 47
 PRE_OPS_PER_RAY, PRE_OPS_PER_RX = 180, 30
 POST_OPS_PER_RX = 150
 BWD_PRE_OPS, BWD_POST_OPS = 120, 100
+# f32 operations counted in csrc/walk.cu: one slab test of a ray against a
+# box (3 axes of 2 sub, 2 mul, min, max; the 4 min/max joining them; 4
+# compares), and the prepass's per-pair key (max with 0, min)
+SLAB_OPS = 26
+PREPASS_OPS_PER_PAIR = SLAB_OPS + 2
+CITY = {}                  # make_city's defaults: 131,072 triangles
+CITY_TRIANGLES = 131072
+CITY_TX = [[-120.0, 80.0, 45.0]]
+CITY_RX0 = [30.0, -40.0, 1.5]
+# phase C's smaller city has wider blocks: these stand in its streets
+SMALL_CITY_TX = [[0.0, 120.0, 30.0]]
+SMALL_CITY_RX0 = [10.0, -20.0, 1.5]
+WALK_SAMPLE_EVERY = 16   # every 16th ray tile runs the plain walk
 # The tolerances of the kernels against their plain versions, with their
 # reasons, are in hermespy_rt_tpu_torch/testing.py.
 REPLACES = {"nearest_hit": "hermespy_rt_tpu/ops/intersect_pallas.py:369",
+            "walk_prepass": "hermespy_rt_tpu/ops/intersect_pallas.py:699",
+            "walk": "hermespy_rt_tpu/ops/intersect_pallas.py:552",
             "bounce_pre": "hermespy_rt_tpu/ops/bounce_fused.py:344",
             "bounce_post": "hermespy_rt_tpu/ops/bounce_fused.py:684",
             "loop_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:1170"}
@@ -120,9 +177,9 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def rx_positions(nrx):
+def rx_positions(nrx, rx0=(10.0, 5.0, 2.0)):
     k = np.arange(nrx, dtype=np.float32)[:, None]
-    return (np.array([[10.0, 5.0, 2.0]], np.float32)
+    return (np.array([rx0], np.float32)
             + k * np.array([[1.5, -2.0, 0.25]], np.float32))
 
 
@@ -716,6 +773,485 @@ def phase_profile_step(tris, dev):
         emit(**out)
 
 
+# --- the large-scene path -------------------------------------------------
+
+
+WALK_KERNELS = {"walk_prepass": walk_cuda.walk_prepass,
+                "walk": walk_cuda.walk}
+
+
+def zero_counts():
+    for kern in (*KERNELS.values(), *WALK_KERNELS.values()):
+        kern.launches = 0
+
+
+def read_counts():
+    return {n: k.launches for n, k in {**KERNELS, **WALK_KERNELS}.items()}
+
+
+def profile_window(fn):
+    """One profiler window over ``fn`` (warm): wall, device busy, device
+    operations, idle share and the top device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    if not dev_rows:
+        return dict(wall_ms=wall_ms, device_busy_ms=None,
+                    note="the profiler recorded no device events")
+    busy = sum(_device_ms(e) for e in dev_rows)
+    per = {}
+    for name in ("walk_prepass", "walk", "nearest_hit", *FUSED):
+        ev = [e for e in dev_rows if f"{name}_kernel" in e.key]
+        per[name] = dict(ms=sum(_device_ms(e) for e in ev),
+                         launches=sum(e.count for e in ev))
+    top = sorted(dev_rows, key=_device_ms, reverse=True)[:8]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1.0 - busy / wall_ms, kernels=per,
+                device_ops=sum(e.count for e in dev_rows),
+                top_device=[[e.key[:60], _device_ms(e), e.count]
+                            for e in top])
+
+
+def phase_city(dev):
+    """A: the config-5 city through the Sionna importer."""
+    out_dir = BUILD_DIR / "city131k"
+    t0 = time.perf_counter()
+    xml = make_city(str(out_dir), **CITY)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = load_scene(xml)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tris = flatten_scene(host, sort_triangles=True, device=dev)
+    torch.cuda.synchronize()
+    t_flat = time.perf_counter() - t0
+    shutil.rmtree(out_dir)
+    scene = prepare_walk(tris)
+    mats = sorted({m.material_index for m in host.meshes})
+    check(tris.num_triangles == CITY_TRIANGLES,
+          f"city: {tris.num_triangles} triangles")
+    check(mats == [1, 15], f"city: materials {mats}")
+    emit(phase="city", triangles=tris.num_triangles,
+         padded=tris.pad_triangles, write_s=t_write, load_s=t_load,
+         flatten_sort_s=t_flat, fine_tiles=scene.n_tiles,
+         block_tris=scene.block_tris, coarse_boxes=scene.n_boxes,
+         group=scene.group, materials=mats,
+         material_names=[MATERIAL_NAMES[m] for m in mats])
+    return tris
+
+
+class WalkRecorder:
+    """Stands in for the walk query inside the tracer for one trace:
+    forwards every query to :func:`walk_cuda.walk_query` (whose wrappers
+    count the launches) and keeps its inputs and answer."""
+
+    def __init__(self):
+        self.queries = []
+
+    def __call__(self, o, d, scene, **kw):
+        t, idx = walk_cuda.walk_query(o, d, scene, **kw)
+        self.queries.append((o, d, scene, kw, t, idx))
+        return t, idx
+
+
+@contextlib.contextmanager
+def recording_walk():
+    rec = WalkRecorder()
+    saved = tracer_module.walk_query
+    tracer_module.walk_query = rec
+    try:
+        yield rec
+    finally:
+        tracer_module.walk_query = saved
+
+
+def city_paths(tris, nrx, paths, **kw):
+    """``compute_paths`` on the city as config-5 traces it."""
+    los, sc = compute_paths(tris, rx_positions(nrx, CITY_RX0), CITY_TX,
+                            np.zeros((nrx, 3)), np.zeros((1, 3)), FREQ_GHZ,
+                            nrx, 1, paths, BOUNCES, device=tris.device,
+                            parity="physical",
+                            launch_order="coherent", compact_rays=True,
+                            keep_rays=False, **kw)
+    torch.cuda.synchronize()
+    return los, sc
+
+
+def walk_work(o, d, scene, lim, visits, t, exclude_given):
+    """(bytes, f32 operations) that the walk of one query must move and do
+    on this run's data: 47 operations per (live ray, triangle) pair in the
+    fine tiles that ray's own slab test reaches within min(final t, lim),
+    and one slab test per (live ray, listed fine tile); the rays (o, d,
+    exclude, lim) in and (t, idx) out, the visit entries used, the fine
+    tiles' boxes and the triangles once."""
+    br, g, bt = scene.block_rays, scene.group, scene.block_tris
+    n_rt = visits.shape[0]
+    R = o.shape[0]
+    counts = visits[:, 0].long()
+    n_pad = n_rt * br
+    pad = lambda x: torch.cat([x, x.new_zeros((n_pad - R, 3))])  # noqa: E731
+    o_t, d_t = pad(o).reshape(n_rt, br, 3), pad(d).reshape(n_rt, br, 3)
+    inv = 1.0 / torch.where(d_t == 0, 1e-30, d_t)
+    t_f = torch.cat([t, t.new_full((n_pad - R,), float("inf"))])
+    limit = torch.minimum(t_f, lim).reshape(n_rt, br)
+    live = (lim >= 0).reshape(n_rt, br)
+    reached = listed = 0
+    step = 16
+    for a in range(0, n_rt, step):
+        b = min(a + step, n_rt)
+        c_max = int(counts[a:b].max())
+        if c_max == 0:
+            continue
+        e = torch.arange(c_max * g, device=o.device)
+        box = visits[a:b, 1:1 + c_max].long()                   # [n, c]
+        fine = (box[:, :, None] * g + torch.arange(g, device=o.device)
+                ).reshape(b - a, -1)                             # [n, c*g]
+        on = e[None, :] < counts[a:b, None] * g
+        ab = scene.aabbs[fine]                                   # [n, c*g, 6]
+        tn = tf = None
+        for ax in range(3):
+            o_ax, i_ax = o_t[a:b, :, None, ax], inv[a:b, :, None, ax]
+            p = (ab[:, None, :, ax] - o_ax) * i_ax
+            q = (ab[:, None, :, 3 + ax] - o_ax) * i_ax
+            na, fa = torch.minimum(p, q), torch.maximum(p, q)
+            tn = na if ax == 0 else torch.maximum(tn, na)
+            tf = fa if ax == 0 else torch.minimum(tf, fa)
+        lm = limit[a:b, :, None]
+        hit = ((tf >= 0) & (tn <= tf) & (tn <= lm) & (lm >= 0)
+               & on[:, None, :] & live[a:b, :, None])
+        reached += int(hit.sum())
+        listed += int((on[:, None, :] & live[a:b, :, None]).sum())
+    n_ops = NEAREST_HIT_OPS_PER_PAIR * bt * reached + SLAB_OPS * listed
+    n_bytes = (R * (24 + 4 + (4 if exclude_given else 0)) + R * 8
+               + 4 * int((counts + 1).sum()) + nbytes(scene.aabbs)
+               + nbytes(scene.v0, scene.e1, scene.e2))
+    return n_bytes, n_ops
+
+
+def phase_walk(tris, dev):
+    """B: the walk kernels on the recorded queries of one config-5 forward.
+    Returns the launches of that forward and the timing rows."""
+    assert_flips = flips_check()
+    ns = types.SimpleNamespace(**{f: getattr(tris, f).cpu().numpy()
+                                  for f in ("v0", "e1", "e2")})
+    city_paths(tris, 1, PATHS)                                   # warm-up
+    with recording_walk() as rec:
+        zero_counts()
+        city_paths(tris, 1, PATHS)
+        launches = read_counts()
+    check(launches["walk"] == launches["walk_prepass"] == 1 + 2 * BOUNCES
+          and launches["nearest_hit"] == 0,
+          f"city forward launches {launches}")
+    check(len(rec.queries) == 1 + 2 * BOUNCES, "recorded queries")
+    timing = {}
+    totals = dict(brute_flips=0, walk_max_abs_err=0.0,
+                  prepass_key_max_abs_err=0.0)
+    for qi, (o, d, scene, kw, t_k, i_k) in enumerate(rec.queries):
+        label = f"walk/q{qi}"
+        R = o.shape[0]
+        t_max, live, ex = kw.get("t_max"), kw.get("live"), kw.get("exclude")
+        any_hit = bool(kw.get("any_hit")) and t_max is not None
+        lim = query_limits(R, scene.block_rays, t_max=t_max, live=live,
+                           device=dev)
+        reach, key = walk_cuda.walk_prepass(o, d, lim, scene.boxes)
+        r_p, k_p = prepass_plain(o, d, lim, scene.boxes, scene.block_rays)
+        fin = torch.isfinite(k_p)
+        key_err = (float((key[fin] - k_p[fin]).abs().max()) if fin.any()
+                   else 0.0)
+        check(torch.equal(reach, r_p) and torch.equal(key, k_p),
+              f"{label}: prepass reach/key differ from the plain version "
+              f"(key err {key_err})")
+        visits = visit_rows(reach, key)
+        check(torch.equal(visits, visit_rows(r_p, k_p)),
+              f"{label}: visit rows differ")
+        t_w, i_w = walk_cuda.walk(o, d, lim, scene, visits, exclude=ex,
+                                  any_hit=any_hit)
+        check(torch.equal(t_w, t_k) and torch.equal(i_w, i_k),
+              f"{label}: the walk is not deterministic")
+        # the plain walk on every 16th ray tile
+        tiles = torch.arange(0, visits.shape[0], WALK_SAMPLE_EVERY,
+                             device=dev)
+        rays = (tiles[:, None] * scene.block_rays
+                + torch.arange(scene.block_rays, device=dev)).reshape(-1)
+        rays = rays[rays < R]
+        t_p, i_p = walk_plain(
+            o[rays], d[rays], scene, visits[tiles],
+            lim.reshape(-1, scene.block_rays)[tiles].reshape(-1),
+            exclude=None if ex is None else ex[rays], any_hit=any_hit)
+        plain_flips = int((i_p != i_k[rays]).sum())
+        fin = torch.isfinite(t_p) & (i_p == i_k[rays])
+        walk_err = (float((t_p[fin] - t_k[rays][fin]).abs().max())
+                    if fin.any() else 0.0)
+        totals["walk_max_abs_err"] = max(totals["walk_max_abs_err"], walk_err)
+        totals["prepass_key_max_abs_err"] = max(
+            totals["prepass_key_max_abs_err"], key_err)
+        check(plain_flips == 0 and torch.equal(t_p, t_k[rays]),
+              f"{label}: {plain_flips} flips against the plain walk")
+        # the brute kernel on every ray
+        t_b, i_b = nearest_hit(o, d, tris, exclude=ex, t_max=t_max,
+                               live=live)
+        if any_hit:
+            tm = t_max if isinstance(t_max, torch.Tensor) else torch.full_like(
+                t_k, float(t_max))
+            blocked = (i_k >= 0) & (t_k <= tm)
+            check(torch.equal(blocked, (i_b >= 0) & (t_b <= tm)),
+                  f"{label}: any-hit blocked differs from the brute kernel")
+            sel = i_k[blocked].long()
+            comp = lambda x: tuple(x[:, c] for c in range(3))  # noqa: E731
+            t_re, valid = mt_hit(comp(o[blocked]), comp(d[blocked]),
+                                 comp(tris.v0[sel]), comp(tris.e1[sel]),
+                                 comp(tris.e2[sel]))
+            check(bool(valid.all()) and torch.equal(t_re, t_k[blocked])
+                  and (ex is None
+                       or not bool((sel == ex[blocked].long()).any())),
+                  f"{label}: an any-hit answer is not a valid hit")
+            brute_flips = int((blocked != ((i_b >= 0) & (t_b <= tm))).sum())
+        else:
+            brute_flips = int((i_k != i_b).sum())
+            if brute_flips:
+                assert_flips(ns, o.cpu().numpy(), d.cpu().numpy(),
+                             t_b.cpu().numpy(), i_b.cpu().numpy(),
+                             t_k.cpu().numpy(), i_k.cpu().numpy(),
+                             t_rtol=0.0, label=label)
+            m = (i_k == i_b) & (i_k >= 0)
+            check(torch.equal(t_k[m], t_b[m]), f"{label}: t differs")
+        totals["brute_flips"] += brute_flips
+        counts = visits[:, 0].float()
+        n_live = int((lim >= 0).sum())
+        row = dict(rays=R, live=n_live, any_hit=any_hit,
+                   hits=int((i_k >= 0).sum()), brute_flips=brute_flips,
+                   plain_flips=plain_flips, sampled_rays=int(rays.numel()),
+                   visit_mean=float(counts.mean()),
+                   visit_max=int(counts.max()), boxes=scene.n_boxes,
+                   group=scene.group)
+        # every query's prepass and walk device time: later bounces start
+        # from scattered hit points, so their ray tiles are less coherent
+        row["prepass_ms"] = device_ms(
+            lambda: walk_cuda.walk_prepass(o, d, lim, scene.boxes), 5,
+            "walk_prepass")
+        row["walk_ms"] = device_ms(
+            lambda: walk_cuda.walk(o, d, lim, scene, visits, exclude=ex,
+                                   any_hit=any_hit), 5, "walk")
+        if qi in (1, 2):     # the first bounce query and its shadow query
+            name = "bounce" if qi == 1 else "shadow"
+            run_pre = lambda: walk_cuda.walk_prepass(  # noqa: E731
+                o, d, lim, scene.boxes)
+            run_sort = lambda: visit_rows(reach, key)  # noqa: E731
+            run_walk = lambda: walk_cuda.walk(  # noqa: E731
+                o, d, lim, scene, visits, exclude=ex, any_hit=any_hit)
+            pre_bytes = nbytes(o, d, lim, scene.boxes, reach, key)
+            pre_ops = PREPASS_OPS_PER_PAIR * n_live * scene.n_boxes
+            w_bytes, w_ops = walk_work(o, d, scene, lim, visits, t_k,
+                                       ex is not None)
+            t0 = time.perf_counter()
+            walk_plain(o, d, scene, visits, lim, exclude=ex, any_hit=any_hit,
+                       tile_chunk=1024)
+            torch.cuda.synchronize()
+            walk_plain_s = time.perf_counter() - t0
+            row.update(
+                prepass_ms=device_ms(run_pre, 20, "walk_prepass"),
+                prepass_plain_ms=device_ms(
+                    lambda: prepass_plain(o, d, lim, scene.boxes,
+                                          scene.block_rays), 2),
+                sort_ms=device_ms(run_sort, 20),
+                walk_ms=device_ms(run_walk, 20, "walk"),
+                walk_plain_ms=walk_plain_s * 1e3,
+                # CUDA events: the profiler reported no device time for
+                # these 0.1-1 s launches
+                brute_ms=cuda_ms(lambda: nearest_hit(
+                    o, d, tris, exclude=ex, t_max=t_max, live=live), 1),
+                prepass_bound=bound(pre_bytes, pre_ops),
+                walk_bound=bound(w_bytes, w_ops), walk_bytes=w_bytes,
+                walk_ops=w_ops, prepass_bytes=pre_bytes, prepass_ops=pre_ops)
+            if any_hit:     # what the early exit saves on this query
+                row["walk_nearest_mode_ms"] = device_ms(
+                    lambda: walk_cuda.walk(o, d, lim, scene, visits,
+                                           exclude=ex), 20, "walk")
+            timing[name] = row
+        emit(phase="walk", query=qi, **row, gpu=smi())
+    emit(phase="walk_summary", launches_per_forward=launches, **totals)
+    timing["errors"] = totals
+    return launches, timing
+
+
+def phase_city_equal(dev):
+    """C: walk against brute on a 14,336-triangle city, every output bit
+    for bit."""
+    out_dir = BUILD_DIR / "city14k"
+    host = load_scene(make_city(str(out_dir), n_buildings=16, ground_sub=32))
+    shutil.rmtree(out_dir)
+    tris = flatten_scene(host, sort_triangles=True, device=dev)
+    check(tris.num_triangles == 14336, f"{tris.num_triangles} triangles")
+    for parity in ("reference", "physical"):
+        for nrx in (1, 4):
+            out, wall = {}, {}
+            for walk in (True, False):
+                zero_counts()
+                t0 = time.perf_counter()
+                los, sc = compute_paths(
+                    tris, rx_positions(nrx, SMALL_CITY_RX0), SMALL_CITY_TX,
+                    np.zeros((nrx, 3)),
+                    np.zeros((1, 3)), FREQ_GHZ, nrx, 1, SMALL_PATHS // 4,
+                    BOUNCES, device=dev, parity=parity, walk=walk,
+                    compact_rays=True, keep_rays=False)
+                torch.cuda.synchronize()
+                wall[walk] = time.perf_counter() - t0
+                n = read_counts()
+                check(n["walk"] == (1 + 2 * BOUNCES if walk else 0)
+                      and n["nearest_hit"] == (0 if walk else 1 + 2 * BOUNCES),
+                      f"{parity}/nrx={nrx}/walk={walk}: launches {n}")
+                out[walk] = (los, sc)
+            for part in (0, 1):
+                for f in OUTPUT_FIELDS:
+                    check(torch.equal(getattr(out[True][part], f),
+                                      getattr(out[False][part], f)),
+                          f"{parity}/nrx={nrx}: {f} differs walk vs brute")
+            nonzero = int((out[True][1].a_te.abs() > 0).sum())
+            check(nonzero > 0, f"{parity}/nrx={nrx}: empty scatter")
+            emit(phase="city_equal", triangles=tris.num_triangles,
+                 paths=SMALL_PATHS // 4, parity=parity, nrx=nrx,
+                 bit_equal=True, wall_s={"walk": wall[True],
+                                         "brute": wall[False]},
+                 scatter_nonzero=nonzero)
+
+
+def phase_city_forward(tris):
+    """D: config-5 forward on the op path."""
+    nrx = 1
+    city_paths(tris, nrx, PATHS)                                 # warm-up
+    zero_counts()
+    los, sc = city_paths(tris, nrx, PATHS)
+    launches = read_counts()
+    for f in OUTPUT_FIELDS:
+        x = getattr(sc, f)
+        x = torch.view_as_real(x) if x.is_complex() else x
+        check(bool(torch.isfinite(x).all()), f"city fwd: {f} not finite")
+    nonzero = int((sc.a_te.abs() > 0).sum())
+    check(nonzero > 0, "city fwd: empty scatter")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        city_paths(tris, nrx, PATHS)
+    s = (time.perf_counter() - t0) / 3
+    prof = profile_window(lambda: city_paths(tris, nrx, PATHS))
+    # the brute-force control, once, as benchmarks/config5_e2e.py runs one
+    t0 = time.perf_counter()
+    _, sc_b = city_paths(tris, nrx, PATHS, walk=False)
+    brute_s = time.perf_counter() - t0
+    for f in OUTPUT_FIELDS:
+        check(torch.equal(getattr(sc, f), getattr(sc_b, f)),
+              f"city fwd: {f} differs between walk and brute")
+    emit(phase="city_fwd", paths=PATHS, bounces=BOUNCES, nrx=nrx,
+         launches=launches, scatter_nonzero=nonzero, fwd_s=s,
+         fwd_queries_per_s=BOUNCES * PATHS * (1 + nrx) / s,
+         brute_fwd_s=brute_s, walk_equals_brute=True, **prof, gpu=smi())
+    return launches
+
+
+def phase_city_train(tris, dev):
+    """E: the calibration step on the city.  Returns per nrx the launches
+    of one step."""
+    counts = {}
+    for nrx in (1, 4):
+        cfgs = {fused: calibration_config(PATHS, BOUNCES, fused,
+                                          parity="physical")
+                for fused in (True, False)}
+        mats = default_materials(dev)
+        step = lambda cfg, bwd=True: calibration_step(  # noqa: E731
+            tris, rx_positions(nrx, CITY_RX0), CITY_TX, FREQ_GHZ, mats, cfg,
+            backward=bwd)
+        step(cfgs[True])                                         # warm-up
+        zero_counts()
+        res, loss = step(cfgs[True])
+        counts[nrx] = read_counts()
+        expected = {"nearest_hit": 0, "bounce_pre": BOUNCES,
+                    "bounce_post": BOUNCES, "loop_bwd_slim": 1,
+                    "walk_prepass": 1 + 2 * BOUNCES, "walk": 1 + 2 * BOUNCES}
+        check(counts[nrx] == expected,
+              f"city step nrx={nrx}: launches {counts[nrx]}")
+        g = grads_of(mats)
+        check(all(bool(torch.isfinite(v).all()) for v in g.values())
+              and any(float(v.abs().max()) > 0 for v in g.values()),
+              f"city step nrx={nrx}: gradients not finite or all zero")
+        written = int((res.scatter.a_te.abs() > 0).sum())
+        loss_value = float(loss.detach())
+        del res, loss
+        times = {}
+        for bwd in (False, True):
+            step(cfgs[True], bwd)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(cfgs[True], bwd)
+            times["fwd_bwd" if bwd else "fwd"] = (time.perf_counter() - t0) / 3
+        prof = profile_window(lambda: step(cfgs[True]))
+
+        grads, scat = {}, {}
+        for fused in (False, True):
+            m = default_materials(dev)
+            res, _ = calibration_step(
+                tris, rx_positions(nrx, CITY_RX0), CITY_TX, FREQ_GHZ, m,
+                calibration_config(SMALL_PATHS, BOUNCES, fused,
+                                   parity="physical"))
+            grads[fused], scat[fused] = grads_of(m), res.scatter
+        share = leaves_close(grads[True], grads[False], PATH_GRAD_RTOL,
+                             LEAF_ATOL, f"city nrx={nrx}: fused vs op path")
+        agree = {f: slots_agree(getattr(scat[False], f),
+                                getattr(scat[True], f), f)
+                 for f in OUTPUT_FIELDS}
+        emit(phase="city_train", nrx=nrx, paths=PATHS, launches=counts[nrx],
+             loss=loss_value, scatter_nonzero=written, step_s=times,
+             queries_per_s={k: BOUNCES * PATHS * (1 + nrx) / v
+                            for k, v in times.items()},
+             grad_vs_op_path_max_leaf_share=share, slot_agreement_2_16=agree,
+             profile=prof, gpu=smi())
+    return counts
+
+
+def phase_city_loss(tris, dev):
+    """F: benchmarks/config5_e2e.py's loss through the op path, gradients
+    to the materials and the TX position."""
+    cfg = TracerConfig(num_paths=PATHS, num_bounces=BOUNCES,
+                       parity="physical", launch_order="coherent",
+                       keep_rays=False)
+    z = np.zeros((1, 3), np.float32)
+
+    def run():
+        mats = default_materials(dev)
+        tx = torch.tensor(CITY_TX, device=dev, requires_grad=True)
+        res = trace_paths(tris, mats, rx_positions(1, CITY_RX0), tx, z, z,
+                          FREQ_GHZ, cfg)
+        loss = (res.scatter.a_te.abs().square().sum()
+                + res.scatter.a_tm.abs().square().sum()) * 1e9
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss, grads_of(mats), tx.grad
+
+    t0 = time.perf_counter()
+    loss, g, g_tx = run()
+    wall = time.perf_counter() - t0
+    leaves = torch.cat([v.reshape(-1) for v in g.values()]
+                       + [g_tx.reshape(-1)])
+    check(bool(torch.isfinite(leaves).all()) and bool((leaves != 0).any())
+          and bool((g_tx != 0).any()) and math.isfinite(float(loss.detach())),
+          "config5 loss: gradients not finite or zero")
+    prof = profile_window(run)
+    emit(phase="city_loss", paths=PATHS, bounces=BOUNCES,
+         loss=float(loss.detach()),
+         tx_grad=g_tx.cpu().tolist()[0], wall_s=wall,
+         grad_abs_max={k: float(v.abs().max()) for k, v in g.items()},
+         profile_wall_ms=prof["wall_ms"],
+         device_busy_ms=prof["device_busy_ms"],
+         idle_share=prof.get("idle_share"), device_ops=prof.get("device_ops"),
+         top_device=prof.get("top_device"), gpu=smi())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA GPU",
@@ -749,6 +1285,14 @@ def main():
     fused = phase_fused_kernel(recorded, dev)
     del recorded
     phase_profile_step(tris, dev)
+    del tris
+
+    city = phase_city(dev)
+    _, walk_timing = phase_walk(city, dev)
+    phase_city_equal(dev)
+    fwd_launches = phase_city_forward(city)
+    city_counts = phase_city_train(city, dev)
+    phase_city_loss(city, dev)
 
     t = timing["bounce_2^20"]
     rows = [{
@@ -781,6 +1325,32 @@ def main():
             "library_ms": None, "wall_ms": t1["wall_ms"],
             "plain_wall_ms": t1["plain_wall_ms"],
             "nrx4": fused[name]["timing"][4]})
+    for name in ("walk_prepass", "walk"):
+        key = "prepass" if name == "walk_prepass" else "walk"
+        b, sh = walk_timing["bounce"], walk_timing["shadow"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(str(walk_cuda.SOURCE), REPO),
+            "replaces": REPLACES[name],
+            "also_replaces": (None if name == "walk_prepass" else
+                              "hermespy_rt_tpu/ops/intersect_pallas.py:611"),
+            "launches": fwd_launches[name] + sum(c[name] for c in
+                                                 city_counts.values()),
+            "launches_per_step": {"city_fwd": fwd_launches[name],
+                                  **{f"city_step_nrx{n}": c[name]
+                                     for n, c in city_counts.items()}},
+            "max_abs_err": walk_timing["errors"][
+                "prepass_key_max_abs_err" if name == "walk_prepass"
+                else "walk_max_abs_err"],
+            "ms": b[f"{key}_ms"], "plain_ms": b[f"{key}_plain_ms"],
+            "bound_ms": b[f"{key}_bound"][0],
+            "bound_by": b[f"{key}_bound"][1], "library_ms": None,
+            "shadow_ms": sh[f"{key}_ms"],
+            "shadow_plain_ms": sh[f"{key}_plain_ms"],
+            "shadow_bound_ms": sh[f"{key}_bound"][0],
+            "sort_ms": b["sort_ms"], "brute_ms": b["brute_ms"],
+            "brute_flips": b["brute_flips"] + sh["brute_flips"],
+            "triangles": city.num_triangles})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,20 +21,13 @@ import torch
 
 from .config import TracerConfig
 from .materials import MaterialTable, default_materials
-from .scene.hrt import load_hrt
 from .scene.model import HostScene, TriangleSoA, flatten_scene
+from .scene.sionna import load_scene
 from .tracer import ChannelInfo, PathsResult, launch_directions, trace_paths
 
 __all__ = ["compute_paths", "trace", "prepare_scene", "load_scene"]
 
 SceneLike = Union[str, HostScene, TriangleSoA]
-
-
-def load_scene(path: str) -> HostScene:
-    """Load a scene file.  Only ``.hrt`` is read by this package so far."""
-    if not str(path).lower().endswith(".hrt"):
-        raise ValueError(f"unsupported scene format (only .hrt): {path}")
-    return load_hrt(path)
 
 
 def prepare_scene(scene: SceneLike, pad_to: int = 128,

@@ -54,6 +54,18 @@ class TracerConfig:
                    "auto" both call the kernel's wrapper, which runs the
                    plain version for CPU tensors and launches the kernel, or
                    raises, for CUDA tensors.
+      walk:        nearest-hit strategy of the "cuda"/"auto" backends: the
+                   visit-list walk (a slab-test prepass lists, per tile of
+                   rays, the triangle tiles it can reach, near to far; the
+                   walk evaluates only those, ``ops/walk_cuda.py``) or the
+                   brute scan.  "auto" (the default) walks from 4096 padded
+                   triangles up, True always, False never.  The "torch"
+                   backend always scans every triangle.
+      shadow_any_hit: physical-parity shadow queries consume only whether a
+                   blocker lies within range, so the walk may stop each
+                   shadow ray at its first such hit.  Trace outputs are
+                   unchanged; reference parity never uses it (it reads the
+                   nearest occluder's normal).
     """
 
     num_paths: int = 10_000
@@ -69,6 +81,8 @@ class TracerConfig:
     grad_geometry: bool = True
     shade: str = "xla"
     grad_positions: bool = True
+    walk: "bool | str" = "auto"
+    shadow_any_hit: bool = True
 
     @property
     def resolved_launch_order(self) -> str:
@@ -103,6 +117,14 @@ class TracerConfig:
                              "kernel) is not ported yet; use 'xla' or 'fused'")
         if self.shade not in ("xla", "fused"):
             raise ValueError(f"shade must be 'xla' or 'fused', got {self.shade!r}")
+        if self.walk in ("resident", "dma"):
+            raise ValueError(
+                f"walk={self.walk!r} places the triangles in TPU memory "
+                "(VMEM-resident or streamed by DMA); on the GPU they come "
+                "from device memory through L2 either way: use True")
+        if self.walk not in (True, False, "auto"):
+            raise ValueError("walk must be True, False or 'auto', got "
+                             f"{self.walk!r}")
         if not self.grad_positions and self.grad_geometry:
             raise ValueError("grad_positions=False requires grad_geometry="
                              "False (the cross-bounce vertex chain rides the "

@@ -4,13 +4,8 @@
 // (all rays) and ::_kernel_flags (rays with a liveness mask).  Those rewrite
 // Möller–Trumbore as triple-product matmuls over a centred scene to use the
 // TPU's matrix unit; this kernel computes the classic form instead, in f32,
-// in the operation order of the JAX golden
-// (hermespy_rt_tpu/ops/intersect.py::_mt_block and ::_nearest):
-//   pvec = d x e2, det = e1 . pvec, inv_det = 1 / det,
-//   u = (s . pvec) inv_det, qvec = s x e1, v = (d . qvec) inv_det,
-//   t = (e2 . qvec) inv_det                                   (s = o - v0)
-// Built with -fmad=false and without fast math, every product, sum and the
-// division are rounded on their own, exactly as the plain torch twin
+// by the step of mt.cuh (shared with the walk, walk.cu), which rounds every
+// product, sum and the division on its own, exactly as the plain torch twin
 // (hermespy_rt_tpu_torch/ops/intersect.py::intersect_torch) rounds them, so
 // the two make the same hit decisions.
 //
@@ -34,12 +29,12 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "mt.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // rays per block
 constexpr int kTile = 256;      // triangles staged per shared-memory tile
-constexpr float kEps = 1.1920928955078125e-07f;  // FLT_EPSILON
-constexpr float kTMax = 1e9f;
 
 __global__ void __launch_bounds__(kThreads) nearest_hit_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
@@ -84,25 +79,12 @@ __global__ void __launch_bounds__(kThreads) nearest_hit_kernel(
     __syncthreads();
     if (!alive) continue;
     for (int k = 0; k < n; ++k) {
-      const float v0x = tri[0][k], v0y = tri[1][k], v0z = tri[2][k];
-      const float e1x = tri[3][k], e1y = tri[4][k], e1z = tri[5][k];
-      const float e2x = tri[6][k], e2y = tri[7][k], e2z = tri[8][k];
-      const float px = dy * e2z - dz * e2y;
-      const float py = dz * e2x - dx * e2z;
-      const float pz = dx * e2y - dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-      const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-      const float u = (sx * px + sy * py + sz * pz) * inv_det;
-      const float qx = sy * e1z - sz * e1y;
-      const float qy = sz * e1x - sx * e1z;
-      const float qz = sx * e1y - sy * e1x;
-      const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-      const bool valid = fabsf(det) >= kEps && u >= -kEps &&
-                         u <= 1.0f + kEps && v >= -kEps &&
-                         u + v <= 1.0f + kEps && t > kEps && t < kTMax &&
-                         base + k != ex;
+      bool valid;
+      const float t = hrt::mt_hit(ox, oy, oz, dx, dy, dz, tri[0][k],
+                                  tri[1][k], tri[2][k], tri[3][k], tri[4][k],
+                                  tri[5][k], tri[6][k], tri[7][k], tri[8][k],
+                                  valid);
+      valid = valid && base + k != ex;
       if (valid && t < best_t) {
         best_t = t;
         best_i = base + k;

@@ -5,9 +5,9 @@ Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call for ``sm_90a``, with
 division rounded on its own, as the plain torch versions round them), into
 one shared library with a plain C interface under the git-ignored
 ``hermespy_rt_tpu_torch/_build/``, and bound with ``ctypes``.  The library's
-name carries a hash of every source and of the flags, so an edited source is
-rebuilt.  Nothing is built at import: the first launch, or :meth:`build`,
-builds.
+name carries a hash of every source, of the headers they share
+(``csrc/*.cuh``) and of the flags, so an edited source is rebuilt.  Nothing
+is built at import: the first launch, or :meth:`build`, builds.
 """
 from __future__ import annotations
 
@@ -21,12 +21,16 @@ import time
 from pathlib import Path
 from typing import Sequence
 
-__all__ = ["KernelLibrary", "LIBRARY", "CSRC", "SOURCES", "NVCC_FLAGS",
-           "BUILD_DIR"]
+import torch
+
+__all__ = ["KernelLibrary", "LIBRARY", "CSRC", "SOURCES", "HEADERS",
+           "NVCC_FLAGS", "BUILD_DIR", "OperandChecker", "cuda_device",
+           "raise_on"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
@@ -53,7 +57,7 @@ class KernelLibrary:
 
     def path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in self.sources:
+        for src in self.sources + HEADERS:
             h.update(src.name.encode() + b"\0" + src.read_bytes())
         return BUILD_DIR / f"libhrt_kernels_{h.hexdigest()[:16]}.so"
 
@@ -96,3 +100,37 @@ class KernelLibrary:
 
 
 LIBRARY = KernelLibrary()
+
+
+class OperandChecker:
+    """A launch wrapper's operand checks against the device of its first
+    operand: device, dtype, shape and contiguity; returns the pointer."""
+
+    def __init__(self, name: str, dev: torch.device):
+        self.name, self.dev = name, dev
+
+    def __call__(self, arg: str, x: torch.Tensor, dtype, shape):
+        if x.device != self.dev:
+            raise ValueError(f"{self.name}: {arg} on {x.device}, "
+                             f"expected {self.dev}")
+        if x.dtype != dtype:
+            raise ValueError(f"{self.name}: {arg} is {x.dtype}, want {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{self.name}: {arg} has shape "
+                             f"{tuple(x.shape)}, want {tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{self.name}: {arg} is not contiguous")
+        return x.data_ptr()
+
+
+def cuda_device(name: str, x: torch.Tensor) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device
+
+
+def raise_on(name: str, err: int):
+    """Raise if a launch returned a nonzero ``cudaError``."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError "
+                           f"{err}")

@@ -18,7 +18,8 @@ from typing import Tuple
 
 import torch
 
-from ._cuda_build import CSRC, LIBRARY
+from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
+                          raise_on)
 from .bounce_fused import (TABLE_COLS, FusedSpec, PostOut, PreOut,
                            bounce_post_plain, bounce_pre_plain,
                            loop_bwd_slim_plain)
@@ -37,38 +38,6 @@ _TABLE_BYTES_PER_MATERIAL = 4 * len(ETA_FIELDS)
 MAX_MATERIALS = _SMEM_BYTES // _TABLE_BYTES_PER_MATERIAL
 
 
-class _Checker:
-    """Operand checks against the device of the first operand."""
-
-    def __init__(self, name: str, dev: torch.device):
-        self.name, self.dev = name, dev
-
-    def __call__(self, arg: str, x: torch.Tensor, dtype, shape):
-        if x.device != self.dev:
-            raise ValueError(f"{self.name}: {arg} on {x.device}, "
-                             f"expected {self.dev}")
-        if x.dtype != dtype:
-            raise ValueError(f"{self.name}: {arg} is {x.dtype}, want {dtype}")
-        if tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{self.name}: {arg} has shape "
-                             f"{tuple(x.shape)}, want {tuple(shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{self.name}: {arg} is not contiguous")
-        return x.data_ptr()
-
-
-def _cuda_device(name: str, x: torch.Tensor) -> torch.device:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return x.device
-
-
-def _raise_on(name: str, err: int):
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError "
-                           f"{err}")
-
-
 class BouncePreKernel:
     """Wrapper of ``bounce_pre_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.bounce_pre_plain`."""
@@ -84,8 +53,8 @@ class BouncePreKernel:
         if o.device.type == "cpu":
             return bounce_pre_plain(spec, o, d, st, act, idx, table,
                                     material, rx_pos, sc)
-        dev = _cuda_device("bounce_pre", o)
-        chk = _Checker("bounce_pre", dev)
+        dev = cuda_device("bounce_pre", o)
+        chk = OperandChecker("bounce_pre", dev)
         R, nrx, T = o.shape[0], spec.nrx, table.shape[0]
         ptrs = [chk("o", o, _F32, (R, 3)), chk("d", d, _F32, (R, 3)),
                 chk("st", st, _F32, (6, R)), chk("act", act, _BOOL, (R,)),
@@ -115,7 +84,7 @@ class BouncePreKernel:
             err = self._fn(*ptrs, R, nrx, int(spec.parity == "physical"),
                            spec.eps_o, *(x.data_ptr() for x in out),
                            torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on("bounce_pre", err)
+        raise_on("bounce_pre", err)
         self.launches += 1
         return out
 
@@ -136,8 +105,8 @@ class BouncePostKernel:
             return bounce_post_plain(spec, d2, st2, ex, sh_d, d2rx, t_self,
                                      crossing, excl, live, t_o, idx_o, table,
                                      sc)
-        dev = _cuda_device("bounce_post", d2)
-        chk = _Checker("bounce_post", dev)
+        dev = cuda_device("bounce_post", d2)
+        chk = OperandChecker("bounce_post", dev)
         R, nrx, T = d2.shape[0], spec.nrx, table.shape[0]
         ptrs = [chk("d2", d2, _F32, (R, 3)), chk("st2", st2, _F32, (6, R)),
                 chk("ex", ex, _F32, (3, R)),
@@ -162,7 +131,7 @@ class BouncePostKernel:
             err = self._fn(*ptrs, R, nrx, int(spec.parity == "physical"),
                            spec.eps_o, *(x.data_ptr() for x in out),
                            torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on("bounce_post", err)
+        raise_on("bounce_post", err)
         self.launches += 1
         return out
 
@@ -186,8 +155,8 @@ class LoopBwdSlimKernel:
         if eta_tab.device.type == "cpu":
             return loop_bwd_slim_plain(spec, eta_tab, st_all, live_all,
                                        mat_all, res_pre, res_post, d_out)
-        dev = _cuda_device("loop_bwd_slim", eta_tab)
-        chk = _Checker("loop_bwd_slim", dev)
+        dev = cuda_device("loop_bwd_slim", eta_tab)
+        chk = OperandChecker("loop_bwd_slim", dev)
         M, nrx = eta_tab.shape[0], spec.nrx
         B, R = st_all.shape[0] - 1, st_all.shape[-1]
         if M > MAX_MATERIALS:
@@ -217,7 +186,7 @@ class LoopBwdSlimKernel:
             err = self._fn(ptrs[0], M, *ptrs[1:], R, B, nrx, d_st0.data_ptr(),
                            part.data_ptr(), n_blocks, threads,
                            torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on("loop_bwd_slim", err)
+        raise_on("loop_bwd_slim", err)
         self.launches += 1
         return d_st0, part.sum(dim=0)
 

@@ -23,7 +23,8 @@ import torch
 
 from .geometry import cross3, dot3
 
-__all__ = ["intersect_torch", "recompute_hit_t", "FLT_EPS", "T_MAX", "MISS"]
+__all__ = ["intersect_torch", "mt_hit", "recompute_hit_t", "FLT_EPS", "T_MAX",
+           "MISS"]
 
 FLT_EPS = 1.1920928955078125e-07  # __FLT_EPSILON__, the C tolerance
 T_MAX = 1e9                       # reference 'dist' init
@@ -34,14 +35,17 @@ def _components(x):
     return x[:, 0], x[:, 1], x[:, 2]
 
 
-def _nearest_chunk(o, d, v0, e1, e2, exclude):
-    """(t, idx) of one ray chunk ``o, d`` f32[C, 3] against all triangles."""
-    ox, oy, oz = (c[:, None] for c in _components(o))
-    dx, dy, dz = (c[:, None] for c in _components(d))
-    v0x, v0y, v0z = (c[None] for c in _components(v0))
-    e1x, e1y, e1z = (c[None] for c in _components(e1))
-    e2x, e2y, e2z = (c[None] for c in _components(e2))
-
+def mt_hit(o, d, v0, e1, e2):
+    """Möller–Trumbore ``(t, valid)`` of broadcasting ray and triangle
+    components, each a tuple ``(x, y, z)`` of tensors, in the golden's op
+    order; ``valid`` holds the epsilon tests and ``eps < t < T_MAX``.  The
+    brute query and the walk (``ops/walk.py``) share it, as their kernels
+    share ``csrc/mt.cuh``."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z = v0
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
     px = dy * e2z - dz * e2y                   # pvec = d x e2
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -58,6 +62,15 @@ def _nearest_chunk(o, d, v0, e1, e2, exclude):
              & (u >= -FLT_EPS) & (u <= 1.0 + FLT_EPS)
              & (v >= -FLT_EPS) & (u + v <= 1.0 + FLT_EPS)
              & (t > FLT_EPS) & (t < T_MAX))
+    return t, valid
+
+
+def _nearest_chunk(o, d, v0, e1, e2, exclude):
+    """(t, idx) of one ray chunk ``o, d`` f32[C, 3] against all triangles."""
+    t, valid = mt_hit(tuple(c[:, None] for c in _components(o)),
+                      tuple(c[:, None] for c in _components(d)),
+                      *(tuple(c[None] for c in _components(x))
+                        for x in (v0, e1, e2)))
     if exclude is not None:
         tri = torch.arange(v0.shape[0], device=o.device)
         valid &= tri[None, :] != exclude[:, None]

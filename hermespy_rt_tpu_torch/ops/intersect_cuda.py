@@ -18,7 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._cuda_build import CSRC, LIBRARY
+from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
+                          raise_on)
 from .intersect import intersect_torch
 
 __all__ = ["nearest_hit", "NearestHitKernel", "SOURCE"]
@@ -46,23 +47,10 @@ class NearestHitKernel:
         if o.device.type == "cpu":
             return intersect_torch(o, d, tris, chunk_size=chunk_size,
                                    exclude=exclude, t_max=t_max, live=live)
-        if o.device.type != "cuda":
-            raise ValueError(f"nearest_hit: unsupported device {o.device}")
-        dev = o.device
+        dev = cuda_device("nearest_hit", o)
         R = o.shape[0]
         T = tris.v0.shape[0]
-
-        def check(name, x, dtype, shape):
-            if x.device != dev:
-                raise ValueError(f"nearest_hit: {name} on {x.device}, rays on {dev}")
-            if x.dtype != dtype:
-                raise ValueError(f"nearest_hit: {name} is {x.dtype}, want {dtype}")
-            if tuple(x.shape) != shape:
-                raise ValueError(f"nearest_hit: {name} has shape "
-                                 f"{tuple(x.shape)}, want {shape}")
-            if not x.is_contiguous():
-                raise ValueError(f"nearest_hit: {name} is not contiguous")
-
+        check = OperandChecker("nearest_hit", dev)
         check("o", o, torch.float32, (R, 3))
         check("d", d, torch.float32, (R, 3))
         for name in ("v0", "e1", "e2"):
@@ -93,9 +81,7 @@ class NearestHitKernel:
                 t_max_ptr, t_max_scalar,
                 None if live is None else live.data_ptr(),
                 t_out.data_ptr(), idx_out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"nearest_hit: kernel launch failed with "
-                               f"cudaError {err}")
+        raise_on("nearest_hit", err)
         self.launches += 1
         return t_out, idx_out
 

@@ -17,6 +17,11 @@ With ``shade="fused"`` (and ``grad_positions=False``) the bounce loop runs
 instead as :class:`FusedLoopSlim`: per bounce two fused kernels around the
 shadow query, and one kernel for the whole loop's material backward
 (``ops/bounce_fused_cuda.py``), as the JAX package's ``fused_loop_slim``.
+
+Scenes of 4096 padded triangles and more (``walk="auto"``) answer every
+query through the visit-list walk (``ops/walk_cuda.py``) instead of the brute
+scan; physical-parity shadow queries then stop each ray at its first blocker
+within range (``shadow_any_hit``).
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ from .ops.intersect import FLT_EPS, intersect_torch
 from .ops.intersect_cuda import nearest_hit
 from .ops.scattering import scat_coefs
 from .ops.shade import _CLIP, SPEED_OF_LIGHT, shade_a
+from .ops.walk import prepare_walk
+from .ops.walk_cuda import walk_query
 from .scene.model import TriangleSoA, _morton_order
 
 __all__ = ["ChannelInfo", "RaysInfo", "PathsResult", "trace_paths",
@@ -91,16 +98,29 @@ def _select_intersect(cfg: TracerConfig):
         live=live)
 
 
+def _walks(cfg: TracerConfig, tris: TriangleSoA) -> bool:
+    """Whether the queries walk: ``walk`` True, or "auto" from 4096 padded
+    triangles up (the JAX package's measured crossover); never on the
+    "torch" backend, which scans every triangle."""
+    if cfg.backend == "torch":
+        return False
+    if cfg.walk == "auto":
+        return tris.pad_triangles >= 4096
+    return bool(cfg.walk)
+
+
 class LocalSceneAccess:
     """The whole triangle SoA on this device, with the per-hit payload
     (triangle basis, normal, velocity, material eta row) in ONE ``[T, 27]``
     table so that a hit fetch is a single row gather, the per-material eta
-    rows ``[M, 12]`` and the int32 triangle materials (the fused path's)."""
+    rows ``[M, 12]`` and the int32 triangle materials (the fused path's).
+    When the queries walk, the scene is cut for the walk once, here."""
 
     def __init__(self, tris: TriangleSoA, cfg: TracerConfig,
                  eta: EtaPrecomputed):
         self.tris = tris
         self._intersect = _select_intersect(cfg)
+        self.walk = prepare_walk(tris) if _walks(cfg, tris) else None
         self._grad_geometry = cfg.grad_geometry
         mat = tris.material
         eta_cols = torch.stack([getattr(eta, f)[mat] for f in ETA_FIELDS],
@@ -112,13 +132,20 @@ class LocalSceneAccess:
                                     dim=-1)                           # [M, 12]
         self._material = mat.to(torch.int32)
 
-    def intersect(self, o, d, t_max=None, exclude=None, live=None):
+    def intersect(self, o, d, t_max=None, exclude=None, live=None,
+                  any_hit=False):
         """Nearest hit ``(t f32[R] (+inf miss), idx i32[R] (-1 miss))``;
         hits beyond ``t_max`` and dead rays (``live`` False) report misses.
-        Decisions only: no gradient flows through them."""
-        return self._intersect(o.detach().contiguous(),
-                               d.detach().contiguous(), self.tris,
-                               exclude=exclude, t_max=t_max, live=live)
+        ``any_hit`` declares that the caller reads only whether a hit within
+        ``t_max`` exists: the walk may then return any such hit; the brute
+        scan ignores it (the nearest hit is a valid answer).  Decisions
+        only: no gradient flows through them."""
+        o, d = o.detach().contiguous(), d.detach().contiguous()
+        if self.walk is not None:
+            return walk_query(o, d, self.walk, exclude=exclude, t_max=t_max,
+                              live=live, any_hit=any_hit)
+        return self._intersect(o, d, self.tris, exclude=exclude, t_max=t_max,
+                               live=live)
 
     def _geo(self, x):
         return x if self._grad_geometry else x.detach()
@@ -198,18 +225,20 @@ def _los_pass(access: LocalSceneAccess, rx_pos, tx_pos, rx_vel, tx_vel, fslm,
 
 
 def _shadow_intersect(access, so, ds, t_max, excl, cfg: TracerConfig,
-                      live=None):
+                      live=None, any_hit=False):
     """Shadow-ray nearest hit over the flattened ``[NRx * R]`` axis, in RX
     groups of at most ``cfg.rx_query_rays`` rays (the largest divisor of NRx
     that fits), one query per group.  ``so``/``ds`` are [NRx, R, 3];
-    ``t_max``/``excl``/``live`` flat [NRx * R] or None."""
+    ``t_max``/``excl``/``live`` flat [NRx * R] or None; ``any_hit`` as in
+    :meth:`LocalSceneAccess.intersect`."""
     nrx, R = so.shape[0], so.shape[1]
     c = max(1, cfg.rx_query_rays // R)          # rx rows per query
     while nrx % c:
         c -= 1
     if c >= nrx:
         return access.intersect(so.reshape(-1, 3), ds.reshape(-1, 3),
-                                t_max=t_max, exclude=excl, live=live)
+                                t_max=t_max, exclude=excl, live=live,
+                                any_hit=any_hit)
     n = c * R
     part = lambda x, g: None if x is None else x[g * n:(g + 1) * n]
     ts, idxs = [], []
@@ -217,7 +246,8 @@ def _shadow_intersect(access, so, ds, t_max, excl, cfg: TracerConfig,
         t, i = access.intersect(
             so[g * c:(g + 1) * c].reshape(-1, 3),
             ds[g * c:(g + 1) * c].reshape(-1, 3),
-            t_max=part(t_max, g), exclude=part(excl, g), live=part(live, g))
+            t_max=part(t_max, g), exclude=part(excl, g), live=part(live, g),
+            any_hit=any_hit)
         ts.append(t)
         idxs.append(i)
     return torch.cat(ts), torch.cat(idxs)
@@ -277,8 +307,11 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     else:
         eps_o = cfg.occlusion_offset
         limit = d2rx.reshape(-1) - 2.0 * eps_o
+        # only `blocked` is read from this query, so the walk may stop each
+        # shadow ray at its first blocker within the limit
         t_o, idx_o = _shadow_intersect(access, so + eps_o * ds, ds,
-                                       limit.detach(), excl, cfg, live=lv)
+                                       limit.detach(), excl, cfg, live=lv,
+                                       any_hit=cfg.shadow_any_hit)
         # in query coordinates the origin is a further eps_o along ds
         t_self_q = t_self.reshape(-1) - eps_o
         self_hit = (crossing.reshape(-1) & (t_self_q > FLT_EPS)
@@ -389,8 +422,9 @@ def _fused_forward(access: LocalSceneAccess, spec: FusedSpec,
         excl_q = pre.excl[None].expand(nrx, R).reshape(-1)
         live_q = (pre.live[None].expand(nrx, R).reshape(-1)
                   if cfg.compact_rays else None)
-        t_o, idx_o = _shadow_intersect(access, pre.sh_o, pre.sh_d, t_max,
-                                       excl_q, cfg, live=live_q)
+        t_o, idx_o = _shadow_intersect(
+            access, pre.sh_o, pre.sh_d, t_max, excl_q, cfg, live=live_q,
+            any_hit=cfg.shadow_any_hit and spec.parity != "reference")
         post = fused_ops.bounce_post(
             spec, pre.d2, pre.st2, pre.ex, pre.sh_d, pre.d2rx, pre.t_self,
             pre.crossing, pre.excl, pre.live, t_o.reshape(nrx, R),

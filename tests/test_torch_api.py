@@ -4,6 +4,7 @@
 leaves JAX out."""
 import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -77,7 +78,7 @@ def test_row_count_validation():
 
 def test_unsupported_scene_format():
     with pytest.raises(ValueError):
-        hrt.load_scene("scene.xml")
+        hrt.load_scene("scene.obj")
 
 
 def test_trace_returns_rays_info():
@@ -102,14 +103,30 @@ def test_import_leaves_jax_out():
     code = ("import sys, hermespy_rt_tpu_torch, hermespy_rt_tpu_torch.convert,"
             " hermespy_rt_tpu_torch.ops.intersect_cuda,"
             " hermespy_rt_tpu_torch.ops.bounce_fused_cuda,"
+            " hermespy_rt_tpu_torch.ops.walk,"
+            " hermespy_rt_tpu_torch.ops.walk_cuda,"
+            " hermespy_rt_tpu_torch.scene.sionna,"
             " hermespy_rt_tpu_torch.testing, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'jaxlib', 'hermespy_rt_tpu.')) "
+            "or m.startswith(('jax.', 'jaxlib', 'hermespy_rt_tpu.', "
+            "'config5_scene', 'config5_e2e', 'benchmarks')) "
             "or m == 'hermespy_rt_tpu'); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # nor does any source of the port, nor chip_smoke.py, import them where
+    # the import above does not reach (inside a function)
+    srcs = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(dirpath, f)
+        for dirpath, _, names in os.walk(os.path.join(REPO,
+                                                      "hermespy_rt_tpu_torch"))
+        for f in sorted(names) if f.endswith(".py")]
+    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|benchmarks|"
+                        r"config5_\w+|hermespy_rt_tpu(?!_torch))\b", re.M)
+    for src in srcs:
+        with open(src) as f:
+            assert not banned.search(f.read()), src
 
 
 def test_entry_points_default_to_the_card():

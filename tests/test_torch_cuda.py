@@ -13,7 +13,12 @@ twin to the tier of ``tests/test_pallas.py``.  The fused bounce kernels are
 held against their plain versions with the checks of
 ``hermespy_rt_tpu_torch/testing.py`` (equal decisions, values within their
 tier, the backward against the plain version in float64 and the same bits
-in two runs), and one fused forward+backward step against the op path."""
+in two runs), and one fused forward+backward step against the op path.
+The walk's prepass kernel must give the reach and key of its plain version
+bit for bit, and the walk kernel the (t, idx) of its plain version and of
+the brute kernel (in any-hit mode the same `blocked`, each reported hit a
+valid one); traces through the walk equal traces through the brute kernel
+bit for bit."""
 import dataclasses
 
 import numpy as np
@@ -24,10 +29,14 @@ from hermespy_rt_tpu_torch import compute_paths, default_materials
 from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
-from hermespy_rt_tpu_torch.ops.intersect import intersect_torch
+from hermespy_rt_tpu_torch.ops.intersect import intersect_torch, mt_hit
 from hermespy_rt_tpu_torch.ops.intersect_cuda import nearest_hit
-from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene,
-                                         random_soup_scene)
+from hermespy_rt_tpu_torch.ops.walk import (prepare_walk, prepass_plain,
+                                            query_limits, visit_rows,
+                                            walk_plain)
+from hermespy_rt_tpu_torch.ops.walk_cuda import walk, walk_prepass, walk_query
+from hermespy_rt_tpu_torch.scene import (HostMesh, HostScene, box_scene,
+                                         flatten_scene, random_soup_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -200,3 +209,125 @@ def test_fused_kernels_reject_bad_operands(dev):
             spec, f(fused_ops.MAX_MATERIALS + 1, 12), f(2, 6, R),
             torch.ones((1, R), dtype=torch.bool, device=dev), i32(1, R),
             f(1, 3, R), f(1, 1, 6, R), f(1, 1, 6, R))
+
+
+def _walk_scene(dev, ties=False):
+    """6000 random triangles, Morton-sorted (48 fine tiles of 128); with
+    ``ties`` 3000 and their exact copies in file order, so every hit is a
+    tie with a triangle 3000 rows later, in another tile."""
+    if ties:
+        m = random_soup_scene(3000, seed=2, extent=60.0,
+                              tri_size=3.0).meshes[0]
+        idx = m.indices.astype(np.int64)
+        host = HostScene([HostMesh(m.vertices, np.concatenate([idx, idx]),
+                                   material_index=m.material_index)])
+        return flatten_scene(host, device=dev)
+    return flatten_scene(random_soup_scene(6000, seed=3, extent=60.0,
+                                           tri_size=3.0),
+                         sort_triangles=True, device=dev)
+
+
+@pytest.mark.parametrize("opt", ["plain", "t_max_rays", "live", "all"])
+def test_walk_prepass_kernel_equals_plain(dev, opt):
+    rng = np.random.default_rng(11)
+    tris = _walk_scene(dev)
+    scene = prepare_walk(tris)
+    R = (1 << 16) + 77
+    o, d, kw = _inputs(rng, opt, R, tris.pad_triangles, dev)
+    lim = query_limits(R, scene.block_rays, t_max=kw.get("t_max"),
+                       live=kw.get("live"), device=dev)
+    before = walk_prepass.launches
+    reach, key = walk_prepass(o, d, lim, scene.boxes)
+    torch.cuda.synchronize()
+    assert walk_prepass.launches == before + 1
+    r_p, k_p = prepass_plain(o, d, lim, scene.boxes, scene.block_rays)
+    assert torch.equal(reach, r_p) and torch.equal(key, k_p)
+    assert torch.equal(visit_rows(reach, key), visit_rows(r_p, k_p))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+def test_walk_kernel_equals_plain_and_brute(dev, ties, any_hit):
+    rng = np.random.default_rng(12)
+    tris = _walk_scene(dev, ties)
+    scene = prepare_walk(tris)
+    R = (1 << 15) + 77
+    o, d, kw = _inputs(rng, "all", R, tris.pad_triangles, dev)
+    lim = query_limits(R, scene.block_rays, t_max=kw["t_max"],
+                       live=kw["live"], device=dev)
+    visits = visit_rows(*walk_prepass(o, d, lim, scene.boxes))
+    before = walk.launches
+    t, i = walk(o, d, lim, scene, visits, exclude=kw["exclude"],
+                any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 1
+    # the plain walk on a sample of ray tiles (every 16th)
+    tiles = torch.arange(0, visits.shape[0], 16, device=dev)
+    rays = (tiles[:, None] * scene.block_rays
+            + torch.arange(scene.block_rays, device=dev)).reshape(-1)
+    rays = rays[rays < R]
+    t_p, i_p = walk_plain(o[rays], d[rays], scene, visits[tiles],
+                          lim.reshape(-1, scene.block_rays)[tiles].reshape(-1),
+                          exclude=kw["exclude"][rays], any_hit=any_hit)
+    assert torch.equal(i[rays], i_p) and torch.equal(t[rays], t_p)
+    t_b, i_b = nearest_hit(o, d, tris, **kw)
+    if not any_hit:
+        assert torch.equal(i, i_b) and torch.equal(t, t_b)
+    else:
+        tm = kw["t_max"]
+        blocked = (i >= 0) & (t <= tm)
+        assert torch.equal(blocked, (i_b >= 0) & (t_b <= tm))
+        sel = i[blocked].long()
+        comp = lambda x: tuple(x[:, c] for c in range(3))  # noqa: E731
+        t_re, valid = mt_hit(comp(o[blocked]), comp(d[blocked]),
+                             comp(tris.v0[sel]), comp(tris.e1[sel]),
+                             comp(tris.e2[sel]))
+        assert bool(valid.all()) and torch.equal(t_re, t[blocked])
+        assert not bool((sel == kw["exclude"][blocked].long()).any())
+    if ties:
+        # a copy wins only where its original is the ray's excluded one
+        h = i_b >= 0
+        hit, ex = i_b[h], kw["exclude"][h]
+        assert hit.numel() and bool(((hit < 3000) | (ex == hit - 3000)).all())
+
+
+def test_walk_rejects_bad_operands(dev):
+    tris = _walk_scene(dev)
+    scene = prepare_walk(tris)
+    o = torch.zeros((8, 3), device=dev)
+    d = torch.ones((8, 3), device=dev)
+    lim = query_limits(8, scene.block_rays, device=dev)
+    visits = visit_rows(*walk_prepass(o, d, lim, scene.boxes))
+    with pytest.raises(ValueError):
+        walk_prepass(o.double(), d, lim, scene.boxes)
+    with pytest.raises(ValueError):
+        walk_prepass(o, d, lim, scene.boxes, block_rays=128)
+    with pytest.raises(ValueError):
+        walk(o, d, lim, scene, visits.long())
+    with pytest.raises(ValueError):
+        walk(o, d, lim.cpu(), scene, visits)
+    with pytest.raises(ValueError):
+        walk(o, d, lim, scene, visits,
+             exclude=torch.zeros(8, dtype=torch.int64, device=dev))
+
+
+@pytest.mark.parametrize("parity", ["reference", "physical"])
+def test_trace_through_walk_equals_brute(dev, parity):
+    rx = np.array([[10.0, 5.0, 2.0], [11.5, 3.0, 2.25]], np.float32)
+    tx = np.array([[-20.0, -10.0, 10.0]], np.float32)
+    z = np.zeros((2, 3))
+    tris = _walk_scene(dev)
+    out = {}
+    for w in (False, True):
+        counts = (nearest_hit.launches, walk.launches, walk_prepass.launches)
+        out[w] = compute_paths(tris, rx, tx, z, z[:1], 3.0, 2, 1, 1 << 14, 3,
+                               device=dev, parity=parity, walk=w,
+                               compact_rays=True, keep_rays=False)
+        launched = (nearest_hit.launches - counts[0],
+                    walk.launches - counts[1],
+                    walk_prepass.launches - counts[2])
+        assert launched == ((0, 7, 7) if w else (7, 0, 0))
+    for part in (0, 1):
+        for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
+            assert torch.equal(getattr(out[False][part], f),
+                               getattr(out[True][part], f)), (part, f)
