@@ -84,10 +84,35 @@ F. city_loss  -- ``benchmarks/config5_e2e.py``'s loss once through the op
                  path: gradients to the materials and the TX position,
                  finite and nonzero; wall and device busy.
 
+The full-gradient fused path (``trace(shade="fused")`` with the JAX
+defaults ``grad_positions=True, grad_geometry=True``: per-stage backward
+kernels and the table scatter-add):
+
+G. grad_step  -- the canyon stand-in at 2^20 paths, B = 3, reference
+                 parity, nrx = 1 and 4, tests/test_bounce_fused.py's loss,
+                 backward to the materials, the RX and TX positions, the
+                 frequency and the vertices: launches of one step (recorded),
+                 forward+backward mean of 3 after a warm-up, one profiler
+                 window; at 2^16 paths every gradient against the op path's.
+H. bwd_kernel -- every recorded call of the full backwards and the
+                 scatter-add held against its plain version in float64 (tier
+                 and ulp gaps per row), run twice to the same bits; device
+                 time (profiler and CUDA events), plain time, bound.
+I. slim_stages -- ``unroll_bounces=False`` (the slim per-stage backwards) at
+                 2^20 paths, nrx = 1: launches, the two slim kernels and the
+                 scatter-add held and timed the same way, the material
+                 gradients against the whole-loop backward's.
+J. city_grad  -- ``config5_e2e.py``'s loss through the full-gradient fused
+                 path on the city at 2^20 paths, nrx = 1: gradients to the
+                 materials and the TX position, finite, nonzero and within
+                 their tier of phase F's; wall, device busy, idle share,
+                 launches.
+
 Then the kernel summary, the card's name and power limit, and the result
 line.  Without a CUDA device it exits non-zero and prints no result.
 """
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import math
@@ -106,7 +131,7 @@ from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS, MATERIAL_NAMES
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
-from hermespy_rt_tpu_torch.ops import walk_cuda
+from hermespy_rt_tpu_torch.ops import fetch_cuda, walk_cuda
 from hermespy_rt_tpu_torch.ops._cuda_build import BUILD_DIR, LIBRARY
 from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
 from hermespy_rt_tpu_torch.ops.geometry import fibonacci_sphere
@@ -120,9 +145,12 @@ from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene, load_hrt,
                                          random_soup_scene)
 from hermespy_rt_tpu_torch.tracer import trace_paths
 from hermespy_rt_tpu_torch.testing import (
-    FUSED, KERNELS, LEAF_ATOL, OUTPUT_FIELDS, PATH_GRAD_RTOL, PLAIN, check,
-    calibration_config, calibration_step, grads_of, hold_bwd, hold_post,
-    hold_pre, leaves_close, material_table, recording_fused, slots_agree)
+    FUSED, KERNELS, LEAF_ATOL, LEAF_RTOL, OUTPUT_FIELDS, PATH_GRAD_RTOL,
+    PLAIN, STAGE_BWD, CheckFailure, check, calibration_config,
+    calibration_step, grad_loss, grads_of, hold_bwd, hold_post,
+    hold_post_bwd, hold_post_bwd_slim, hold_pre, hold_pre_bwd,
+    hold_pre_bwd_slim, hold_scatter_add, leaves_close, material_table,
+    recording_fused, slots_agree)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CANYON = os.path.join(REPO, "scenes", "simple_street_canyon_with_cars.hrt")
@@ -150,6 +178,15 @@ NEAREST_HIT_OPS_PER_PAIR = 47
 PRE_OPS_PER_RAY, PRE_OPS_PER_RX = 180, 30
 POST_OPS_PER_RX = 150
 BWD_PRE_OPS, BWD_POST_OPS = 120, 100
+# the per-stage backwards (csrc/bounce_bwd.cu), each the forward it
+# recomputes plus its vjp: the full pre per ray (forward, Fresnel vjp,
+# geometry vjp) plus per (ray, RX) (shadow set-up and its vjp); the full post
+# per (ray, RX) (forward, Doppler, scattering and amplitude vjps); the slim
+# ones as the whole-loop backward's per-bounce parts (BWD_PRE_OPS per live
+# ray, BWD_POST_OPS per written (ray, RX)); the scatter-add one add per
+# (kept row, column)
+PRE_BWD_OPS_PER_RAY, PRE_BWD_OPS_PER_RX = 460, 60
+POST_BWD_OPS_PER_RX = 360
 # f32 operations counted in csrc/walk.cu: one slab test of a ray against a
 # box (3 axes of 2 sub, 2 mul, min, max; the 4 min/max joining them; 4
 # compares), and the prepass's per-pair key (max with 0, min)
@@ -170,7 +207,12 @@ REPLACES = {"nearest_hit": "hermespy_rt_tpu/ops/intersect_pallas.py:369",
             "walk": "hermespy_rt_tpu/ops/intersect_pallas.py:552",
             "bounce_pre": "hermespy_rt_tpu/ops/bounce_fused.py:344",
             "bounce_post": "hermespy_rt_tpu/ops/bounce_fused.py:684",
-            "loop_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:1170"}
+            "loop_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:1170",
+            "bounce_pre_bwd": "hermespy_rt_tpu/ops/bounce_fused.py:461",
+            "bounce_post_bwd": "hermespy_rt_tpu/ops/bounce_fused.py:716",
+            "bounce_pre_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:426",
+            "bounce_post_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:655",
+            "scatter_add": "hermespy_rt_tpu/ops/fetch_pallas.py:82"}
 
 
 def emit(**kw):
@@ -559,7 +601,8 @@ def phase_train(tris, dev):
     """This slice's main path.  Returns per nrx the launch counts of one
     step and its recorded fused kernel calls."""
     mats = default_materials(dev)
-    expected = {"nearest_hit": 1 + 2 * BOUNCES, "bounce_pre": BOUNCES,
+    expected = {**{n: 0 for n in KERNELS},
+                "nearest_hit": 1 + 2 * BOUNCES, "bounce_pre": BOUNCES,
                 "bounce_post": BOUNCES, "loop_bwd_slim": 1}
     counts, recorded = {}, {}
     for nrx in (1, 4):
@@ -808,7 +851,8 @@ def profile_window(fn):
                     note="the profiler recorded no device events")
     busy = sum(_device_ms(e) for e in dev_rows)
     per = {}
-    for name in ("walk_prepass", "walk", "nearest_hit", *FUSED):
+    for name in ("walk_prepass", "walk", "nearest_hit", *FUSED, *STAGE_BWD,
+                 "scatter_add"):
         ev = [e for e in dev_rows if f"{name}_kernel" in e.key]
         per[name] = dict(ms=sum(_device_ms(e) for e in ev),
                          launches=sum(e.count for e in ev))
@@ -1171,7 +1215,7 @@ def phase_city_train(tris, dev):
         zero_counts()
         res, loss = step(cfgs[True])
         counts[nrx] = read_counts()
-        expected = {"nearest_hit": 0, "bounce_pre": BOUNCES,
+        expected = {**{n: 0 for n in read_counts()}, "bounce_pre": BOUNCES,
                     "bounce_post": BOUNCES, "loop_bwd_slim": 1,
                     "walk_prepass": 1 + 2 * BOUNCES, "walk": 1 + 2 * BOUNCES}
         check(counts[nrx] == expected,
@@ -1250,6 +1294,348 @@ def phase_city_loss(tris, dev):
          device_busy_ms=prof["device_busy_ms"],
          idle_share=prof.get("idle_share"), device_ops=prof.get("device_ops"),
          top_device=prof.get("top_device"), gpu=smi())
+    return g, g_tx
+
+
+# --- the full-gradient fused path ------------------------------------------
+
+
+def grad_config(paths, fused, **kw):
+    """The calibration flags with every gradient: the fused path with the
+    JAX defaults (``grad_positions``, ``grad_geometry``), or the op path."""
+    kw = dict(grad_geometry=True, **kw)
+    if fused:
+        kw["grad_positions"] = True
+    return calibration_config(paths, BOUNCES, fused, **kw)
+
+
+def grad_step(tris, rx, tx, freq, cfg, loss_fn=grad_loss, vertices=True):
+    """One forward+backward through ``trace`` with the RX and TX positions,
+    the frequency and (with ``vertices``) the vertices as leaves.  Returns
+    ``(result, loss, gradients by leaf)``."""
+    dev = tris.device
+    mats = default_materials(dev)
+    v0 = tris.v0.detach().clone().requires_grad_(vertices)
+    leaves = dict(rx=torch.tensor(rx, device=dev, requires_grad=True),
+                  tx=torch.tensor(tx, device=dev, requires_grad=True),
+                  f=torch.tensor(freq, device=dev, requires_grad=True))
+    res = trace(dataclasses.replace(tris, v0=v0), leaves["rx"], leaves["tx"],
+                carrier_frequency=leaves["f"], config=cfg, materials=mats)
+    loss = loss_fn(res)
+    loss.backward()
+    torch.cuda.synchronize()
+    zero = torch.zeros((), device=dev)
+    grads = {**grads_of(mats),
+             **{k: zero if x.grad is None else x.grad
+                for k, x in dict(leaves, v0=v0).items()}}
+    return res, loss, grads
+
+
+def check_grads(grads, label, leaves=("rx", "tx", "f", "v0")):
+    """Every gradient finite; the named leaves and the materials nonzero."""
+    for k, v in grads.items():
+        check(bool(torch.isfinite(v).all()), f"{label}: gradient {k} not "
+              "finite")
+    for k in leaves:
+        check(float(grads[k].abs().max()) > 0, f"{label}: gradient {k} zero")
+    check(any(float(grads[f].abs().max()) > 0 for f in MATERIAL_FIELDS),
+          f"{label}: material gradients all zero")
+
+
+def grad_maxima(grads):
+    return {k: float(v.abs().max()) for k, v in grads.items()}
+
+
+def mean_s(fn, reps=3):
+    """Host-clock mean of ``fn`` (which synchronises) after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_grad_step(tris, dev):
+    """G: the full-gradient fused step on the canyon stand-in.  Returns per
+    nrx the launches of one step and its recorded kernel calls."""
+    expected = {**{n: 0 for n in KERNELS}, "nearest_hit": 1 + 2 * BOUNCES,
+                "bounce_pre": BOUNCES, "bounce_post": BOUNCES,
+                "bounce_pre_bwd": BOUNCES, "bounce_post_bwd": BOUNCES,
+                # per bounce: the pre and post payload rows, the occluder
+                # normals (reference parity with grad_geometry); then the
+                # table's eta rows per material
+                "scatter_add": 3 * BOUNCES + 1}
+    counts, recorded = {}, {}
+    for nrx in (1, 4):
+        cfg = grad_config(PATHS, True)
+        step = lambda cfg=cfg: grad_step(  # noqa: E731
+            tris, rx_positions(nrx), TX, FREQ_GHZ, cfg)
+        step()                                                   # warm-up
+        with recording_fused() as calls:
+            for kern in KERNELS.values():
+                kern.launches = 0
+            res, loss, grads = step()
+            counts[nrx] = {n: kern.launches for n, kern in KERNELS.items()}
+        recorded[nrx] = calls
+        check(counts[nrx] == expected,
+              f"G nrx={nrx}: launches {counts[nrx]}, expected {expected}")
+        for f in OUTPUT_FIELDS:
+            x = getattr(res.scatter, f)
+            x = torch.view_as_real(x) if x.is_complex() else x
+            check(bool(torch.isfinite(x).all()), f"G nrx={nrx}: {f}")
+        check_grads(grads, f"G nrx={nrx}")
+        loss_value, maxima = float(loss.detach()), grad_maxima(grads)
+        del res, loss, grads
+        step_s = mean_s(lambda: step())
+        prof = profile_window(lambda: step())
+        # at 2^16 paths: every gradient against the op path's autograd
+        small = {fused: grad_step(tris, rx_positions(nrx), TX, FREQ_GHZ,
+                                  grad_config(SMALL_PATHS, fused))[2]
+                 for fused in (False, True)}
+        share = leaves_close(small[True], small[False], PATH_GRAD_RTOL,
+                             LEAF_ATOL, f"G nrx={nrx}: fused vs op path")
+        emit(phase="grad_step", nrx=nrx, paths=PATHS, bounces=BOUNCES,
+             launches=counts[nrx], loss=loss_value, grad_abs_max=maxima,
+             fwd_bwd_s=step_s,
+             queries_per_s=BOUNCES * PATHS * (1 + nrx) / step_s,
+             grad_vs_op_path_max_leaf_share=share, profile=prof, gpu=smi())
+    return counts, recorded
+
+
+def bwd_work(name, spec, args, outs):
+    """(bytes, f32 operations) that one call of backward kernel ``name``
+    must move and do on this run's data: each input it needs read once
+    (the payload table once), each output written once."""
+    nrx = spec.nrx
+    if name == "bounce_pre_bwd":
+        R = args[0].shape[0]
+        return (nbytes(*args, *outs),
+                R * (PRE_BWD_OPS_PER_RAY + PRE_BWD_OPS_PER_RX * nrx))
+    if name == "bounce_post_bwd":
+        R = args[0].shape[0]
+        ex = args[2]
+        unused = 0 if spec.parity == "physical" else nbytes(ex[2])
+        return (nbytes(*args, *(x for x in outs if x is not None)) - unused,
+                R * nrx * POST_BWD_OPS_PER_RX)
+    if name == "bounce_pre_bwd_slim":
+        # every ray: act, idx, its state cotangent in and out, its eta rows
+        # out; a live ray: state rows 0-3 and the residuals; the eta columns
+        # of the table once
+        st, act, idx, table, _, d_st2 = args
+        n_live = int((act & (idx >= 0)).sum())
+        return (nbytes(act, idx, d_st2, *outs) + n_live * (16 + 12)
+                + table.shape[0] * 48, n_live * BWD_PRE_OPS)
+    # bounce_post_bwd_slim: every ray its id, the freq cotangents and the
+    # write scales per RX, its outputs; a written (ray, RX) the residual and
+    # cotangent rows 0-4, a ray written anywhere its state rows 0-3; the
+    # table's (s, s1_alpha) once
+    st2, excl, table, res, d_out = args
+    written = res[:, 5] > 0                                   # [nrx, R]
+    n_write = int(written.sum())
+    return (nbytes(excl, *outs) + 8 * excl.numel() * nrx + 40 * n_write
+            + 16 * int(written.any(dim=0).sum()) + table.shape[0] * 8,
+            n_write * BWD_POST_OPS)
+
+
+def scatter_work(idx, g, T):
+    """(bytes, operations) of one scatter-add: the ids in once, the kept
+    rows (ids in ``[0, T)``) in once, the table out once; one add per (kept
+    row, column)."""
+    kept = int(((idx >= 0) & (idx < T)).sum())
+    return (nbytes(idx) + (kept + T) * g.shape[1] * 4,
+            kept * g.shape[1])
+
+
+def time_kernel(name, run_k, run_p, n_bytes, n_ops):
+    """Device time (profiler), CUDA-event wall time, the plain version's
+    and the bound of one recorded call."""
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    wall_ms, plain_wall_ms = time_pair(run_k, run_p)
+    return dict(ms=device_ms(run_k, 20, name), plain_ms=device_ms(run_p, 3),
+                wall_ms=wall_ms, plain_wall_ms=plain_wall_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+                ops=n_ops)
+
+
+FAILURES = []   # checks of phases H and I, reported together at the end
+
+HOLDS = {"bounce_pre_bwd": hold_pre_bwd, "bounce_post_bwd": hold_post_bwd,
+         "bounce_pre_bwd_slim": hold_pre_bwd_slim,
+         "bounce_post_bwd_slim": hold_post_bwd_slim}
+
+
+def hold_recorded(calls, names, label):
+    """Every recorded call of the backward kernels ``names`` and of the
+    scatter-add against its plain version, and twice to the same bits;
+    then the first call of each timed.  Returns ``{name: summary}``."""
+    summary = {}
+    for name in names:
+        worst = 0.0
+        for i, (args, out) in enumerate(calls[name]):
+            spec, rest = args[0], args[1:]
+            try:
+                err, ulps, flips = HOLDS[name](spec, rest, out,
+                                               f"{label} {name}{i}")
+            except CheckFailure as e:
+                FAILURES.append(str(e))
+                emit(phase="bwd_kernel", run=label, kernel=name, call=i,
+                     failed=str(e))
+                continue
+            again = KERNELS[name](*args)
+            check(all(a is None or torch.equal(a, b)
+                      for a, b in zip(out, again)),
+                  f"{label} {name}{i}: two runs differ")
+            worst = max(worst, err)
+            emit(phase="bwd_kernel", run=label, kernel=name, call=i,
+                 R=rest[0].shape[-1] if "slim" in name else rest[0].shape[0],
+                 max_abs_err=err, ulps=ulps, rays_f32_cannot_reach=flips,
+                 same_bits_twice=True)
+        args, out = calls[name][0]
+        spec, rest = args[0], args[1:]
+        timing = time_kernel(
+            name, lambda: KERNELS[name](*args),  # noqa: B023
+            lambda: PLAIN[name](*args),          # noqa: B023
+            *bwd_work(name, spec, rest, list(out)))
+        emit(phase="bwd_kernel_time", run=label, kernel=name, **timing,
+             gpu=smi())
+        summary[name] = dict(max_abs_err=worst, timing=timing)
+    worst, rows = 0.0, []
+    for i, (args, _) in enumerate(calls["scatter_add"]):
+        idx, g, T = args
+        err, kept = hold_scatter_add(idx, g, T, f"{label} scatter_add{i}")
+        worst = max(worst, err)
+        rows.append(dict(call=i, N=idx.numel(), C=g.shape[1], T=T,
+                         kept=kept, max_abs_err=err))
+    emit(phase="bwd_kernel", run=label, kernel="scatter_add", calls=rows,
+         same_bits_twice=True)
+    # the first call (the last bounce's post-stage payload rows at the live
+    # rays' hits) and the one with the most kept values (rows x columns)
+    first = calls["scatter_add"][0][0]
+    busiest = max((args for args, _ in calls["scatter_add"]),
+                  key=lambda a: int(((a[0] >= 0) & (a[0] < a[2])).sum())
+                  * a[1].shape[1])
+    timing = time_scatter(*first, label)
+    timing["busiest"] = time_scatter(*busiest, label)
+    summary["scatter_add"] = dict(max_abs_err=worst, timing=timing)
+    return summary
+
+
+def time_scatter(idx, g, T, label):
+    """:func:`time_kernel` of one scatter-add call, with the whole call's
+    device time (the sort and zeros too) and the library call's."""
+    run_k = lambda: fetch_cuda.scatter_add(idx, g, T)   # noqa: E731
+    timing = time_kernel("scatter_add", run_k,
+                         lambda: PLAIN["scatter_add"](idx, g, T),
+                         *scatter_work(idx, g, T))
+    timing["call_ms"] = device_ms(run_k, 20)
+    # the one PyTorch call that sums rows per index (atomics: the bits vary
+    # from run to run), on the kept rows, filtered outside the timing
+    keep = (idx >= 0) & (idx < T)
+    idx_k, g_k = idx[keep].long(), g[keep]
+    out = torch.zeros((T, g.shape[1]), device=g.device)
+    timing["library_ms"] = device_ms(
+        lambda: out.index_add_(0, idx_k, g_k), 20)
+    timing.update(N=idx.numel(), C=g.shape[1], T=T, kept=int(keep.sum()))
+    emit(phase="bwd_kernel_time", run=label, kernel="scatter_add", **timing,
+         gpu=smi())
+    return timing
+
+
+def phase_bwd_kernel(recorded):
+    """H: the recorded calls of G's 2^20-path steps against their plain
+    versions.  Returns per nrx the summaries."""
+    return {nrx: hold_recorded(calls, ("bounce_pre_bwd", "bounce_post_bwd"),
+                               f"G nrx={nrx}")
+            for nrx, calls in recorded.items()}
+
+
+def phase_slim_stages(tris, dev):
+    """I: ``unroll_bounces=False`` at 2^20 paths, nrx = 1.  Returns the
+    launches of one step and the kernels' summaries."""
+    nrx = 1
+    cfgs = {unroll: calibration_config(PATHS, BOUNCES, True,
+                                       unroll_bounces=unroll)
+            for unroll in (True, False)}
+    expected = {**{n: 0 for n in KERNELS}, "nearest_hit": 1 + 2 * BOUNCES,
+                "bounce_pre": BOUNCES, "bounce_post": BOUNCES,
+                "bounce_pre_bwd_slim": BOUNCES,
+                "bounce_post_bwd_slim": BOUNCES,
+                "scatter_add": 2 * BOUNCES + 1}
+    mats = default_materials(dev)
+    calib_step(tris, nrx, mats, cfgs[False])                     # warm-up
+    with recording_fused() as calls:
+        for kern in KERNELS.values():
+            kern.launches = 0
+        calib_step(tris, nrx, mats, cfgs[False])
+        counts = {n: kern.launches for n, kern in KERNELS.items()}
+    check(counts == expected, f"I: launches {counts}, expected {expected}")
+    grads = {}
+    for unroll in (True, False):
+        m = default_materials(dev)
+        calib_step(tris, nrx, m, cfgs[unroll])
+        grads[unroll] = grads_of(m)
+    share = leaves_close(grads[False], grads[True], LEAF_RTOL, LEAF_ATOL,
+                         "I: slim stages vs whole loop")
+    times = {"stages": [], "unrolled": []}
+    for unroll in (False, True, True, False):        # in turns
+        times["unrolled" if unroll else "stages"].append(mean_s(
+            lambda c=cfgs[unroll]: calib_step(tris, nrx, mats, c)))
+    step_s = {k: sum(v) / len(v) for k, v in times.items()}
+    summary = hold_recorded(calls, ("bounce_pre_bwd_slim",
+                                    "bounce_post_bwd_slim"), "I nrx=1")
+    emit(phase="slim_stages", nrx=nrx, paths=PATHS, launches=counts,
+         grad_vs_whole_loop_max_leaf_share=share, fwd_bwd_s=step_s,
+         gpu=smi())
+    return counts, summary
+
+
+def city_loss_fn(res):
+    """``benchmarks/config5_e2e.py``'s loss."""
+    return (res.scatter.a_te.abs().square().sum()
+            + res.scatter.a_tm.abs().square().sum()) * 1e9
+
+
+def phase_city_grad(city, dev, f_grads):
+    """J: config-5's loss through the full-gradient fused path, against
+    phase F's op-path gradients ``f_grads = (materials, tx)``.  Returns the
+    launches of one step."""
+    cfg = TracerConfig(num_paths=PATHS, num_bounces=BOUNCES,
+                       parity="physical", launch_order="coherent",
+                       keep_rays=False, shade="fused")
+    step = lambda: grad_step(city, rx_positions(1, CITY_RX0),  # noqa: E731
+                             CITY_TX, FREQ_GHZ, cfg, city_loss_fn,
+                             vertices=False)
+    step()                                                       # warm-up
+    zero_counts()
+    _, loss, grads = step()
+    launches = read_counts()
+    expected = {**{n: 0 for n in launches}, "walk_prepass": 1 + 2 * BOUNCES,
+                "walk": 1 + 2 * BOUNCES, "bounce_pre": BOUNCES,
+                "bounce_post": BOUNCES, "bounce_pre_bwd": BOUNCES,
+                "bounce_post_bwd": BOUNCES, "scatter_add": 2 * BOUNCES + 1}
+    check(launches == expected, f"J: launches {launches}")
+    check_grads(grads, "J", leaves=("tx",))
+    g_f, tx_f = f_grads
+    share = leaves_close({**grads_of_fields(grads), "tx": grads["tx"]},
+                         {**g_f, "tx": tx_f}, PATH_GRAD_RTOL, LEAF_ATOL,
+                         "J: fused vs op path (F)")
+    loss_value, maxima = float(loss.detach()), grad_maxima(grads)
+    del grads
+    wall_s = mean_s(step)
+    prof = profile_window(step)
+    emit(phase="city_grad", paths=PATHS, bounces=BOUNCES, nrx=1,
+         launches=launches, loss=loss_value, grad_abs_max=maxima,
+         grad_vs_op_path_max_leaf_share=share, fwd_bwd_s=wall_s,
+         profile_wall_ms=prof["wall_ms"],
+         device_busy_ms=prof["device_busy_ms"],
+         idle_share=prof.get("idle_share"), device_ops=prof.get("device_ops"),
+         kernels=prof.get("kernels"), top_device=prof.get("top_device"),
+         gpu=smi())
+    return launches
+
+
+def grads_of_fields(grads):
+    return {f: grads[f] for f in MATERIAL_FIELDS}
 
 
 def main():
@@ -1285,6 +1671,10 @@ def main():
     fused = phase_fused_kernel(recorded, dev)
     del recorded
     phase_profile_step(tris, dev)
+    grad_counts, recorded = phase_grad_step(tris, dev)
+    bwd = phase_bwd_kernel(recorded)
+    del recorded
+    slim_counts, slim = phase_slim_stages(tris, dev)
     del tris
 
     city = phase_city(dev)
@@ -1292,7 +1682,8 @@ def main():
     phase_city_equal(dev)
     fwd_launches = phase_city_forward(city)
     city_counts = phase_city_train(city, dev)
-    phase_city_loss(city, dev)
+    f_grads = phase_city_loss(city, dev)
+    city_grad_counts = phase_city_grad(city, dev, f_grads)
 
     t = timing["bounce_2^20"]
     rows = [{
@@ -1351,6 +1742,36 @@ def main():
             "sort_ms": b["sort_ms"], "brute_ms": b["brute_ms"],
             "brute_flips": b["brute_flips"] + sh["brute_flips"],
             "triangles": city.num_triangles})
+    check(not FAILURES, f"{len(FAILURES)} kernel calls beyond their tier: "
+          f"{FAILURES}")
+    for name in ("bounce_pre_bwd", "bounce_post_bwd", "scatter_add",
+                 "bounce_pre_bwd_slim", "bounce_post_bwd_slim"):
+        slim_kernel = "slim" in name
+        t1 = (slim if slim_kernel else bwd[1])[name]["timing"]
+        steps = ({"slim_step_nrx1": slim_counts[name]} if slim_kernel else
+                 {**{f"grad_step_nrx{n}": c[name]
+                     for n, c in grad_counts.items()},
+                  "city_grad": city_grad_counts[name]})
+        if name == "scatter_add":
+            steps["slim_step_nrx1"] = slim_counts[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(str(
+                fetch_cuda.SOURCE if name == "scatter_add"
+                else fused_ops.BWD_SOURCE), REPO),
+            "replaces": REPLACES[name],
+            "launches": sum(steps.values()), "launches_per_step": steps,
+            "max_abs_err": max(
+                [slim[name]["max_abs_err"]] if slim_kernel else
+                [b[name]["max_abs_err"] for b in bwd.values()]
+                + ([slim[name]["max_abs_err"]] if name == "scatter_add"
+                   else [])),
+            "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+            "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+            "library_ms": t1.get("library_ms"), "wall_ms": t1["wall_ms"],
+            "plain_wall_ms": t1["plain_wall_ms"],
+            **({"busiest": t1["busiest"]} if "busiest" in t1 else {}),
+            **({} if slim_kernel else {"nrx4": bwd[4][name]["timing"]})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

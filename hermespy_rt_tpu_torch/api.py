@@ -50,6 +50,15 @@ def _cached_dirs(num_paths: int, order: str, device: str) -> torch.Tensor:
     return launch_directions(num_paths, order, device)
 
 
+def _as_f32(x, device) -> torch.Tensor:
+    """``x`` as an f32 tensor on ``device``.  A tensor stays one, so a
+    gradient reaches it (``torch.as_tensor`` keeps autograd, and a cast or
+    a move is differentiable too); anything else goes through numpy."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
 def trace(scene: SceneLike,
           rx_positions, tx_positions,
           rx_velocities=None, tx_velocities=None,
@@ -58,7 +67,9 @@ def trace(scene: SceneLike,
           materials: Optional[MaterialTable] = None,
           device="cuda") -> PathsResult:
     """Full-featured tracing entry point on ``device`` (or, for a prepared
-    TriangleSoA, on the device that holds it)."""
+    TriangleSoA, on the device that holds it).  Positions, velocities and
+    the carrier frequency (GHz) given as tensors keep their autograd
+    history, so gradients reach them."""
     cfg = config or TracerConfig()
     if not isinstance(scene, TriangleSoA):
         # Morton-sort large scenes outside reference parity, as the JAX
@@ -71,21 +82,19 @@ def trace(scene: SceneLike,
     tris = scene  # a prepared TriangleSoA runs on the device that holds it
     mats = (materials if materials is not None
             else default_materials(tris.device))
-    f32 = dict(dtype=torch.float32, device=tris.device)
-    rx_pos = torch.as_tensor(np.asarray(rx_positions, np.float32),
-                             **f32).reshape(-1, 3)
-    tx_pos = torch.as_tensor(np.asarray(tx_positions, np.float32),
-                             **f32).reshape(-1, 3)
+    rx_pos = _as_f32(rx_positions, tris.device).reshape(-1, 3)
+    tx_pos = _as_f32(tx_positions, tris.device).reshape(-1, 3)
     rx_vel = (torch.zeros_like(rx_pos) if rx_velocities is None
-              else torch.as_tensor(np.asarray(rx_velocities, np.float32),
-                                   **f32).reshape(-1, 3))
+              else _as_f32(rx_velocities, tris.device).reshape(-1, 3))
     tx_vel = (torch.zeros_like(tx_pos) if tx_velocities is None
-              else torch.as_tensor(np.asarray(tx_velocities, np.float32),
-                                   **f32).reshape(-1, 3))
+              else _as_f32(tx_velocities, tris.device).reshape(-1, 3))
     dirs = _cached_dirs(cfg.num_paths, cfg.resolved_launch_order,
                         str(tris.device))
-    return trace_paths(tris, mats, rx_pos, tx_pos, rx_vel, tx_vel,
-                       float(carrier_frequency), cfg, launch_dirs=dirs)
+    freq = (_as_f32(carrier_frequency, tris.device)
+            if isinstance(carrier_frequency, torch.Tensor)
+            else float(carrier_frequency))
+    return trace_paths(tris, mats, rx_pos, tx_pos, rx_vel, tx_vel, freq, cfg,
+                       launch_dirs=dirs)
 
 
 def compute_paths(mesh_filepath: SceneLike,

@@ -40,15 +40,25 @@ class TracerConfig:
       shade:       bounce shading: "xla" (the default; the name is the JAX
                    package's) runs it as torch ops, whose autograd gives
                    every gradient; "fused" runs each bounce as two fused
-                   kernels around the shadow query and the whole loop's
-                   material backward as one kernel
-                   (``ops/bounce_fused_cuda.py``).  "fused" needs
-                   ``grad_positions=False``.
+                   kernels around the shadow query
+                   (``ops/bounce_fused_cuda.py``), each an autograd node
+                   whose backward is a kernel too (with ``grad_positions``
+                   the full backward, which gives every gradient the op
+                   path gives), or, with ``grad_positions=False`` and
+                   ``unroll_bounces``, the whole loop as one node whose
+                   material backward is one kernel.
       grad_positions: False declares positions, launch geometry and the
                    carrier scalars constants of the backward: only the
                    material table (and the launch state) get gradients.
                    Requires ``grad_geometry=False``.  The "xla" path
                    ignores it, as in the JAX package.
+      unroll_bounces: under ``shade="fused", grad_positions=False``, True
+                   runs the whole bounce loop as one autograd node with one
+                   backward kernel (``FusedLoopSlim``), False as two nodes
+                   per bounce with the slim per-stage backward kernels.
+                   That is its only meaning here: the port has no scan to
+                   unroll, and the op path and the full-gradient fused
+                   path ignore it.
       backend:     nearest-hit implementation: "torch" (plain tensor ops),
                    "cuda" (the hand-written kernel) or "auto".  "cuda" and
                    "auto" both call the kernel's wrapper, which runs the
@@ -83,6 +93,7 @@ class TracerConfig:
     grad_positions: bool = True
     walk: "bool | str" = "auto"
     shadow_any_hit: bool = True
+    unroll_bounces: bool = True
 
     @property
     def resolved_launch_order(self) -> str:
@@ -129,8 +140,6 @@ class TracerConfig:
             raise ValueError("grad_positions=False requires grad_geometry="
                              "False (the cross-bounce vertex chain rides the "
                              "ray operand it stops)")
-        if self.shade == "fused" and self.grad_positions:
-            raise ValueError("shade='fused' requires grad_positions=False: "
-                             "the port has the whole-loop materials-only "
-                             "backward; the full per-stage backward is not "
-                             "ported yet")
+        if not isinstance(self.unroll_bounces, bool):
+            raise ValueError("unroll_bounces must be a bool, got "
+                             f"{self.unroll_bounces!r}")

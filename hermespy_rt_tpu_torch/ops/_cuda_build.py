@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call for ``sm_90a``, with
-``-fmad=false`` and without fast math (every product, sum, square root and
-division rounded on its own, as the plain torch versions round them), into
-one shared library with a plain C interface under the git-ignored
-``hermespy_rt_tpu_torch/_build/``, and bound with ``ctypes``.  The library's
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` call, all
+started together, with ``-fmad=false`` and without fast math (every
+product, sum, square root and division rounded on its own, as the plain
+torch versions round them); one more call links the objects into one shared
+library with a plain C interface under the git-ignored
+``hermespy_rt_tpu_torch/_build/``, bound with ``ctypes``.  The library's
 name carries a hash of every source, of the headers they share
 (``csrc/*.cuh``) and of the flags, so an edited source is rebuilt.  Nothing
 is built at import: the first launch, or :meth:`build`, builds.
@@ -33,8 +34,7 @@ SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -67,22 +67,28 @@ class KernelLibrary:
         lib_path = self.path()
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
             t0 = time.perf_counter()
-            try:
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                objs = [os.path.join(tmp, f"{src.stem}.o")
+                        for src in self.sources]
+                procs = [subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True) for src, obj in zip(self.sources, objs)]
+                logs = [proc.communicate(timeout=600)[0] for proc in procs]
+                self.build_log = "".join(logs)
+                if any(proc.returncode for proc in procs):
+                    raise RuntimeError(f"nvcc failed:\n{self.build_log}")
+                out = os.path.join(tmp, "lib.so")
                 proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                     *map(str, self.sources)],
+                    [_nvcc(), "-shared", "-o", out, *objs],
                     capture_output=True, text=True, timeout=600)
-                self.build_log = proc.stdout + proc.stderr
+                self.build_log += proc.stdout + proc.stderr
                 if proc.returncode != 0:
                     raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-                os.replace(tmp, lib_path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+                        f"nvcc link failed ({proc.returncode}):\n"
+                        f"{self.build_log}")
+                os.replace(out, lib_path)
             self.build_seconds = time.perf_counter() - t0
         if self._lib is None:
             self._lib = ctypes.CDLL(str(lib_path))

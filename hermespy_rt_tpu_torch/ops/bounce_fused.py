@@ -15,14 +15,23 @@ query, and one per-ray map over the whole loop for the material backward:
 * :func:`loop_bwd_slim_plain` — the materials-only backward of the whole
   loop: bounces in reverse, the vjp of :func:`_post_light` then
   :func:`_pre_light` at the saved residuals, the state cotangent carried
-  between bounces, and the eta cotangent summed per material.
+  between bounces, and the eta cotangent summed per material;
+* the per-stage backwards of the two stages (``torch.func.vjp``):
+  :func:`bounce_pre_bwd_plain` / :func:`bounce_post_bwd_plain` with
+  ``grad_positions`` (the vjp of the stage's differentiable core, JAX's
+  ``_pre_diff`` / ``_post_diff``), :func:`bounce_pre_bwd_slim_plain` /
+  :func:`bounce_post_bwd_slim_plain` without (the vjp of
+  :func:`_pre_light` / :func:`_post_light`).  Each returns per-ray payload
+  cotangent rows; :func:`~.fetch.scatter_add_plain` sums them into table
+  rows.
 
 These are the plain versions of the CUDA kernels in ``csrc/bounce_fused.cu``
-(wrappers in :mod:`.bounce_fused_cuda`): the same formulas in the same
-operation order as the op path (``tracer.bounce_step``), so every decision
-equals the op path's.  Layout: per-ray rows with rays on the last axis
-(``[k, R]``), 3-vectors as ``[R, 3]`` (``[nrx, R, 3]`` per RX), the form the
-nearest-hit query reads, so the loop makes no transposes.
+and ``csrc/bounce_bwd.cu`` (wrappers in :mod:`.bounce_fused_cuda`): the same
+formulas in the same operation order as the op path
+(``tracer.bounce_step``), so every decision equals the op path's.  Layout:
+per-ray rows with rays on the last axis (``[k, R]``), 3-vectors as
+``[R, 3]`` (``[nrx, R, 3]`` per RX), the form the nearest-hit query reads,
+so the loop makes no transposes.
 """
 from __future__ import annotations
 
@@ -39,21 +48,34 @@ from .scattering import scat_coefs
 from .shade import _CLIP, SPEED_OF_LIGHT, shade_a
 
 __all__ = ["FusedSpec", "PreOut", "PostOut", "bounce_pre_plain",
-           "bounce_post_plain", "loop_bwd_slim_plain", "GEOM_COLS",
-           "TABLE_COLS"]
+           "bounce_post_plain", "loop_bwd_slim_plain", "bounce_pre_bwd_plain",
+           "bounce_post_bwd_plain", "bounce_pre_bwd_slim_plain",
+           "bounce_post_bwd_slim_plain", "payload_cols", "GEOM_COLS",
+           "TABLE_COLS", "NORMAL_COL"]
 
 GEOM_COLS = 15                         # v0, e1, e2, normal, velocity
 TABLE_COLS = GEOM_COLS + len(ETA_FIELDS)  # + the 12 eta columns = 27
+NORMAL_COL = 9                         # the normal's first column
 _S, _S1A = ETA_FIELDS.index("s"), ETA_FIELDS.index("s1_alpha")
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedSpec:
     """Static configuration of the fused stages: the RX count, the parity
-    mode and the physical-mode occlusion offset."""
+    mode, which cotangents the backward gives and the physical-mode
+    occlusion offset.
+
+    ``grad_geometry`` False stops the payload's geometry columns (and the
+    occluder normals): only the eta columns get a table cotangent.
+    ``grad_positions`` False makes positions, launch geometry and the
+    carrier scalars constants of the backward: the stages' backwards are
+    then the slim ones, which re-evaluate only the Fresnel and scattering
+    chains at the saved residuals; that needs ``grad_geometry`` False."""
 
     nrx: int
     parity: str = "reference"          # "reference" | "physical"
+    grad_geometry: bool = True
+    grad_positions: bool = True
     eps_o: float = 1e-4
 
     def __post_init__(self):
@@ -61,6 +83,11 @@ class FusedSpec:
             raise ValueError(f"FusedSpec: nrx must be >= 1, got {self.nrx}")
         if self.parity not in ("reference", "physical"):
             raise ValueError(f"FusedSpec: unknown parity {self.parity!r}")
+        if not self.grad_positions and self.grad_geometry:
+            raise ValueError(
+                "FusedSpec(grad_positions=False) requires grad_geometry="
+                "False: the slim backward drops geometry cotangents "
+                "(tau/Doppler/hit-distance chains) by construction")
 
 
 class PreOut(NamedTuple):
@@ -96,16 +123,34 @@ def _eta_cols(rows) -> EtaPrecomputed:
                              for i, f in enumerate(ETA_FIELDS)})
 
 
-def bounce_pre_plain(spec: FusedSpec, o, d, st, act, idx, table, material,
-                     rx_pos, sc) -> PreOut:
-    """Pre stage.  ``o``/``d`` f32[R, 3] rays, ``st`` f32[6, R] state,
-    ``act`` bool[R], ``idx`` i32[R] bounce hits (-1 miss), ``table``
-    f32[T, 27] payload (v0, e1, e2, normal, velocity, eta), ``material``
-    i32[T], ``rx_pos`` f32[nrx, 3], ``sc`` f32[2] = (fslm, k_dop)."""
+def payload_cols(spec: FusedSpec, stage: str) -> int:
+    """Columns of the per-ray payload cotangent rows a stage's backward
+    returns: the last ``n`` of the 27 table columns.  Full backwards return
+    all 27 with ``grad_geometry``, else the columns that carry a material
+    cotangent: the 12 eta columns (pre) or (s, s1_alpha) (post)."""
+    if spec.grad_geometry:
+        return TABLE_COLS
+    return len(ETA_FIELDS) if stage == "pre" else 2
+
+
+def _stop_geometry(spec: FusedSpec, row):
+    """Payload rows with the geometry columns detached unless
+    ``spec.grad_geometry`` (JAX ``_pre_diff``/``_post_diff``'s cut)."""
+    if spec.grad_geometry:
+        return row
+    return torch.cat([row[..., :GEOM_COLS].detach(), row[..., GEOM_COLS:]],
+                     dim=-1)
+
+
+def _pre_core(spec: FusedSpec, o, d, st, row, rx, sc, live):
+    """The pre stage after the payload fetch, JAX ``_pre_diff`` and
+    ``_pre_nondiff``: ``row`` f32[R, 27] hit payload rows, ``rx`` the RX
+    positions as f32[nrx, 1 | R, 3] and ``sc`` (fslm, k_dop) as f32[2] or
+    f32[2, R].  Returns the differentiable outputs ``(o2, d2, st2, ex,
+    sh_d, d2rx)`` and the rest ``(sh_o, t_self, crossing, res)``, which
+    carry no gradient: the shadow-query origins and the residuals are
+    detached, the crossing decisions are comparisons."""
     fslm, k_dop = sc[0], sc[1]
-    live = act & (idx >= 0)
-    safe = torch.clamp(idx, min=0).long()
-    row = table[safe]                                          # [R, 27]
     hit = dict(v0=row[:, 0:3], e1=row[:, 3:6], e2=row[:, 6:9],
                normal=row[:, 9:12], velocity=row[:, 12:15])
     (o2, d2, ate_re, ate_im, atm_re, atm_im, tau, freq, theta, cos_t1, ndot,
@@ -116,41 +161,45 @@ def bounce_pre_plain(spec: FusedSpec, o, d, st, act, idx, table, material,
 
     # the scatter-pre lines of tracer.bounce_step
     so = o2[None].expand(spec.nrx, -1, -1)                     # [nrx, R, 3]
-    ds_un = rx_pos[:, None, :] - so
+    ds_un = rx - so
     n2 = dot3(ds_un, ds_un)
     pos = n2 > 0
     d2rx = torch.where(pos, torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
     ds = ds_un / torch.where(d2rx > 0, d2rx, 1.0)[..., None]
-    ds_dot_n = dot3(ds, n[None])
-    dint_n = dot3(d2, n)
+    ds_dot_n = dot3(ds, n[None]).detach()
+    dint_n = dot3(d2, n).detach()
     t_self = -1e-4 * dint_n[None, :] / torch.where(ds_dot_n == 0.0, 1.0,
                                                     ds_dot_n)
     crossing = (ds_dot_n * dint_n[None, :] < 0.0) & live[None]
     sh_o = (so.contiguous() if spec.parity == "reference"
-            else so + spec.eps_o * ds)
+            else so + spec.eps_o * ds).detach()
+    diff = (o2, d2, torch.stack([ate_re, ate_im, atm_re, atm_im, tau, freq]),
+            torch.stack([theta, cos_t1, ndot]), ds, d2rx)
+    rest = (sh_o, t_self, crossing,
+            torch.stack([cos_t1, sin_t1, fscale]).detach())
+    return diff, rest
+
+
+def bounce_pre_plain(spec: FusedSpec, o, d, st, act, idx, table, material,
+                     rx_pos, sc) -> PreOut:
+    """Pre stage.  ``o``/``d`` f32[R, 3] rays, ``st`` f32[6, R] state,
+    ``act`` bool[R], ``idx`` i32[R] bounce hits (-1 miss), ``table``
+    f32[T, 27] payload (v0, e1, e2, normal, velocity, eta), ``material``
+    i32[T], ``rx_pos`` f32[nrx, 3], ``sc`` f32[2] = (fslm, k_dop)."""
+    live = act & (idx >= 0)
+    safe = torch.clamp(idx, min=0).long()
+    (o2, d2, st2, ex, sh_d, d2rx), (sh_o, t_self, crossing, res) = _pre_core(
+        spec, o, d, st, table[safe], rx_pos[:, None, :], sc, live)
     return PreOut(
-        o2=o2, d2=d2,
-        st2=torch.stack([ate_re, ate_im, atm_re, atm_im, tau, freq]),
-        ex=torch.stack([theta, cos_t1, ndot]), sh_o=sh_o, sh_d=ds,
-        d2rx=d2rx, t_self=t_self, crossing=crossing,
-        excl=torch.where(live, idx, -1), live=live,
-        mat=material[safe].to(torch.int32),
-        res=torch.stack([cos_t1, sin_t1, fscale]))
+        o2=o2, d2=d2, st2=st2, ex=ex, sh_o=sh_o, sh_d=sh_d, d2rx=d2rx,
+        t_self=t_self, crossing=crossing, excl=torch.where(live, idx, -1),
+        live=live, mat=material[safe].to(torch.int32), res=res)
 
 
-def bounce_post_plain(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
-                      crossing, excl, live, t_o, idx_o, table, sc) -> PostOut:
-    """Post stage.  The pre stage's outputs plus the shadow query's
-    ``t_o`` f32[nrx, R] and ``idx_o`` i32[nrx, R]."""
-    fslm, k_dop = sc[0], sc[1]
-    row = table[torch.clamp(excl, min=0).long()]               # [R, 27]
-    n, vel = row[:, 9:12], row[:, 12:15]
-    s_row, s1_row = row[:, GEOM_COLS + _S], row[:, GEOM_COLS + _S1A]
-    theta, cos_t1, ndot = ex[0], ex[1], ex[2]
-    ate_re, ate_im, atm_re, atm_im, tau, freq = st2.unbind(0)
-    ds = sh_d
-
-    # self-hit merge and occlusion (tracer.bounce_step's decisions)
+def _post_decisions(spec: FusedSpec, t_self, crossing, excl, d2rx, t_o,
+                    idx_o):
+    """Self-hit merge and occlusion (tracer.bounce_step's decisions): the
+    merged occluder ``idx_m`` i32[nrx, R] (-1: none) and ``blocked``."""
     if spec.parity == "reference":
         self_hit = crossing & (t_self > FLT_EPS)
         closer = self_hit & (t_self < t_o)
@@ -165,6 +214,22 @@ def bounce_post_plain(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
         t_m = torch.where(closer, t_self_q, t_o)
         idx_m = torch.where(closer, excl[None], idx_o)
         blocked = (idx_m >= 0) & (t_m <= limit)
+    return idx_m, blocked
+
+
+def _post_core(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, row, n_o, sc, live,
+               blocked, occl_hit):
+    """The post stage after its decisions, JAX ``_post_diff``: ``row``
+    f32[R, 27] payload rows of the hit, ``n_o`` f32[nrx, R, 3] the merged
+    occluders' normals (read under reference parity only), ``sc`` as in
+    :func:`_pre_core`.  Returns ``(out, write, res)``; ``res`` is
+    detached."""
+    fslm, k_dop = sc[0], sc[1]
+    n, vel = row[:, 9:12], row[:, 12:15]
+    s_row, s1_row = row[:, GEOM_COLS + _S], row[:, GEOM_COLS + _S1A]
+    theta, cos_t1, ndot = ex[0], ex[1], ex[2]
+    ate_re, ate_im, atm_re, atm_im, tau, freq = st2.unbind(0)
+    ds = sh_d
 
     ds_dot_n = dot3(ds, n[None])                               # [nrx, R]
     cos_ts = torch.clamp(ds_dot_n, -_CLIP, _CLIP)
@@ -172,8 +237,6 @@ def bounce_post_plain(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
     if spec.parity == "reference":
         # the shadow hit's angle clobbers the incidence angle, and the
         # clobber persists into the following RX
-        occl_hit = idx_m >= 0
-        n_o = table[torch.clamp(idx_m, min=0).long(), 9:12]    # [nrx, R, 3]
         cos_o = torch.clamp(torch.abs(dot3(n_o, ds)), 0.0, _CLIP)
         th_o = fast_acos(cos_o)
         th_c, cos_c = theta, cos_t1
@@ -211,6 +274,31 @@ def bounce_post_plain(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
     out = torch.stack([out_te_re * wf, out_te_im * wf, out_tm_re * wf,
                        out_tm_im * wf, out_tau, out_freq], dim=1)
     res = torch.stack([theta_s, theta_i, cos_ts, cos_ti, sin_ti, wf], dim=1)
+    return out, write, res.detach()
+
+
+def _post_operands(spec: FusedSpec, t_self, crossing, excl, d2rx, t_o, idx_o,
+                   table):
+    """The post stage's decisions and fetched rows: ``(idx_m, blocked,
+    row, n_o)``."""
+    idx_m, blocked = _post_decisions(spec, t_self, crossing, excl, d2rx, t_o,
+                                     idx_o)
+    row = table[torch.clamp(excl, min=0).long()]               # [R, 27]
+    if spec.parity == "reference":
+        n_o = table[torch.clamp(idx_m, min=0).long(), 9:12]    # [nrx, R, 3]
+    else:
+        n_o = row.new_zeros((spec.nrx, row.shape[0], 3))
+    return idx_m, blocked, row, n_o
+
+
+def bounce_post_plain(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
+                      crossing, excl, live, t_o, idx_o, table, sc) -> PostOut:
+    """Post stage.  The pre stage's outputs plus the shadow query's
+    ``t_o`` f32[nrx, R] and ``idx_o`` i32[nrx, R]."""
+    idx_m, blocked, row, n_o = _post_operands(spec, t_self, crossing, excl,
+                                              d2rx, t_o, idx_o, table)
+    out, write, res = _post_core(spec, d2, st2, ex, sh_d, d2rx, row, n_o, sc,
+                                 live, blocked, idx_m >= 0)
     return PostOut(out=out, write=write, res=res)
 
 
@@ -289,3 +377,107 @@ def loop_bwd_slim_plain(spec: FusedSpec, eta_tab, st_all, live_all, mat_all,
         d_eta = torch.cat([d_eta[:_S], d_eta[_S:] + d_ss])
         d_tab.index_add_(0, m, d_eta.T)
     return d_carry, d_tab
+
+
+# ---------------------------------------------------------------------------
+# the per-stage backwards
+
+def _per_ray(rx_pos, sc, R):
+    """The RX positions f32[nrx, R, 3] and carrier scalars f32[2, R] as
+    per-ray inputs of a vjp, so that the backward gives each ray's share of
+    their cotangents."""
+    nrx = rx_pos.shape[0]
+    return (rx_pos[:, None, :].expand(nrx, R, 3).contiguous(),
+            sc[:, None].expand(2, R).contiguous())
+
+
+def bounce_pre_bwd_plain(spec: FusedSpec, o, d, st, act, idx, table, rx_pos,
+                         sc, d_o2, d_d2, d_st2, d_ex, d_sh_d, d_d2rx,
+                         sum_rays=True):
+    """Full backward of the pre stage (``spec.grad_positions``), JAX
+    ``_pre_bwd_kernel``: the vjp of :func:`_pre_core` at the forward's
+    inputs, from the cotangents of ``(o2, d2, st2, ex, sh_d, d2rx)``.
+    Returns ``(d_o, d_d f32[R, 3], d_st f32[6, R], d_payload f32[R, n],
+    d_rxp f32[nrx, 3], d_sc f32[2])``: the payload rows are the last ``n =
+    payload_cols(spec, "pre")`` table columns, to be summed into the rows
+    of the live rays' hits; with ``sum_rays`` False ``d_rxp`` f32[nrx, R,
+    3] and ``d_sc`` f32[2, R] are each ray's share."""
+    live = act & (idx >= 0)
+    row = table[torch.clamp(idx, min=0).long()]
+    rx, scr = _per_ray(rx_pos, sc, o.shape[0])
+
+    def f(o, d, st, row, rx, scr):
+        return _pre_core(spec, o, d, st, _stop_geometry(spec, row), rx, scr,
+                         live)[0]
+
+    _, vjp = torch.func.vjp(f, o, d, st, row, rx, scr)
+    d_o, d_d, d_st, d_row, d_rx, d_sc = vjp((d_o2, d_d2, d_st2, d_ex, d_sh_d,
+                                             d_d2rx))
+    d_payload = d_row[:, TABLE_COLS - payload_cols(spec, "pre"):].contiguous()
+    if sum_rays:
+        d_rx, d_sc = d_rx.sum(1), d_sc.sum(1)
+    return d_o, d_d, d_st, d_payload, d_rx, d_sc
+
+
+def bounce_post_bwd_plain(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
+                          crossing, excl, live, t_o, idx_o, table, sc, d_out,
+                          sum_rays=True):
+    """Full backward of the post stage (``spec.grad_positions``), JAX
+    ``_post_bwd_kernel``: the decisions again, then the vjp of
+    :func:`_post_core` from the cotangent ``d_out`` f32[nrx, 6, R].
+    Returns ``(d_d2 f32[R, 3], d_st2 f32[6, R], d_ex f32[3, R], d_sh_d
+    f32[nrx, R, 3], d_d2rx f32[nrx, R], d_payload f32[R, n], d_n_o, occ,
+    d_sc f32[2])``: the payload rows are the last ``n = payload_cols(spec,
+    "post")`` table columns, to be summed into the rows ``excl``; under
+    reference parity with ``grad_geometry`` ``d_n_o`` f32[nrx, R, 3] are the
+    cotangents of the occluder normals, to be summed into the normal
+    columns of the rows ``occ`` i32[nrx, R] (-1: none), else both are
+    None; with ``sum_rays`` False ``d_sc`` f32[2, R] per ray."""
+    idx_m, blocked, row, n_o = _post_operands(spec, t_self, crossing, excl,
+                                              d2rx, t_o, idx_o, table)
+    scr = sc[:, None].expand(2, d2.shape[0]).contiguous()
+
+    def f(d2, st2, ex, sh_d, d2rx, row, n_o, scr):
+        if not spec.grad_geometry:
+            n_o = n_o.detach()
+        return _post_core(spec, d2, st2, ex, sh_d, d2rx,
+                          _stop_geometry(spec, row), n_o, scr, live, blocked,
+                          idx_m >= 0)[0]
+
+    _, vjp = torch.func.vjp(f, d2, st2, ex, sh_d, d2rx, row, n_o, scr)
+    d_d2, d_st2, d_ex, d_sh_d, d_d2rx, d_row, d_n_o, d_sc = vjp(d_out)
+    d_payload = d_row[:, TABLE_COLS - payload_cols(spec, "post"):].contiguous()
+    occ = idx_m.to(torch.int32)
+    if not (spec.grad_geometry and spec.parity == "reference"):
+        d_n_o = occ = None
+    return (d_d2, d_st2, d_ex, d_sh_d, d_d2rx, d_payload, d_n_o, occ,
+            d_sc.sum(1) if sum_rays else d_sc)
+
+
+def bounce_pre_bwd_slim_plain(spec: FusedSpec, st, act, idx, table, res,
+                              d_st2):
+    """Slim backward of the pre stage (without ``grad_positions``), JAX
+    ``_pre_bwd_slim_kernel``: the vjp of :func:`_pre_light` at the saved
+    residuals ``res`` f32[3, R].  Returns ``(d_st f32[6, R], d_eta f32[R,
+    12])``, the eta rows to be summed into the rows of the live rays'
+    hits."""
+    live = act & (idx >= 0)
+    eta_rows = table[torch.clamp(idx, min=0).long(), GEOM_COLS:].T
+    _, vjp = torch.func.vjp(
+        partial(_pre_light, live=live, cos_t1=res[0], sin_t1=res[1],
+                fscale=res[2]), eta_rows, st)
+    d_eta, d_st = vjp(d_st2)
+    return d_st, d_eta.T.contiguous()
+
+
+def bounce_post_bwd_slim_plain(spec: FusedSpec, st2, excl, table, res,
+                               d_out):
+    """Slim backward of the post stage, JAX ``_post_bwd_slim_kernel``: the
+    vjp of :func:`_post_light` at the saved residuals ``res`` f32[nrx, 6,
+    R].  Returns ``(d_st2 f32[6, R], d_ss f32[R, 2])``, the (s, s1_alpha)
+    rows to be summed into the rows ``excl``."""
+    ss = table[torch.clamp(excl, min=0).long(),
+               GEOM_COLS + _S:GEOM_COLS + _S1A + 1].T
+    _, vjp = torch.func.vjp(partial(_post_light, res=res), ss, st2)
+    d_ss, d_st2 = vjp(d_out)
+    return d_st2, d_ss.T.contiguous()

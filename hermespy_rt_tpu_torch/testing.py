@@ -1,11 +1,11 @@
 """Checks of the port's kernels against their plain versions.
 
 Shared by ``chip_smoke.py`` (on the card) and the tests
-(``tests/test_torch_fused.py`` on the CPU against the JAX package,
-``tests/test_torch_cuda.py`` on the card): the tolerances with their
-reasons, the comparisons, a recorder of the fused kernels' calls inside the
-tracer, and the material-calibration step of the JAX package's
-``bench.py``.  Imports no JAX.
+(``tests/test_torch_fused.py`` and ``tests/test_torch_stages.py`` on the CPU
+against the JAX package, ``tests/test_torch_cuda.py`` on the card): the
+tolerances with their reasons, the comparisons, a recorder of the fused
+kernels' calls inside the tracer, and the material-calibration step of the
+JAX package's ``bench.py``.  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -19,18 +19,25 @@ from .api import trace
 from .config import TracerConfig
 from .materials import MATERIAL_FIELDS, MaterialTable, default_materials
 from .ops import bounce_fused_cuda as fused_ops
-from .ops.bounce_fused import (bounce_post_plain, bounce_pre_plain,
+from .ops import fetch_cuda
+from .ops.bounce_fused import (GEOM_COLS, TABLE_COLS, bounce_post_bwd_plain,
+                               bounce_post_bwd_slim_plain, bounce_post_plain,
+                               bounce_pre_bwd_plain,
+                               bounce_pre_bwd_slim_plain, bounce_pre_plain,
                                loop_bwd_slim_plain)
+from .ops.fetch import scatter_add_plain
 from .ops.fresnel import ETA_FIELDS, precompute_eta
 from .ops.intersect_cuda import nearest_hit
 
 __all__ = ["ROW_RTOL", "LEAF_RTOL", "LEAF_ATOL", "PATH_GRAD_RTOL",
-           "AMP_GROUPS", "VEC_GROUPS", "FUSED", "KERNELS", "PLAIN",
-           "OUTPUT_FIELDS",
+           "SUM_RTOL", "FAR_RAY_SHARE", "AMP_GROUPS", "VEC_GROUPS", "FUSED",
+           "STAGE_BWD", "KERNELS", "PLAIN", "OUTPUT_FIELDS",
            "CheckFailure", "check", "ulp_gap", "rows_close", "leaves_close",
            "slots_agree", "recording_fused", "material_grads", "grads_of",
-           "hold_pre", "hold_post", "hold_bwd", "material_table",
-           "calibration_config", "calibration_step"]
+           "hold_pre", "hold_post", "hold_bwd", "hold_pre_bwd",
+           "hold_post_bwd", "hold_pre_bwd_slim", "hold_post_bwd_slim",
+           "hold_scatter_add", "material_table", "calibration_config",
+           "calibration_step", "grad_loss"]
 
 # Tier of the fused kernels against their plain versions: decisions equal;
 # value rows within 3e-5 of their row's largest magnitude
@@ -50,12 +57,29 @@ VEC_GROUPS = ((0, 1, 2),)                    # a vector's components
 # rounding ~sqrt(N) 2^-24 ~ 2e-5 of the sum), the tier of
 # tests/test_torch_tracer.py's gradient test
 PATH_GRAD_RTOL = 1e-4
+# A sum across rays taken on the card (the RX-position and carrier-scalar
+# cotangents: per-block butterflies, then the blocks; a table row of the
+# scatter-add: ray order in chunks of 128, then the chunks in order)
+# against the plain version's in float64: a sum of f32 terms rounded in
+# sequence is within (number of roundings) 2^-24 of the exact sum, relative
+# to the sum of the terms' magnitudes; below 1e-4 of it up to ~10^5
+# roundings on any path of the sum, whatever cancels.
+SUM_RTOL = 1e-4
 
 FUSED = ("bounce_pre", "bounce_post", "loop_bwd_slim")
+STAGE_BWD = ("bounce_pre_bwd", "bounce_post_bwd", "bounce_pre_bwd_slim",
+             "bounce_post_bwd_slim")
+_MODULES = {**{name: fused_ops for name in FUSED + STAGE_BWD},
+            "scatter_add": fetch_cuda}
 KERNELS = {"nearest_hit": nearest_hit,
-           **{name: getattr(fused_ops, name) for name in FUSED}}
+           **{name: getattr(mod, name) for name, mod in _MODULES.items()}}
 PLAIN = {"bounce_pre": bounce_pre_plain, "bounce_post": bounce_post_plain,
-         "loop_bwd_slim": loop_bwd_slim_plain}
+         "loop_bwd_slim": loop_bwd_slim_plain,
+         "bounce_pre_bwd": bounce_pre_bwd_plain,
+         "bounce_post_bwd": bounce_post_bwd_plain,
+         "bounce_pre_bwd_slim": bounce_pre_bwd_slim_plain,
+         "bounce_post_bwd_slim": bounce_post_bwd_slim_plain,
+         "scatter_add": scatter_add_plain}
 OUTPUT_FIELDS = ("a_te", "a_tm", "tau", "freq_shift", "directions_rx")
 
 
@@ -76,20 +100,35 @@ def ulp_gap(a, b):
     return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
 
 
-def rows_close(k, p, rtol, label, groups=None):
-    """|k - p| within ``rtol`` of the largest |p| of its row (rays on the
-    last axis), or of its group of rows: a complex value's (re, im) pair, a
-    vector's three components, whose small parts come from cancellation of
-    the large ones.  Returns the max abs error."""
-    k2, p2 = k.double(), p.double()
+def _beyond(k, p, rtol, groups=None, atol=0.0):
+    """``(|k - p|, where it exceeds rtol x the row's (or row group's)
+    largest |p| plus atol)``, rays on the last axis."""
+    k2, p2 = k.detach().double(), p.detach().double()
     scale = p2.abs().amax(dim=-1, keepdim=True)
     for g in groups or ():
         scale[..., list(g), :] = scale[..., list(g), :].amax(dim=-2,
                                                              keepdim=True)
     err = (k2 - p2).abs()
-    check(bool((err <= rtol * scale).all()),
-          f"{label}: {int((err > rtol * scale).sum())} values beyond "
-          f"{rtol} of their row's max")
+    return err, err > rtol * scale + atol
+
+
+def rows_close(k, p, rtol, label, groups=None, atol=0.0):
+    """|k - p| within ``rtol`` of the largest |p| of its row (rays on the
+    last axis), or of its group of rows: a complex value's (re, im) pair, a
+    vector's three components, whose small parts come from cancellation of
+    the large ones; plus ``atol``.  Returns the max abs error; a failure
+    names the worst values (index, kernel, plain, the row's max)."""
+    err, bad = _beyond(k, p, rtol, groups, atol)
+    if bool(bad.any()):
+        where = bad.nonzero()
+        worst = err[bad].argsort(descending=True)[:4]
+        rows = [(tuple(where[w].tolist()), float(k[tuple(where[w])]),
+                 float(p[tuple(where[w])]),
+                 float(p.detach().abs().amax(-1)[tuple(where[w][:-1])]))
+                for w in worst.tolist()]
+        check(False, f"{label}: {int(bad.sum())} values beyond {rtol} of "
+              f"their row's max (+ {atol}); worst (index, kernel, plain, "
+              f"row max): {rows}")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -128,25 +167,27 @@ def slots_agree(ref, ours, label):
 
 @contextlib.contextmanager
 def recording_fused():
-    """Stands in for the three fused wrappers inside the tracer: forwards each
-    call to the wrapper (which counts the launch) and keeps its inputs and the
-    kernel's outputs, ``{name: [(args, out), ...]}``."""
-    calls = {name: [] for name in FUSED}
+    """Stands in for the fused and scatter-add wrappers inside the tracer:
+    forwards each call to the wrapper (which counts the launch) and keeps
+    its inputs and the kernel's outputs, ``{name: [(args, out), ...]}``
+    (the scatter-add's as ``((idx, g, T), out)``: its ``out`` is the table
+    it added into)."""
+    calls = {name: [] for name in _MODULES}
 
     def recorder(name):
-        def call(*args):
-            out = KERNELS[name](*args)
+        def call(*args, **kw):
+            out = KERNELS[name](*args, **kw)
             calls[name].append((args, out))
             return out
         return call
 
-    for name in FUSED:
-        setattr(fused_ops, name, recorder(name))
+    for name, mod in _MODULES.items():
+        setattr(mod, name, recorder(name))
     try:
         yield calls
     finally:
-        for name in FUSED:
-            setattr(fused_ops, name, KERNELS[name])
+        for name, mod in _MODULES.items():
+            setattr(mod, name, KERNELS[name])
 
 
 def material_grads(mats, d_eta_tab, freq_ghz):
@@ -225,6 +266,165 @@ def hold_bwd(spec, args, k, mats, freq_ghz, label):
     _, d_tab_p32 = loop_bwd_slim_plain(spec, *args)
     return (float((d_tab_k.double() - d_tab_p).abs().max()), share,
             float((d_tab_p32.double() - d_tab_p).abs().max()))
+
+
+_PAY_GROUPS = tuple((c, c + 1, c + 2) for c in range(0, GEOM_COLS, 3))
+# Rays that f32 arithmetic cannot reach: where the f32 plain version
+# differs from the float64 one beyond the tier.  Either the float64
+# recompute took another branch at a branch's edge (fsl2 = 1 in the
+# free-space scale, |n.d| at the incidence clamp) and so another branch's
+# derivative, or the cotangent is a small difference of large terms (a
+# grazing hit's 1/det^2 makes a vertex cotangent of ~1e-4 out of terms ~1,
+# which any f32 evaluation misses by its own size).  On those rays the kernel
+# must be as close to the f32 plain version as that is to the float64 one;
+# they are counted, and at most this share of the rays.
+FAR_RAY_SHARE = 1e-4
+
+
+def _up(args):
+    return [x.double() if isinstance(x, torch.Tensor) and x.is_floating_point()
+            else x for x in args]
+
+
+def _hold_rows(fields, k, p64, p32, label):
+    """The kernel's per-ray outputs ``k`` against the plain version's in
+    float64 (``p64``) and f32 (``p32``); ``fields`` lists ``(name, index,
+    vector, groups)`` of the outputs that are per-ray rows and ``("sum",
+    name, index, terms_index)`` of the sums across rays.  Within
+    :data:`ROW_RTOL` plus :data:`LEAF_ATOL` of the float64 rows (some
+    cotangents are zero but for rounding: the scattering normalisation
+    cancels the directivity ``s exp(-s1_alpha |theta_s - theta_i|)``, so the
+    incidence angle's and ``s``'s cotangents are noise ~1e-23, and compare
+    at that floor); the sums within :data:`SUM_RTOL`; on the rays f32 cannot
+    reach (:data:`FAR_RAY_SHARE`) within the f32 plain version's own distance
+    from float64.  Returns the max abs error, the ulp gaps by output and the
+    number of rays f32 cannot reach."""
+    rows = [f for f in fields if f[0] != "sum"]
+    R = k[rows[0][1]].shape[0 if rows[0][2] else -1]
+    far = torch.zeros(R, dtype=torch.bool, device=k[rows[0][1]].device)
+    for name, i, vector, groups in rows:
+        _, bad = _beyond(_as_rows(p32[i], vector), _as_rows(p64[i], vector),
+                         ROW_RTOL, groups, LEAF_ATOL)
+        far |= bad.reshape(-1, R).any(0)
+    n_far = int(far.sum())
+    check(n_far <= FAR_RAY_SHARE * R, f"{label}: f32 misses the float64 "
+          f"value on {n_far} of {R} rays")
+    err, ulps = 0.0, {}
+    for name, i, vector, groups in rows:
+        kr, q64, q32 = (_as_rows(x[i], vector).detach().double()
+                        for x in (k, p64, p32))
+        e, bad = _beyond(kr, q64, ROW_RTOL, groups, LEAF_ATOL)
+        # the rays f32 cannot reach: within the tier of the f32 plain
+        # version, or as close to it as it is to float64
+        _, bad32 = _beyond(kr, q32, ROW_RTOL, groups, LEAF_ATOL)
+        bad = torch.where(far, bad32 & ((kr - q32).abs()
+                                        > (q32 - q64).abs() + LEAF_ATOL), bad)
+        if bool(bad.any()):
+            rows_close(kr[..., ~far], q64[..., ~far], ROW_RTOL,
+                       f"{label}: {name}", atol=LEAF_ATOL)
+            check(False, f"{label}: {name}: {int(bad.sum())} values on rays "
+                  "f32 cannot reach further from the f32 plain version than "
+                  "it is from float64")
+        err = max(err, float(e[..., ~far].max()) if (~far).any() else 0.0)
+        ulps[name] = ulp_gap(kr.float(), q64.float())
+    for _, name, i, ti in (f for f in fields if f[0] == "sum"):
+        t64, t32 = p64[ti].detach().double(), p32[ti].detach().double()
+        # a ray f32 cannot reach may move the sum by its f32 plain term's
+        # distance from float64
+        slack = ((t32 - t64).abs() * far).sum(-1)
+        err_s = (k[i].detach().double() - t64.sum(-1)).abs()
+        check(bool((err_s <= SUM_RTOL * t64.abs().sum(-1) + slack
+                    + 1e-30).all()),
+              f"{label}: {name} beyond {SUM_RTOL} of the sum of its terms' "
+              f"magnitudes (err {err_s.max().item()})")
+        err = max(err, float(err_s.max()))
+    return err, ulps, n_far
+
+
+def hold_pre_bwd(spec, args, k, label):
+    """The full pre backward's outputs ``k`` against its plain version in
+    float64 on ``args`` (``_hold_rows``).  Returns the max abs error, the
+    ulp gaps and the rays that took another branch in float64."""
+    p64 = bounce_pre_bwd_plain(spec, *_up(args), sum_rays=False)
+    p32 = bounce_pre_bwd_plain(spec, *args, sum_rays=False)
+    groups = _PAY_GROUPS if k[3].shape[-1] == TABLE_COLS else None
+    k, p64, p32 = ([x[0], x[1], x[2], x[3].T, x[4], x[5],
+                    x[4].movedim(1, -1) if x[4].dim() == 3 else None]
+                   for x in (k, p64, p32))
+    return _hold_rows([("d_o", 0, True, VEC_GROUPS),
+                       ("d_d", 1, True, VEC_GROUPS),
+                       ("d_st", 2, False, AMP_GROUPS),
+                       ("d_payload", 3, False, groups),
+                       ("sum", "d_rxp", 4, 6), ("sum", "d_sc", 5, 5)],
+                      k, p64, p32, label)
+
+
+def hold_post_bwd(spec, args, k, label):
+    """The full post backward's outputs ``k`` against its plain version in
+    float64 on ``args``: the occluder rows equal, the rest as
+    :func:`hold_pre_bwd`."""
+    p64 = bounce_post_bwd_plain(spec, *_up(args), sum_rays=False)
+    p32 = bounce_post_bwd_plain(spec, *args, sum_rays=False)
+    check((k[7] is None) == (p64[7] is None), f"{label}: occluder rows")
+    fields = [("d_d2", 0, True, VEC_GROUPS), ("d_st2", 1, False, AMP_GROUPS),
+              ("d_ex", 2, False, None), ("d_sh_d", 3, True, VEC_GROUPS),
+              ("d_d2rx", 4, False, None), ("d_payload", 5, False,
+                                           _PAY_GROUPS if k[5].shape[-1]
+                                           == TABLE_COLS else None),
+              ("sum", "d_sc", 8, 8)]
+    if p64[7] is not None:
+        check(torch.equal(k[7], p64[7]), f"{label}: occluder rows differ")
+        fields.append(("d_n_o", 6, True, VEC_GROUPS))
+    k, p64, p32 = ([*x[:5], x[5].T, *x[6:]]
+                   for x in (k, p64, p32))
+    return _hold_rows(fields, k, p64, p32, label)
+
+
+def hold_pre_bwd_slim(spec, args, k, label):
+    """The slim pre backward's ``(d_st, d_eta)`` against its plain version
+    in float64 (``_hold_rows``)."""
+    p64 = bounce_pre_bwd_slim_plain(spec, *_up(args))
+    p32 = bounce_pre_bwd_slim_plain(spec, *args)
+    k, p64, p32 = ([x[0], x[1].T] for x in (k, p64, p32))
+    return _hold_rows([("d_st", 0, False, AMP_GROUPS),
+                       ("d_eta", 1, False, None)], k, p64, p32, label)
+
+
+def hold_post_bwd_slim(spec, args, k, label):
+    """The slim post backward's ``(d_st2, d_ss)`` against its plain version
+    in float64 (``_hold_rows``)."""
+    p64 = bounce_post_bwd_slim_plain(spec, *_up(args))
+    p32 = bounce_post_bwd_slim_plain(spec, *args)
+    k, p64, p32 = ([x[0], x[1].T] for x in (k, p64, p32))
+    return _hold_rows([("d_st2", 0, False, AMP_GROUPS),
+                       ("d_ss", 1, False, None)], k, p64, p32, label)
+
+
+def hold_scatter_add(idx, g, T, label):
+    """The scatter-add of ``g`` at ``idx`` into ``T`` rows, run twice on
+    the card, against its plain version in float64: the same bits twice,
+    each table entry within :data:`SUM_RTOL` of the sum of its terms'
+    magnitudes.  Returns the max abs error and the rows summed."""
+    k = KERNELS["scatter_add"](idx, g, T)
+    again = KERNELS["scatter_add"](idx, g, T)
+    check(torch.equal(k, again), f"{label}: two runs differ")
+    p = scatter_add_plain(idx, g.double(), T)
+    scale = scatter_add_plain(idx, g.double().abs(), T)
+    err = (k.double() - p).abs()
+    check(bool((err <= SUM_RTOL * scale + 1e-30).all()),
+          f"{label}: {int((err > SUM_RTOL * scale + 1e-30).sum())} sums "
+          f"beyond {SUM_RTOL} of their terms' magnitudes")
+    return float(err.max()) if err.numel() else 0.0, int(
+        ((idx >= 0) & (idx < T)).sum())
+
+
+def grad_loss(res):
+    """``tests/test_bounce_fused.py``'s gradient loss: (sum |a_te|^2 +
+    |a_tm|^2) 1e9 + sum tau 1e3 + sum freq_shift 1e-3 over the scatter
+    paths."""
+    sc = res.scatter
+    return ((sc.a_te.abs().square().sum() + sc.a_tm.abs().square().sum())
+            * 1e9 + sc.tau.sum() * 1e3 + sc.freq_shift.sum() * 1e-3)
 
 
 def material_table(n, rng, device):

@@ -13,10 +13,13 @@ re-derived from the gathered triangle row, so ``loss.backward()`` reaches the
 material table (and, with ``grad_geometry``, the triangle payload) through
 plain autograd.  The bounce scan of the JAX package is a Python loop here.
 
-With ``shade="fused"`` (and ``grad_positions=False``) the bounce loop runs
-instead as :class:`FusedLoopSlim`: per bounce two fused kernels around the
-shadow query, and one kernel for the whole loop's material backward
-(``ops/bounce_fused_cuda.py``), as the JAX package's ``fused_loop_slim``.
+With ``shade="fused"`` the bounce loop runs per bounce two fused kernels
+around the shadow query (``ops/bounce_fused_cuda.py``).  With
+``grad_positions=False`` (and ``unroll_bounces``) the loop is one autograd
+node, :class:`FusedLoopSlim`, whose material backward is one kernel, as the
+JAX package's ``fused_loop_slim``; otherwise each stage is an autograd node
+whose backward is a kernel (:func:`run_fused_loop_stages`), as JAX's
+per-stage ``bounce_pre`` / ``bounce_post``.
 
 Scenes of 4096 padded triangles and more (``walk="auto"``) answer every
 query through the visit-list walk (``ops/walk_cuda.py``) instead of the brute
@@ -35,6 +38,7 @@ import torch
 from .config import TracerConfig
 from .ops import bounce_fused_cuda as fused_ops
 from .ops.bounce_fused import FusedSpec
+from .ops.fetch_cuda import gather_rows
 from .ops.fresnel import ETA_FIELDS, EtaPrecomputed, precompute_eta
 from .ops.geometry import dot3, fast_acos, fibonacci_sphere
 from .ops.intersect import FLT_EPS, intersect_torch
@@ -122,15 +126,16 @@ class LocalSceneAccess:
         self._intersect = _select_intersect(cfg)
         self.walk = prepare_walk(tris) if _walks(cfg, tris) else None
         self._grad_geometry = cfg.grad_geometry
-        mat = tris.material
-        eta_cols = torch.stack([getattr(eta, f)[mat] for f in ETA_FIELDS],
-                               dim=-1)                                # [T, 12]
+        self._eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
+                                    dim=-1)                           # [M, 12]
+        self._material = tris.material.to(torch.int32)
+        # each triangle's eta row; the backward sums them per material with
+        # the scatter-add kernel (131,072 triangles of 2 materials would
+        # serialise in PyTorch's indexing backward)
+        eta_cols = gather_rows(self._eta_tab, self._material)         # [T, 12]
         self._table = torch.cat(
             [tris.v0, tris.e1, tris.e2, tris.normal, tris.velocity, eta_cols],
             dim=-1)                                                   # [T, 27]
-        self._eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
-                                    dim=-1)                           # [M, 12]
-        self._material = mat.to(torch.int32)
 
     def intersect(self, o, d, t_max=None, exclude=None, live=None,
                   any_hit=False):
@@ -397,38 +402,67 @@ def launch_state(tx_pos, tx_vel, launch_dirs, k_dop):
     return (o0, d0, ones, zeros, ones, zeros, zeros, act, freq0, pidx0)
 
 
-def _fused_forward(access: LocalSceneAccess, spec: FusedSpec,
-                   cfg: TracerConfig, rx_pos, sc, st0, o, d, act, pidx,
-                   save: bool):
-    """The fused bounce loop's forward: per bounce the nearest hit, the pre
-    kernel, one all-RX shadow query and the post kernel.  Returns the
-    stacked per-bounce outputs ``(out [B, nrx, 6, R], write bool[B, nrx, R],
-    sh_d [B, nrx, R, 3], live bool[B, R], o2 [B, R, 3] | None, d2 ...)`` and,
-    with ``save``, the residuals of the material backward ``(st_all
-    [B+1, 6, R], live, mat i32[B, R], res_pre [B, 3, R], res_post
-    [B, nrx, 6, R])``, else None."""
+def _fused_spec(cfg: TracerConfig, nrx: int) -> FusedSpec:
+    return FusedSpec(nrx=nrx, parity=cfg.parity,
+                     grad_geometry=cfg.grad_geometry,
+                     grad_positions=cfg.grad_positions,
+                     eps_o=cfg.occlusion_offset)
+
+
+def _fused_bounces(access: LocalSceneAccess, spec: FusedSpec,
+                   cfg: TracerConfig, rx_pos, sc, table, st, o, d, act, pidx,
+                   pre_fn, post_fn):
+    """The fused bounce loop: per bounce the nearest hit, the pre stage
+    ``pre_fn``, one all-RX shadow query and the post stage ``post_fn``
+    (each called as its kernel wrapper, ``bounce_pre`` / ``bounce_post``).
+    Yields ``(pre, post)`` per bounce."""
     nrx, R = spec.nrx, o.shape[0]
-    table = access._table.detach()
-    st = st0.detach()
-    outs, writes, sh_ds, lives, o2s, d2s = ([] for _ in range(6))
-    sts, mats, res_pre, res_post = [st], [], [], []
     for _ in range(cfg.num_bounces):
         _, idx = access.intersect(o, d, exclude=pidx,
                                   live=act if cfg.compact_rays else None)
-        pre = fused_ops.bounce_pre(spec, o, d, st, act, idx, table,
-                                   access._material, rx_pos, sc)
+        pre = pre_fn(spec, o, d, st, act, idx, table, access._material,
+                     rx_pos, sc)
         t_max = (None if spec.parity == "reference"
-                 else (pre.d2rx - 2.0 * spec.eps_o).reshape(-1))
+                 else (pre.d2rx - 2.0 * spec.eps_o).detach().reshape(-1))
         excl_q = pre.excl[None].expand(nrx, R).reshape(-1)
         live_q = (pre.live[None].expand(nrx, R).reshape(-1)
                   if cfg.compact_rays else None)
         t_o, idx_o = _shadow_intersect(
             access, pre.sh_o, pre.sh_d, t_max, excl_q, cfg, live=live_q,
             any_hit=cfg.shadow_any_hit and spec.parity != "reference")
-        post = fused_ops.bounce_post(
+        post = post_fn(
             spec, pre.d2, pre.st2, pre.ex, pre.sh_d, pre.d2rx, pre.t_self,
             pre.crossing, pre.excl, pre.live, t_o.reshape(nrx, R),
             idx_o.reshape(nrx, R), table, sc)
+        yield pre, post
+        o, d, st, act, pidx = pre.o2, pre.d2, pre.st2, pre.live, pre.excl
+
+
+def _bounce_ys(out, write, sh_d, cfg: TracerConfig, o2, d2, live):
+    """One bounce's outputs in the ``ys`` layout of :func:`assemble_scatter`
+    from the post stage's ``out`` [nrx, 6, R] and ``write``."""
+    return ((out[:, 0], out[:, 1], out[:, 2], out[:, 3], out[:, 4],
+             out[:, 5], torch.where(write[..., None], -sh_d, 0.0))
+            + ((o2, d2, live) if cfg.keep_rays else ()))
+
+
+def _fused_forward(access: LocalSceneAccess, spec: FusedSpec,
+                   cfg: TracerConfig, rx_pos, sc, st0, o, d, act, pidx,
+                   save: bool):
+    """The fused bounce loop's forward through the kernel wrappers, on
+    detached operands.  Returns the stacked per-bounce outputs ``(out [B,
+    nrx, 6, R], write bool[B, nrx, R], sh_d [B, nrx, R, 3], live bool[B, R],
+    o2 [B, R, 3] | None, d2 ...)`` and, with ``save``, the residuals of the
+    material backward ``(st_all [B+1, 6, R], live, mat i32[B, R], res_pre
+    [B, 3, R], res_post [B, nrx, 6, R])``, else None."""
+    st = st0.detach()
+    outs, writes, sh_ds, lives, o2s, d2s = ([] for _ in range(6))
+    sts, mats, res_pre, res_post = [st], [], [], []
+    # the wrappers are looked up at each call: a recorder may stand in
+    for pre, post in _fused_bounces(
+            access, spec, cfg, rx_pos, sc, access._table.detach(), st, o, d,
+            act, pidx, lambda *a: fused_ops.bounce_pre(*a),
+            lambda *a: fused_ops.bounce_post(*a)):
         outs.append(post.out)
         writes.append(post.write)
         sh_ds.append(pre.sh_d)
@@ -441,7 +475,6 @@ def _fused_forward(access: LocalSceneAccess, spec: FusedSpec,
             mats.append(pre.mat)
             res_pre.append(pre.res)
             res_post.append(post.res)
-        o, d, st, act, pidx = pre.o2, pre.d2, pre.st2, pre.live, pre.excl
     primal = tuple(torch.stack(xs) if xs else None
                    for xs in (outs, writes, sh_ds, lives, o2s, d2s))
     if not save:
@@ -480,15 +513,22 @@ class FusedLoopSlim(torch.autograd.Function):
         return d_eta_tab, d_st0, None, None
 
 
+def _launch_rows(state0):
+    """The :func:`launch_state` tuple as the fused loop's operands
+    ``(o, d, st [6, R], act, pidx)``."""
+    o, d, ate_re, ate_im, atm_re, atm_im, tau, act, freq, pidx = state0
+    return o, d, torch.stack([ate_re, ate_im, atm_re, atm_im, tau, freq]), \
+        act, pidx
+
+
 def run_fused_loop_slim(access: LocalSceneAccess, rx_pos, state0, fslm,
                         k_dop, cfg: TracerConfig):
-    """The fused bounce loop from the :func:`launch_state` tuple, its
-    outputs in the per-bounce ``ys`` layout of :func:`assemble_scatter`.
-    Residuals are kept only when a gradient can be asked for."""
-    o, d, ate_re, ate_im, atm_re, atm_im, tau, act, freq, pidx = state0
-    spec = FusedSpec(nrx=rx_pos.shape[0], parity=cfg.parity,
-                     eps_o=cfg.occlusion_offset)
-    st0 = torch.stack([ate_re, ate_im, atm_re, atm_im, tau, freq])
+    """The fused bounce loop from the :func:`launch_state` tuple as one
+    :class:`FusedLoopSlim` node, its outputs in the per-bounce ``ys`` layout
+    of :func:`assemble_scatter`.  Residuals are kept only when a gradient
+    can be asked for."""
+    o, d, st0, act, pidx = _launch_rows(state0)
+    spec = _fused_spec(cfg, rx_pos.shape[0])
     sc = torch.stack([fslm, k_dop]).detach()
     run = partial(_fused_forward, access, spec=spec, cfg=cfg, rx_pos=rx_pos,
                   sc=sc, st0=st0, o=o, d=d, act=act, pidx=pidx)
@@ -499,13 +539,31 @@ def run_fused_loop_slim(access: LocalSceneAccess, rx_pos, state0, fslm,
                                                              spec, run)
     else:
         (out, write, sh_d, live, o2, d2), _ = run(save=False)
-    ys = []
-    for b in range(cfg.num_bounces):
-        ys.append((out[b, :, 0], out[b, :, 1], out[b, :, 2], out[b, :, 3],
-                   out[b, :, 4], out[b, :, 5],
-                   torch.where(write[b][..., None], -sh_d[b], 0.0))
-                  + ((o2[b], d2[b], live[b]) if cfg.keep_rays else ()))
-    return ys
+    return [_bounce_ys(out[b], write[b], sh_d[b], cfg,
+                       *((o2[b], d2[b], live[b]) if cfg.keep_rays
+                         else (None,) * 3))
+            for b in range(cfg.num_bounces)]
+
+
+def run_fused_loop_stages(access: LocalSceneAccess, rx_pos, state0, fslm,
+                          k_dop, cfg: TracerConfig):
+    """The fused bounce loop from the :func:`launch_state` tuple with each
+    stage an autograd node (``ops/bounce_fused_cuda.py``: ``BouncePreFn``,
+    ``BouncePostFn``), the JAX package's per-stage custom_vjps: with
+    ``grad_positions`` their backwards are the full per-stage kernels, so
+    gradients reach positions, velocities, the frequency and (with
+    ``grad_geometry``) the triangles through the live payload table;
+    without, the slim ones.  Outputs in the ``ys`` layout of
+    :func:`assemble_scatter`."""
+    o, d, st0, act, pidx = _launch_rows(state0)
+    spec = _fused_spec(cfg, rx_pos.shape[0])
+    sc = torch.stack([fslm, k_dop])
+    return [_bounce_ys(post.out, post.write, pre.sh_d, cfg, pre.o2, pre.d2,
+                       pre.live)
+            for pre, post in _fused_bounces(
+                access, spec, cfg, rx_pos.contiguous(), sc, access._table,
+                st0, o, d, act, pidx, fused_ops.bounce_pre_stage,
+                fused_ops.bounce_post_stage)]
 
 
 def assemble_scatter(ys, d0, o0, nrx, ntx, P, B, keep_rays: bool):
@@ -585,7 +643,10 @@ def trace_paths(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
     state = launch_state(tx_pos, tx_vel, launch_dirs, k_dop)
     o0, d0 = state[0], state[1]
     if cfg.shade == "fused":
-        ys = run_fused_loop_slim(access, rx_pos, state, fslm, k_dop, cfg)
+        run = (run_fused_loop_stages
+               if cfg.grad_positions or not cfg.unroll_bounces
+               else run_fused_loop_slim)
+        ys = run(access, rx_pos, state, fslm, k_dop, cfg)
     else:
         ys = []
         for _ in range(B):

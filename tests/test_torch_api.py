@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 import hermespy_rt_tpu as J
 import hermespy_rt_tpu_torch as hrt
+from hermespy_rt_tpu_torch import testing as checks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -99,10 +103,46 @@ def test_prepare_scene_passes_soa_through():
     assert hrt.prepare_scene(soa) is soa
 
 
+def test_trace_carries_position_and_frequency_gradients():
+    """Positions and the carrier frequency given as tensors keep their
+    gradients through ``trace`` (the op path here), as JAX's ``api.trace``
+    does: ``torch.autograd.grad`` against ``jax.grad``, each leaf within
+    3e-5 of its largest magnitude plus 1e-16."""
+    rx = np.array([[0.5, 0.2, 1.0], [-1.0, 2.0, 0.5]], np.float32)
+    tx = np.array([[0.0, 0.0, 1.5]], np.float32)
+    kw = dict(num_paths=256, num_bounces=2, keep_rays=False)
+
+    def jax_loss(rx_, tx_, f):
+        res = J.trace(J.box_scene(), rx_, tx_, carrier_frequency=f,
+                      config=J.TracerConfig(backend="jnp", **kw))
+        return ((jnp.sum(jnp.abs(res.scatter.a_te) ** 2)
+                 + jnp.sum(jnp.abs(res.scatter.a_tm) ** 2)) * 1e9
+                + jnp.sum(res.scatter.tau) * 1e3)
+
+    ref = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(rx), jnp.asarray(tx), jnp.float32(3.0))
+    leaves = (torch.tensor(rx, requires_grad=True),
+              torch.tensor(tx, requires_grad=True),
+              torch.tensor(3.0, requires_grad=True))
+    res = hrt.trace(hrt.box_scene(), leaves[0], leaves[1],
+                    carrier_frequency=leaves[2],
+                    config=hrt.TracerConfig(**kw), device="cpu")
+    loss = ((res.scatter.a_te.abs().square().sum()
+             + res.scatter.a_tm.abs().square().sum()) * 1e9
+            + res.scatter.tau.sum() * 1e3)
+    ours = torch.autograd.grad(loss, leaves)
+    for name, a, b in zip(("rx", "tx", "frequency"), ours, ref):
+        checks.leaves_close({name: a}, {name: torch.tensor(np.asarray(b))},
+                            checks.LEAF_RTOL, checks.LEAF_ATOL, "trace")
+        assert float(a.abs().max()) > 0, name
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, hermespy_rt_tpu_torch, hermespy_rt_tpu_torch.convert,"
             " hermespy_rt_tpu_torch.ops.intersect_cuda,"
             " hermespy_rt_tpu_torch.ops.bounce_fused_cuda,"
+            " hermespy_rt_tpu_torch.ops.fetch,"
+            " hermespy_rt_tpu_torch.ops.fetch_cuda,"
             " hermespy_rt_tpu_torch.ops.walk,"
             " hermespy_rt_tpu_torch.ops.walk_cuda,"
             " hermespy_rt_tpu_torch.scene.sionna,"

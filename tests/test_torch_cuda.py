@@ -14,6 +14,11 @@ held against their plain versions with the checks of
 ``hermespy_rt_tpu_torch/testing.py`` (equal decisions, values within their
 tier, the backward against the plain version in float64 and the same bits
 in two runs), and one fused forward+backward step against the op path.
+So are the per-stage backwards of the full-gradient fused path and the
+table scatter-add (per-ray rows within their tier of the float64 plain
+version, sums across rays within theirs, the same bits in two runs), and
+that path's gradients (materials, positions, frequency, vertices) against
+the op path's.
 The walk's prepass kernel must give the reach and key of its plain version
 bit for bit, and the walk kernel the (t, idx) of its plain version and of
 the brute kernel (in any-hit mode the same `blocked`, each reported hit a
@@ -27,8 +32,10 @@ import torch
 
 from hermespy_rt_tpu_torch import compute_paths, default_materials
 from hermespy_rt_tpu_torch import testing as checks
+from hermespy_rt_tpu_torch import TracerConfig, trace_paths
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
+from hermespy_rt_tpu_torch.ops.fetch_cuda import scatter_add
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch, mt_hit
 from hermespy_rt_tpu_torch.ops.intersect_cuda import nearest_hit
 from hermespy_rt_tpu_torch.ops.walk import (prepare_walk, prepass_plain,
@@ -177,10 +184,11 @@ def test_fused_step_matches_op_path(dev):
         res, _ = _step(tris, nrx, mats, 1 << 14, shade == "fused")
         launches[shade] = {n: k.launches for n, k in checks.KERNELS.items()}
         grads[shade], scat[shade] = checks.grads_of(mats), res.scatter
-    assert launches["fused"] == {"nearest_hit": 7, "bounce_pre": 3,
+    none = {n: 0 for n in checks.KERNELS}
+    assert launches["fused"] == {**none, "nearest_hit": 7, "bounce_pre": 3,
                                  "bounce_post": 3, "loop_bwd_slim": 1}
-    assert launches["xla"] == {"nearest_hit": 7, "bounce_pre": 0,
-                               "bounce_post": 0, "loop_bwd_slim": 0}
+    # the op path's table gradient: the eta rows summed per material
+    assert launches["xla"] == {**none, "nearest_hit": 7, "scatter_add": 1}
     checks.leaves_close(grads["fused"], grads["xla"], checks.PATH_GRAD_RTOL,
                         checks.LEAF_ATOL, "fused vs op path")
     for f in checks.OUTPUT_FIELDS:
@@ -331,3 +339,136 @@ def test_trace_through_walk_equals_brute(dev, parity):
         for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
             assert torch.equal(getattr(out[False][part], f),
                                getattr(out[True][part], f)), (part, f)
+
+
+def _grad_step(dev, tris, nrx, paths, parity, **kw):
+    """One full-gradient step (tests/test_bounce_fused.py's loss) with
+    gradients to the materials, RX and TX positions, the frequency and the
+    vertices.  Returns the gradients by leaf."""
+    mats = default_materials(dev)
+    v0 = tris.v0.clone().requires_grad_()
+    leaves = dict(rx=torch.tensor(RX[:nrx], device=dev, requires_grad=True),
+                  tx=torch.tensor(TX, device=dev, requires_grad=True),
+                  f=torch.tensor(FREQ, device=dev, requires_grad=True))
+    cfg = TracerConfig(num_paths=paths, num_bounces=3, parity=parity,
+                       keep_rays=False, compact_rays=True, **kw)
+    res = trace_paths(dataclasses.replace(tris, v0=v0), mats, leaves["rx"],
+                      leaves["tx"], np.zeros((nrx, 3), np.float32),
+                      np.zeros((1, 3), np.float32), leaves["f"], cfg)
+    checks.grad_loss(res).backward()
+    torch.cuda.synchronize()
+    return {**checks.grads_of(mats), "v0": v0.grad,
+            **{k: x.grad for k, x in leaves.items()}}
+
+
+def _moving_soup(dev):
+    tris, _ = _soup(dev, 17)
+    vel = np.random.default_rng(4).uniform(-2, 2, (tris.pad_triangles, 3))
+    return dataclasses.replace(tris, velocity=torch.as_tensor(
+        vel.astype(np.float32), device=dev))
+
+
+@pytest.mark.parametrize("parity,nrx,grad_geometry", [
+    ("reference", 3, True), ("physical", 1, False)])
+def test_stage_backward_kernels_equal_plain(dev, parity, nrx, grad_geometry):
+    tris = _moving_soup(dev)
+    with checks.recording_fused() as calls:
+        _grad_step(dev, tris, nrx, 1 << 14, parity, shade="fused",
+                   grad_geometry=grad_geometry)
+    assert [len(calls[n]) for n in ("bounce_pre_bwd", "bounce_post_bwd",
+                                    "bounce_pre_bwd_slim")] == [3, 3, 0]
+    for name, hold in (("bounce_pre_bwd", checks.hold_pre_bwd),
+                       ("bounce_post_bwd", checks.hold_post_bwd)):
+        for i, (args, out) in enumerate(calls[name]):
+            hold(args[0], args[1:], out, f"{name}{i}")
+            again = checks.KERNELS[name](*args)
+            assert all(a is None or torch.equal(a, b)
+                       for a, b in zip(out, again))
+    # per bounce the pre and post rows (and the occluder normals), then the
+    # table's eta rows per material
+    n_scatter = 3 * (2 + (grad_geometry and parity == "reference")) + 1
+    assert len(calls["scatter_add"]) == n_scatter
+    for i, (args, _) in enumerate(calls["scatter_add"]):
+        checks.hold_scatter_add(*args, f"scatter_add{i}")
+
+
+def test_slim_stage_kernels_equal_plain(dev):
+    tris, mats = _soup(dev, 17)
+    with checks.recording_fused() as calls:
+        _step(tris, 2, mats, 1 << 14, True, unroll_bounces=False)
+    assert [len(calls[n]) for n in ("bounce_pre_bwd_slim",
+                                    "bounce_post_bwd_slim", "loop_bwd_slim",
+                                    "scatter_add")] == [3, 3, 0, 7]
+    for name, hold in (("bounce_pre_bwd_slim", checks.hold_pre_bwd_slim),
+                       ("bounce_post_bwd_slim", checks.hold_post_bwd_slim)):
+        for i, (args, out) in enumerate(calls[name]):
+            hold(args[0], args[1:], out, f"{name}{i}")
+    for i, (args, _) in enumerate(calls["scatter_add"]):
+        checks.hold_scatter_add(*args, f"scatter_add{i}")
+
+
+@pytest.mark.parametrize("C", [27, 12, 2, 3])
+def test_scatter_add_kernel_equals_plain(dev, C):
+    rng = np.random.default_rng(C)
+    T, N = 1000, (1 << 16) + 77
+    idx = rng.integers(-5, T + 5, N).astype(np.int32)   # drops both ends
+    idx[rng.uniform(size=N) < 0.3] = 17                  # a long run
+    g = torch.as_tensor(rng.normal(size=(N, C)).astype(np.float32),
+                        device=dev)
+    idx = torch.as_tensor(idx, device=dev)
+    before = scatter_add.launches
+    err, rows = checks.hold_scatter_add(idx, g, T, f"C={C}")
+    assert scatter_add.launches == before + 2 and rows > 0
+    out = torch.ones((T, 30), device=dev)
+    scatter_add(idx, g, T, out=out, col=30 - C)
+    torch.cuda.synchronize()
+    want = torch.ones((T, 30), device=dev)
+    want[:, 30 - C:] += scatter_add(idx, g, T)
+    assert torch.equal(out, want)
+
+
+def test_full_gradient_step_matches_op_path(dev):
+    tris = _moving_soup(dev)
+    counts = {}
+    grads = {}
+    for shade in ("xla", "fused"):
+        for kern in checks.KERNELS.values():
+            kern.launches = 0
+        grads[shade] = _grad_step(dev, tris, 2, 1 << 14, "reference",
+                                  shade=shade)
+        counts[shade] = {n: k.launches for n, k in checks.KERNELS.items()}
+    none = {n: 0 for n in checks.KERNELS}
+    assert counts["fused"] == {**none, "nearest_hit": 7, "bounce_pre": 3,
+                               "bounce_post": 3, "bounce_pre_bwd": 3,
+                               "bounce_post_bwd": 3, "scatter_add": 10}
+    checks.leaves_close(grads["fused"], grads["xla"], checks.PATH_GRAD_RTOL,
+                        checks.LEAF_ATOL, "fused vs op path")
+    assert all(bool(torch.isfinite(g).all()) for g in grads["fused"].values())
+    assert float(grads["fused"]["rx"].abs().max()) > 0
+
+
+def test_stage_backward_kernels_reject_bad_operands(dev):
+    spec = FusedSpec(nrx=1)
+    R, T = 64, 128
+    f = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                     device=dev)
+    ok = dict(o=f(R, 3), d=f(R, 3), st=f(6, R),
+              act=torch.ones(R, dtype=torch.bool, device=dev), idx=i32(R),
+              table=f(T, 27), rx_pos=f(1, 3), sc=f(2), d_o2=f(R, 3),
+              d_d2=f(R, 3), d_st2=f(6, R), d_ex=f(3, R), d_sh_d=f(1, R, 3),
+              d_d2rx=f(1, R))
+    fused_ops.bounce_pre_bwd(spec, *ok.values())
+    torch.cuda.synchronize()
+    for name, bad in (("idx", i32(R).long()), ("d_sh_d", f(2, R, 3)),
+                      ("table", f(T, 26)), ("d_ex", f(3, R).cpu())):
+        with pytest.raises(ValueError):
+            fused_ops.bounce_pre_bwd(spec, *{**ok, name: bad}.values())
+    with pytest.raises(ValueError):
+        fused_ops.bounce_pre_bwd(FusedSpec(nrx=1, grad_positions=False,
+                                           grad_geometry=False),
+                                 *ok.values())
+    with pytest.raises(ValueError):
+        scatter_add(i32(R).long(), f(R, 3), T)
+    with pytest.raises(ValueError):
+        scatter_add(i32(R), f(R, 3), T, out=f(T, 27), col=25)

@@ -263,8 +263,7 @@ def test_300_materials_fused_equals_op_path():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(shade="fused", grad_positions=True, grad_geometry=False),
-     "grad_positions=False"),
+    (dict(shade="fused", unroll_bounces="no"), "unroll_bounces must be"),
     (dict(grad_positions=False, grad_geometry=True), "grad_geometry=False"),
     (dict(shade="pallas"), "not ported"),
     (dict(shade="bogus"), "shade must be"),
@@ -272,6 +271,18 @@ def test_300_materials_fused_equals_op_path():
 def test_config_refuses(kw, match):
     with pytest.raises(ValueError, match=match):
         TracerConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(shade="fused"), dict(shade="fused", grad_geometry=False),
+    dict(shade="fused", grad_positions=False, grad_geometry=False,
+         unroll_bounces=False)])
+def test_config_accepts_fused_gradients(kw):
+    """The JAX defaults (grad_positions, grad_geometry) run the fused path
+    with its full per-stage backward; unroll_bounces=False the slim
+    per-stage one."""
+    cfg = TracerConfig(**kw)
+    assert cfg.shade == "fused" and isinstance(cfg.unroll_bounces, bool)
 
 
 def test_no_grad_keeps_no_residuals(monkeypatch):
