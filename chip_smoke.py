@@ -69,8 +69,9 @@ B. walk       -- record the queries of one 2^20-path forward (nrx = 1) and
                  its limit); visit-list lengths; device times of prepass,
                  sort and walk, their plain versions' and their bounds.
 C. city_equal -- a 14,336-triangle city at 2^14 paths: walk=True against
-                 walk=False, both parities, nrx = 1 and 4, every output equal
-                 bit for bit.
+                 walk=False and against the culled query (walk=False,
+                 cull=True), both parities, nrx = 1 and 4, every output equal
+                 bit for bit; with M's city part (below).
 D. city_fwd   -- ``compute_paths`` on the city at 2^20 paths, nrx = 1: mean
                  of 3 after a warm-up, queries/s, launches, one profiler
                  window; then once with ``walk=False`` (the brute kernel),
@@ -81,8 +82,10 @@ E. city_train -- the calibration step (``shade="fused", grad_positions=
                  finite and nonzero; at 2^16 paths the fused step against
                  the op path (slots agree, gradients within their tier).
 F. city_loss  -- ``benchmarks/config5_e2e.py``'s loss once through the op
-                 path: gradients to the materials and the TX position,
-                 finite and nonzero; wall and device busy.
+                 path (its fetches the row-gather kernel, their backward the
+                 scatter-add): gradients to the materials and the TX
+                 position, finite and nonzero; wall, device busy, PyTorch's
+                 indexing backward left; its gathers recorded for K.
 
 The full-gradient fused path (``trace(shade="fused")`` with the JAX
 defaults ``grad_positions=True, grad_geometry=True``: per-stage backward
@@ -108,6 +111,36 @@ J. city_grad  -- ``config5_e2e.py``'s loss through the full-gradient fused
                  their tier of phase F's; wall, device busy, idle share,
                  launches.
 
+The op path with every kernel (``trace(shade="pallas", cull=True,
+compact_rays=True)``: the culled query, the row gather with the scatter-add
+as its backward, the reflection-half shading), after phase I:
+
+N. pallas_step -- the canyon stand-in at 2^20 paths, B = 3, with every
+                 gradient (G's loss), nrx = 1 and 4 under reference parity
+                 and nrx = 1 under physical parity: launches of one step
+                 (counts zeroed just before, read just after; its kernel
+                 calls recorded), the same step of the default op path
+                 (``shade="xla"``, brute query) beside it: every gradient
+                 within 1e-4 of each leaf's max, scatter slots agree;
+                 forward+backward of both in turns, a profiler window each
+                 (device busy, operations, idle share, PyTorch's indexing
+                 backward left).
+K. gather     -- every recorded gather of N (and of F on the city) equal to
+                 ``table[idx]`` bit for bit; the first payload fetch (2^20
+                 ids, 27 columns) timed against its plain version and
+                 ``torch.index_select``, with its bound, on the canyon's
+                 256-row and the city's 131,072-row table.
+L. shade      -- every recorded shading call of N against its plain
+                 version: a dead ray's state bit for bit, values within
+                 their tier (ulp gaps); the first call timed and bounded.
+M. culled     -- every recorded culled query of N (LoS, bounce, shadow;
+                 nrx 1 and 4) and of C: the same bits and skip count as the
+                 plain culled scan (``ops/walk.py::culled_reach_plain``),
+                 decisions against the brute kernel (each flip an f64 edge
+                 or tie case, counted); the bounce and the 4 x 2^20-ray
+                 shadow query and C's city bounce query timed against the
+                 brute kernel and the plain version, with their bounds.
+
 Then the kernel summary, the card's name and power limit, and the result
 line.  Without a CUDA device it exits non-zero and prints no result.
 """
@@ -131,13 +164,17 @@ from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS, MATERIAL_NAMES
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
-from hermespy_rt_tpu_torch.ops import fetch_cuda, walk_cuda
+from hermespy_rt_tpu_torch.ops import fetch_cuda, shade_cuda, walk_cuda
 from hermespy_rt_tpu_torch.ops._cuda_build import BUILD_DIR, LIBRARY
 from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
 from hermespy_rt_tpu_torch.ops.geometry import fibonacci_sphere
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch, mt_hit
-from hermespy_rt_tpu_torch.ops.intersect_cuda import SOURCE, nearest_hit
-from hermespy_rt_tpu_torch.ops.walk import (prepare_walk, prepass_plain,
+from hermespy_rt_tpu_torch.ops.fetch import gather_plain
+from hermespy_rt_tpu_torch.ops.intersect_cuda import (SOURCE, nearest_hit,
+                                                      nearest_hit_culled)
+from hermespy_rt_tpu_torch.ops.shade import shade_a_plain
+from hermespy_rt_tpu_torch.ops.walk import (CULL_BLOCK_RAYS, CULL_BLOCK_TRIS,
+                                            prepare_walk, prepass_plain,
                                             query_limits, visit_rows,
                                             walk_plain)
 from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene, load_hrt,
@@ -147,10 +184,10 @@ from hermespy_rt_tpu_torch.tracer import trace_paths
 from hermespy_rt_tpu_torch.testing import (
     FUSED, KERNELS, LEAF_ATOL, LEAF_RTOL, OUTPUT_FIELDS, PATH_GRAD_RTOL,
     PLAIN, STAGE_BWD, CheckFailure, check, calibration_config,
-    calibration_step, grad_loss, grads_of, hold_bwd, hold_post,
-    hold_post_bwd, hold_post_bwd_slim, hold_pre, hold_pre_bwd,
-    hold_pre_bwd_slim, hold_scatter_add, leaves_close, material_table,
-    recording_fused, slots_agree)
+    calibration_step, grad_loss, grads_of, hold_bwd, hold_culled,
+    hold_gather, hold_post, hold_post_bwd, hold_post_bwd_slim, hold_pre,
+    hold_pre_bwd, hold_pre_bwd_slim, hold_scatter_add, hold_shade,
+    leaves_close, material_table, recording_fused, slots_agree)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CANYON = os.path.join(REPO, "scenes", "simple_street_canyon_with_cars.hrt")
@@ -212,7 +249,11 @@ REPLACES = {"nearest_hit": "hermespy_rt_tpu/ops/intersect_pallas.py:369",
             "bounce_post_bwd": "hermespy_rt_tpu/ops/bounce_fused.py:716",
             "bounce_pre_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:426",
             "bounce_post_bwd_slim": "hermespy_rt_tpu/ops/bounce_fused.py:655",
-            "scatter_add": "hermespy_rt_tpu/ops/fetch_pallas.py:82"}
+            "scatter_add": "hermespy_rt_tpu/ops/fetch_pallas.py:82",
+            "nearest_hit_culled":
+                "hermespy_rt_tpu/ops/intersect_pallas.py:421",
+            "gather": "hermespy_rt_tpu/ops/fetch_pallas.py:59",
+            "shade_a": "hermespy_rt_tpu/ops/shade.py:159"}
 
 
 def emit(**kw):
@@ -603,7 +644,8 @@ def phase_train(tris, dev):
     mats = default_materials(dev)
     expected = {**{n: 0 for n in KERNELS},
                 "nearest_hit": 1 + 2 * BOUNCES, "bounce_pre": BOUNCES,
-                "bounce_post": BOUNCES, "loop_bwd_slim": 1}
+                "bounce_post": BOUNCES, "loop_bwd_slim": 1,
+                "gather": 1}      # the payload table's eta rows
     counts, recorded = {}, {}
     for nrx in (1, 4):
         cfgs = {"fused": calib_config(PATHS, nrx, True),
@@ -808,6 +850,7 @@ def phase_profile_step(tris, dev):
             out.update(device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
                        idle_share_unprofiled=1.0 - busy / unprofiled_ms,
                        kernels=per, device_ops=sum(e.count for e in dev_rows),
+                       indexing_backward_ms=indexing_backward_ms(dev_rows),
                        top_device=[[e.key[:60], _device_ms(e), e.count]
                                    for e in top])
         else:
@@ -832,6 +875,13 @@ def read_counts():
     return {n: k.launches for n, k in {**KERNELS, **WALK_KERNELS}.items()}
 
 
+def indexing_backward_ms(dev_rows):
+    """Device time of PyTorch's indexing backward (the backward of a
+    ``table[idx]`` gather) among profiled device events."""
+    return sum(_device_ms(e) for e in dev_rows
+               if "indexing_backward" in e.key)
+
+
 def profile_window(fn):
     """One profiler window over ``fn`` (warm): wall, device busy, device
     operations, idle share and the top device operations."""
@@ -852,13 +902,14 @@ def profile_window(fn):
     busy = sum(_device_ms(e) for e in dev_rows)
     per = {}
     for name in ("walk_prepass", "walk", "nearest_hit", *FUSED, *STAGE_BWD,
-                 "scatter_add"):
+                 "scatter_add", "nearest_hit_culled", "gather", "shade_a"):
         ev = [e for e in dev_rows if f"{name}_kernel" in e.key]
         per[name] = dict(ms=sum(_device_ms(e) for e in ev),
                          launches=sum(e.count for e in ev))
     top = sorted(dev_rows, key=_device_ms, reverse=True)[:8]
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=1.0 - busy / wall_ms, kernels=per,
+                indexing_backward_ms=indexing_backward_ms(dev_rows),
                 device_ops=sum(e.count for e in dev_rows),
                 top_device=[[e.key[:60], _device_ms(e), e.count]
                             for e in top])
@@ -1127,44 +1178,90 @@ def phase_walk(tris, dev):
 
 
 def phase_city_equal(dev):
-    """C: walk against brute on a 14,336-triangle city, every output bit
-    for bit."""
+    """C: walk and the culled query against brute on a 14,336-triangle city,
+    every output bit for bit; M (city): the culled queries of one trace per
+    configuration held, the bounce query timed against the brute kernel."""
     out_dir = BUILD_DIR / "city14k"
     host = load_scene(make_city(str(out_dir), n_buildings=16, ground_sub=32))
     shutil.rmtree(out_dir)
     tris = flatten_scene(host, sort_triangles=True, device=dev)
     check(tris.num_triangles == 14336, f"{tris.num_triangles} triangles")
+    assert_flips = flips_check()
+    ns = types.SimpleNamespace(**{f: getattr(tris, f).cpu().numpy()
+                                  for f in ("v0", "e1", "e2")})
+    modes = {"walk": dict(walk=True), "brute": dict(walk=False),
+             "cull": dict(walk=False, cull=True)}
+    query = {"walk": "walk", "brute": "nearest_hit",
+             "cull": "nearest_hit_culled"}
+    culled = dict(brute_flips=0, skipped=0, pairs=0, plain_bit_equal=True)
+    timing = {}
     for parity in ("reference", "physical"):
         for nrx in (1, 4):
             out, wall = {}, {}
-            for walk in (True, False):
-                zero_counts()
-                t0 = time.perf_counter()
-                los, sc = compute_paths(
-                    tris, rx_positions(nrx, SMALL_CITY_RX0), SMALL_CITY_TX,
-                    np.zeros((nrx, 3)),
-                    np.zeros((1, 3)), FREQ_GHZ, nrx, 1, SMALL_PATHS // 4,
-                    BOUNCES, device=dev, parity=parity, walk=walk,
-                    compact_rays=True, keep_rays=False)
-                torch.cuda.synchronize()
-                wall[walk] = time.perf_counter() - t0
-                n = read_counts()
-                check(n["walk"] == (1 + 2 * BOUNCES if walk else 0)
-                      and n["nearest_hit"] == (0 if walk else 1 + 2 * BOUNCES),
-                      f"{parity}/nrx={nrx}/walk={walk}: launches {n}")
-                out[walk] = (los, sc)
-            for part in (0, 1):
-                for f in OUTPUT_FIELDS:
-                    check(torch.equal(getattr(out[True][part], f),
-                                      getattr(out[False][part], f)),
-                          f"{parity}/nrx={nrx}: {f} differs walk vs brute")
-            nonzero = int((out[True][1].a_te.abs() > 0).sum())
+            for mode, kw in modes.items():
+                with recording_fused() as calls:
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    los, sc = compute_paths(
+                        tris, rx_positions(nrx, SMALL_CITY_RX0),
+                        SMALL_CITY_TX, np.zeros((nrx, 3)),
+                        np.zeros((1, 3)), FREQ_GHZ, nrx, 1, SMALL_PATHS // 4,
+                        BOUNCES, device=dev, parity=parity,
+                        compact_rays=True, keep_rays=False, **kw)
+                    torch.cuda.synchronize()
+                    wall[mode] = time.perf_counter() - t0
+                    n = read_counts()
+                for q in query.values():
+                    check(n[q] == (1 + 2 * BOUNCES if q == query[mode]
+                                   else 0),
+                          f"{parity}/nrx={nrx}/{mode}: launches {n}")
+                out[mode] = (los, sc)
+                if mode != "cull":
+                    continue
+                for qi, (args, (t, idx)) in enumerate(
+                        calls["nearest_hit_culled"]):
+                    o, d, q_tris, q_kw = args
+                    label = f"M city {parity}/nrx={nrx}/q{qi}"
+                    row, reach = hold_culled_query(q_tris, o, d, q_kw, t,
+                                                   idx, label, assert_flips,
+                                                   ns)
+                    culled["brute_flips"] += row["brute_flips"]
+                    culled["skipped"] += row["skipped"]
+                    culled["pairs"] += reach.numel()
+                    if (parity, nrx, qi) == ("physical", 1, 1):
+                        brute_kw = {k: v for k, v in q_kw.items()
+                                    if k != "aabbs"}
+                        n_bytes, n_ops = culled_work(o, d, q_tris, q_kw,
+                                                     reach, t, idx)
+                        timing = time_kernel(
+                            "nearest_hit_culled",
+                            lambda: nearest_hit_culled(  # noqa: B023
+                                o, d, q_tris, **q_kw),
+                            lambda: intersect_torch(  # noqa: B023
+                                o, d, q_tris, chunk_size=TWIN_CHUNK,
+                                **brute_kw), n_bytes, n_ops)
+                        timing["brute_ms"] = device_ms(
+                            lambda: nearest_hit(  # noqa: B023
+                                o, d, q_tris, **brute_kw), 20, "nearest_hit")
+                        timing.update(row, library_ms=None,
+                                      pairs=reach.numel())
+                        emit(phase="culled_time", query="city_bounce",
+                             **timing, gpu=smi())
+                del calls
+            for mode in ("brute", "cull"):
+                for part in (0, 1):
+                    for f in OUTPUT_FIELDS:
+                        check(torch.equal(getattr(out["walk"][part], f),
+                                          getattr(out[mode][part], f)),
+                              f"{parity}/nrx={nrx}: {f} differs walk vs "
+                              f"{mode}")
+            nonzero = int((out["walk"][1].a_te.abs() > 0).sum())
             check(nonzero > 0, f"{parity}/nrx={nrx}: empty scatter")
             emit(phase="city_equal", triangles=tris.num_triangles,
                  paths=SMALL_PATHS // 4, parity=parity, nrx=nrx,
-                 bit_equal=True, wall_s={"walk": wall[True],
-                                         "brute": wall[False]},
-                 scatter_nonzero=nonzero)
+                 bit_equal=True, wall_s=wall, scatter_nonzero=nonzero)
+    emit(phase="culled_summary", scene="city14k", **culled, gpu=smi())
+    return dict(culled, timing=timing)
 
 
 def phase_city_forward(tris):
@@ -1216,7 +1313,7 @@ def phase_city_train(tris, dev):
         res, loss = step(cfgs[True])
         counts[nrx] = read_counts()
         expected = {**{n: 0 for n in read_counts()}, "bounce_pre": BOUNCES,
-                    "bounce_post": BOUNCES, "loop_bwd_slim": 1,
+                    "bounce_post": BOUNCES, "loop_bwd_slim": 1, "gather": 1,
                     "walk_prepass": 1 + 2 * BOUNCES, "walk": 1 + 2 * BOUNCES}
         check(counts[nrx] == expected,
               f"city step nrx={nrx}: launches {counts[nrx]}")
@@ -1277,9 +1374,12 @@ def phase_city_loss(tris, dev):
         torch.cuda.synchronize()
         return loss, grads_of(mats), tx.grad
 
-    t0 = time.perf_counter()
-    loss, g, g_tx = run()
-    wall = time.perf_counter() - t0
+    with recording_fused() as calls:
+        t0 = time.perf_counter()
+        loss, g, g_tx = run()
+        wall = time.perf_counter() - t0
+    gathers = calls["gather"]
+    del calls
     leaves = torch.cat([v.reshape(-1) for v in g.values()]
                        + [g_tx.reshape(-1)])
     check(bool(torch.isfinite(leaves).all()) and bool((leaves != 0).any())
@@ -1293,8 +1393,10 @@ def phase_city_loss(tris, dev):
          profile_wall_ms=prof["wall_ms"],
          device_busy_ms=prof["device_busy_ms"],
          idle_share=prof.get("idle_share"), device_ops=prof.get("device_ops"),
+         kernels=prof.get("kernels"),
+         indexing_backward_ms=prof.get("indexing_backward_ms"),
          top_device=prof.get("top_device"), gpu=smi())
-    return g, g_tx
+    return (g, g_tx), gathers
 
 
 # --- the full-gradient fused path ------------------------------------------
@@ -1363,8 +1465,8 @@ def phase_grad_step(tris, dev):
                 "bounce_pre_bwd": BOUNCES, "bounce_post_bwd": BOUNCES,
                 # per bounce: the pre and post payload rows, the occluder
                 # normals (reference parity with grad_geometry); then the
-                # table's eta rows per material
-                "scatter_add": 3 * BOUNCES + 1}
+                # table's eta rows per material (their one gather)
+                "scatter_add": 3 * BOUNCES + 1, "gather": 1}
     counts, recorded = {}, {}
     for nrx in (1, 4):
         cfg = grad_config(PATHS, True)
@@ -1560,7 +1662,7 @@ def phase_slim_stages(tris, dev):
                 "bounce_pre": BOUNCES, "bounce_post": BOUNCES,
                 "bounce_pre_bwd_slim": BOUNCES,
                 "bounce_post_bwd_slim": BOUNCES,
-                "scatter_add": 2 * BOUNCES + 1}
+                "scatter_add": 2 * BOUNCES + 1, "gather": 1}
     mats = default_materials(dev)
     calib_step(tris, nrx, mats, cfgs[False])                     # warm-up
     with recording_fused() as calls:
@@ -1612,7 +1714,8 @@ def phase_city_grad(city, dev, f_grads):
     expected = {**{n: 0 for n in launches}, "walk_prepass": 1 + 2 * BOUNCES,
                 "walk": 1 + 2 * BOUNCES, "bounce_pre": BOUNCES,
                 "bounce_post": BOUNCES, "bounce_pre_bwd": BOUNCES,
-                "bounce_post_bwd": BOUNCES, "scatter_add": 2 * BOUNCES + 1}
+                "bounce_post_bwd": BOUNCES, "scatter_add": 2 * BOUNCES + 1,
+                "gather": 1}
     check(launches == expected, f"J: launches {launches}")
     check_grads(grads, "J", leaves=("tx",))
     g_f, tx_f = f_grads
@@ -1633,6 +1736,240 @@ def phase_city_grad(city, dev, f_grads):
          gpu=smi())
     return launches
 
+
+
+# --- the op path with every kernel ----------------------------------------
+
+
+
+
+def pallas_config(paths, pallas, **kw):
+    """The calibration flags with every gradient on the op path: with
+    ``pallas`` every kernel of it (``shade="pallas", cull=True``), else the
+    default op path (``shade="xla"``, the brute query)."""
+    if pallas:
+        kw.update(shade="pallas", cull=True)
+    return grad_config(paths, False, **kw)
+
+
+def op_expected(parity, pallas):
+    """The launches of one op-path step: the LoS query and per bounce a
+    bounce and a shadow query; the payload table's eta rows, per bounce the
+    payload rows and (reference parity) the occluder normals, each gather
+    with its scatter-add backward (``grad_geometry``); a shading node per
+    bounce."""
+    n_fetch = 1 + BOUNCES * (1 + (parity == "reference"))
+    query = "nearest_hit_culled" if pallas else "nearest_hit"
+    return {**{n: 0 for n in KERNELS}, query: 1 + 2 * BOUNCES,
+            "gather": n_fetch, "scatter_add": n_fetch,
+            "shade_a": BOUNCES if pallas else 0}
+
+
+def phase_pallas_step(tris, dev):
+    """N: the op path with every kernel, ``trace(shade="pallas", cull=True,
+    compact_rays=True)`` with every gradient, at 2^20 paths, B = 3, nrx 1
+    and 4 under reference parity and nrx 1 under physical parity; beside
+    it, in turns, the default op path's step.  Returns the launches of each
+    step and its recorded kernel calls (reference parity)."""
+    counts, recorded = {}, {}
+    for parity, nrx in (("reference", 1), ("reference", 4),
+                        ("physical", 1)):
+        key = f"{parity}_nrx{nrx}"
+        cfgs = {p: pallas_config(PATHS, p, parity=parity)
+                for p in (True, False)}
+        step = lambda p: grad_step(  # noqa: E731
+            tris, rx_positions(nrx), TX, FREQ_GHZ, cfgs[p])
+        step(True)                                               # warm-up
+        with recording_fused() as calls:
+            zero_counts()
+            res, loss, grads = step(True)
+            counts[key] = read_counts()
+        check(counts[key] == {**op_expected(parity, True),
+                              "walk_prepass": 0, "walk": 0},
+              f"N {key}: launches {counts[key]}")
+        if parity == "reference":
+            recorded[nrx] = calls
+        del calls
+        for f in OUTPUT_FIELDS:
+            x = getattr(res.scatter, f)
+            x = torch.view_as_real(x) if x.is_complex() else x
+            check(bool(torch.isfinite(x).all()), f"N {key}: {f}")
+        check_grads(grads, f"N {key}")
+        # the default op path on the same step: gradients within 1e-4 of
+        # each leaf's max, the written scatter slots agree
+        zero_counts()
+        res_x, loss_x, grads_x = step(False)
+        counts_x = read_counts()
+        check(counts_x == {**op_expected(parity, False), "walk_prepass": 0,
+                           "walk": 0}, f"N {key}: op path launches {counts_x}")
+        share = leaves_close(grads, grads_x, PATH_GRAD_RTOL, LEAF_ATOL,
+                             f"N {key}: pallas vs xla op path")
+        agree = {f: slots_agree(getattr(res_x.scatter, f),
+                                getattr(res.scatter, f), f)
+                 for f in OUTPUT_FIELDS}
+        loss_value, maxima = float(loss.detach()), grad_maxima(grads)
+        del res, loss, grads, res_x, loss_x, grads_x
+        times = {"pallas": [], "xla": []}
+        for p in (False, True, True, False):                    # in turns
+            times["pallas" if p else "xla"].append(mean_s(
+                lambda p=p: step(p)))
+        prof = {("pallas" if p else "xla"): profile_window(
+            lambda p=p: step(p)) for p in (True, False)}
+        emit(phase="pallas_step", parity=parity, nrx=nrx, paths=PATHS,
+             bounces=BOUNCES, launches=counts[key],
+             op_path_launches=counts_x, loss=loss_value, grad_abs_max=maxima,
+             grad_vs_op_path_max_leaf_share=share, slot_agreement=agree,
+             fwd_bwd_s={k: sum(v) / len(v) for k, v in times.items()},
+             all_fwd_bwd_s=times, profile=prof, gpu=smi())
+    return counts, recorded
+
+
+def gather_work(table, idx, C):
+    """(bytes, operations) of one row gather: the ids in once, the output
+    out once, each table row it touches (C columns) in once."""
+    rows = int(torch.unique(idx).numel())
+    return nbytes(idx) + (idx.numel() + rows) * C * 4, 0
+
+
+def time_gather(table, idx, C, label):
+    """Device time of one gather call against its plain version's and
+    ``torch.index_select``'s (the one PyTorch call that computes it), and
+    its bound."""
+    run_k = lambda: fetch_cuda.gather(table, idx, 0, C)   # noqa: E731
+    timing = time_kernel("gather", run_k,
+                         lambda: gather_plain(table, idx, 0, C),
+                         *gather_work(table, idx, C))
+    timing["library_ms"] = device_ms(
+        lambda: torch.index_select(table, 0, idx), 20)
+    timing.update(N=idx.numel(), C=C, T=table.shape[0])
+    emit(phase="gather_time", run=label, **timing, gpu=smi())
+    return timing
+
+
+def phase_gather(runs, label):
+    """K: every recorded gather of ``runs`` (``{run: [(args, out), ...]}``)
+    held against ``table[idx]`` bit for bit; the first run's first payload
+    fetch of 2^20 rows (27 columns) timed."""
+    n = 0
+    for run, calls in runs.items():
+        for i, (args, out) in enumerate(calls):
+            hold_gather(args, out, f"K {run} gather{i}")
+            n += 1
+    args, out = next((a, o) for a, o in next(iter(runs.values()))
+                     if o.shape == (PATHS, 27))
+    timing = time_gather(args[0], args[1], 27, label)
+    emit(phase="gather", run=label, calls_held=n, bit_equal=True, gpu=smi())
+    return timing
+
+
+def phase_shade(recorded):
+    """L: every recorded shading call of N's steps against its plain version
+    on the card; the first timed."""
+    worst, ulps = 0.0, {}
+    for nrx, calls in recorded.items():
+        for i, (args, out) in enumerate(calls["shade_a"]):
+            err, u = hold_shade(args, out, f"L nrx={nrx} shade_a{i}")
+            worst = max(worst, err)
+            ulps[f"nrx{nrx}_call{i}"] = u
+            emit(phase="shade", nrx=nrx, call=i, R=args[0].shape[0],
+                 live=int(args[3].sum()), max_abs_err=err, ulps=u)
+    args, out = recorded[1]["shade_a"][0]
+    R = args[0].shape[0]
+    timing = time_kernel(
+        "shade_a", lambda: shade_cuda.shade_a(*args),
+        lambda: shade_a_plain(*args), nbytes(*args, *out),
+        R * PRE_OPS_PER_RAY)         # csrc/shade.cu: the pre stage's body
+    timing["library_ms"] = None
+    emit(phase="shade_time", R=R, **timing, gpu=smi())
+    return dict(max_abs_err=worst, timing=timing)
+
+
+def culled_work(o, d, tris, kw, reach, t, idx):
+    """(bytes, operations) of one culled query on this run's data: 47
+    operations per (live ray, triangle) in the tiles its block reaches, a
+    slab test per (live ray, tile); the rays in and (t, idx) out, the
+    triangles and the boxes once."""
+    live = kw.get("live")
+    lim = query_limits(o.shape[0], CULL_BLOCK_RAYS, t_max=kw.get("t_max"),
+                       live=live, device=o.device)
+    live_per_tile = (lim >= 0).reshape(-1, CULL_BLOCK_RAYS).sum(1)
+    n_live = int(live_per_tile.sum())
+    pairs = int((reach.sum(1) * live_per_tile).sum()) * CULL_BLOCK_TRIS
+    n_ops = (NEAREST_HIT_OPS_PER_PAIR * pairs
+             + SLAB_OPS * n_live * reach.shape[1])
+    return (nbytes(o, d, *(v for k, v in kw.items() if k != "aabbs"),
+                   tris.v0, tris.e1, tris.e2, kw["aabbs"], t, idx), n_ops)
+
+
+def hold_culled_query(tris, o, d, kw, t, idx, label, assert_flips, ns):
+    """One culled query: its answer and skip count against the plain
+    version, its decisions against the brute kernel's (each flip an f64
+    edge or tie case, counted).  Returns the row to report and the reach
+    matrix."""
+    skipped = torch.zeros(1, dtype=torch.int64, device=o.device)
+    t2, i2 = nearest_hit_culled(o, d, tris, skipped=skipped, **kw)
+    check(torch.equal(t2, t) and torch.equal(i2, idx),
+          f"{label}: the culled kernel is not deterministic")
+    reach = hold_culled(o, d, tris, kw, t, idx, int(skipped), label)
+    brute_kw = {k: v for k, v in kw.items() if k != "aabbs"}
+    t_b, i_b = nearest_hit(o, d, tris, **brute_kw)
+    flips = int((i_b != idx).sum())
+    if flips:
+        assert_flips(ns, o.cpu().numpy(), d.cpu().numpy(), t_b.cpu().numpy(),
+                     i_b.cpu().numpy(), t.cpu().numpy(), idx.cpu().numpy(),
+                     t_rtol=0.0, label=label)
+    m = (i_b == idx) & (idx >= 0)
+    check(torch.equal(t[m], t_b[m]), f"{label}: t differs from the brute "
+          "kernel's")
+    live = kw.get("live")
+    return dict(rays=o.shape[0],
+                live=o.shape[0] if live is None else int(live.sum()),
+                hits=int((idx >= 0).sum()), brute_flips=flips, skipped=int((~reach).sum()),
+                reached=int(reach.sum()), tiles=reach.shape[1]), reach
+
+
+def phase_culled(recorded, tris):
+    """M (canyon): every recorded culled query of N's steps held (plain
+    version: the same bits and skip count; brute kernel: flips counted and
+    explained); the first bounce query and the nrx = 4 shadow query timed
+    against the brute kernel."""
+    assert_flips = flips_check()
+    ns = types.SimpleNamespace(**{f: getattr(tris, f).cpu().numpy()
+                                  for f in ("v0", "e1", "e2")})
+    totals = dict(brute_flips=0, skipped=0, pairs=0, plain_bit_equal=True)
+    timing = {}
+    for nrx, calls in recorded.items():
+        for qi, (args, (t, idx)) in enumerate(calls["nearest_hit_culled"]):
+            o, d, q_tris, kw = args
+            label = f"M nrx={nrx} q{qi}"
+            row, reach = hold_culled_query(q_tris, o, d, kw, t, idx, label,
+                                           assert_flips, ns)
+            totals["brute_flips"] += row["brute_flips"]
+            totals["skipped"] += row["skipped"]
+            totals["pairs"] += reach.numel()
+            emit(phase="culled", nrx=nrx, query=qi, **row)
+            if (nrx, qi) in ((1, 1), (4, 2)):
+                name = "bounce" if qi == 1 else "shadow"
+                brute_kw = {k: v for k, v in kw.items() if k != "aabbs"}
+                n_bytes, n_ops = culled_work(o, d, q_tris, kw, reach, t, idx)
+                tk = time_kernel(
+                    "nearest_hit_culled",
+                    lambda: nearest_hit_culled(o, d, q_tris, **kw),  # noqa: B023
+                    lambda: intersect_torch(o, d, q_tris,  # noqa: B023
+                                            chunk_size=TWIN_CHUNK,
+                                            **brute_kw),
+                    n_bytes, n_ops)
+                tk["brute_ms"] = device_ms(
+                    lambda: nearest_hit(o, d, q_tris, **brute_kw),  # noqa: B023
+                    20, "nearest_hit")
+                tk.update(library_ms=None, rays=row["rays"],
+                          live=row["live"], skipped=row["skipped"],
+                          pairs=reach.numel())
+                timing[name] = tk
+                emit(phase="culled_time", query=name, nrx=nrx, **tk,
+                     gpu=smi())
+    emit(phase="culled_summary", **totals, gpu=smi())
+    return dict(totals, timing=timing)
 
 def grads_of_fields(grads):
     return {f: grads[f] for f in MATERIAL_FIELDS}
@@ -1675,14 +2012,21 @@ def main():
     bwd = phase_bwd_kernel(recorded)
     del recorded
     slim_counts, slim = phase_slim_stages(tris, dev)
-    del tris
+    op_counts, recorded = phase_pallas_step(tris, dev)
+    gather = phase_gather({f"canyon nrx={nrx}": calls["gather"]
+                           for nrx, calls in recorded.items()}, "canyon")
+    shade = phase_shade(recorded)
+    culled = phase_culled(recorded, tris)
+    del recorded, tris
 
     city = phase_city(dev)
     _, walk_timing = phase_walk(city, dev)
-    phase_city_equal(dev)
+    culled["city"] = phase_city_equal(dev)
     fwd_launches = phase_city_forward(city)
     city_counts = phase_city_train(city, dev)
-    f_grads = phase_city_loss(city, dev)
+    f_grads, city_gathers = phase_city_loss(city, dev)
+    gather["city"] = phase_gather({"city F": city_gathers}, "city")
+    del city_gathers
     city_grad_counts = phase_city_grad(city, dev, f_grads)
 
     t = timing["bounce_2^20"]
@@ -1772,6 +2116,33 @@ def main():
             "plain_wall_ms": t1["plain_wall_ms"],
             **({"busiest": t1["busiest"]} if "busiest" in t1 else {}),
             **({} if slim_kernel else {"nrx4": bwd[4][name]["timing"]})})
+    op_steps = {f"pallas_step_{k}": c for k, c in op_counts.items()}
+    sources = {"nearest_hit_culled": SOURCE, "gather": fetch_cuda.GATHER_SOURCE,
+               "shade_a": shade_cuda.SOURCE}
+    timings = {"nearest_hit_culled": culled["timing"]["bounce"],
+               "gather": gather, "shade_a": shade["timing"]}
+    errors = {"nearest_hit_culled": 0.0, "gather": 0.0,
+              "shade_a": shade["max_abs_err"]}
+    for name in ("nearest_hit_culled", "gather", "shade_a"):
+        t1 = timings[name]
+        steps = {k: c[name] for k, c in op_steps.items()}
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(str(sources[name]), REPO),
+            "replaces": REPLACES[name],
+            "launches": sum(steps.values()), "launches_per_step": steps,
+            "max_abs_err": errors[name],
+            "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+            "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+            "library_ms": t1["library_ms"], "wall_ms": t1["wall_ms"],
+            "plain_wall_ms": t1["plain_wall_ms"],
+            **({"brute_ms": t1["brute_ms"],
+                "shadow": culled["timing"]["shadow"],
+                "city": culled["city"]["timing"],
+                "brute_flips": culled["brute_flips"]
+                + culled["city"]["brute_flips"]}
+               if name == "nearest_hit_culled" else {}),
+            **({"city": gather["city"]} if name == "gather" else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

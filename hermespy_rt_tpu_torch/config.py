@@ -39,7 +39,11 @@ class TracerConfig:
                    detaches it (material gradients are unchanged).
       shade:       bounce shading: "xla" (the default; the name is the JAX
                    package's) runs it as torch ops, whose autograd gives
-                   every gradient; "fused" runs each bounce as two fused
+                   every gradient; "pallas" (the JAX package's name for its
+                   reflection-half kernel) runs each bounce's reflection
+                   half as one kernel (``ops/shade_cuda.py``) whose
+                   backward is autograd of the torch ops at the saved
+                   inputs, the rest of the bounce as "xla"; "fused" runs each bounce as two fused
                    kernels around the shadow query
                    (``ops/bounce_fused_cuda.py``), each an autograd node
                    whose backward is a kernel too (with ``grad_positions``
@@ -71,11 +75,24 @@ class TracerConfig:
                    brute scan.  "auto" (the default) walks from 4096 padded
                    triangles up, True always, False never.  The "torch"
                    backend always scans every triangle.
+      cull:        brute-scan queries skip, per block of rays, the triangle
+                   tiles whose box no ray of the block reaches within its
+                   running nearest hit or its limit (``t_max``; dead rays
+                   reach none): the culled kernel of
+                   ``ops/intersect_cuda.py``.  Exact: the same decisions as
+                   the brute scan.  Ignored when the queries walk and on the
+                   "torch" backend.
       shadow_any_hit: physical-parity shadow queries consume only whether a
                    blocker lies within range, so the walk may stop each
                    shadow ray at its first such hit.  Trace outputs are
                    unchanged; reference parity never uses it (it reads the
                    nearest occluder's normal).
+
+    The op path (``shade`` "xla" or "pallas") fetches each hit's payload
+    row with the row-gather kernel on a card (``ops/fetch_cuda.py``, whose
+    backward is the scatter-add kernel) and with its plain version,
+    ``table[idx]``, on the CPU; the JAX package's ``gather`` and
+    ``fetch_bwd`` choices between TPU forms have no counterpart.
     """
 
     num_paths: int = 10_000
@@ -94,6 +111,7 @@ class TracerConfig:
     walk: "bool | str" = "auto"
     shadow_any_hit: bool = True
     unroll_bounces: bool = True
+    cull: bool = False
 
     @property
     def resolved_launch_order(self) -> str:
@@ -123,11 +141,9 @@ class TracerConfig:
                              f"{self.rx_query_rays}")
         if self.ray_chunk <= 0:
             raise ValueError(f"ray_chunk must be > 0, got {self.ray_chunk}")
-        if self.shade == "pallas":
-            raise ValueError("shade='pallas' (the TPU reflection-half shading "
-                             "kernel) is not ported yet; use 'xla' or 'fused'")
-        if self.shade not in ("xla", "fused"):
-            raise ValueError(f"shade must be 'xla' or 'fused', got {self.shade!r}")
+        if self.shade not in ("xla", "pallas", "fused"):
+            raise ValueError("shade must be 'xla', 'pallas' or 'fused', got "
+                             f"{self.shade!r}")
         if self.walk in ("resident", "dma"):
             raise ValueError(
                 f"walk={self.walk!r} places the triangles in TPU memory "
@@ -143,3 +159,5 @@ class TracerConfig:
         if not isinstance(self.unroll_bounces, bool):
             raise ValueError("unroll_bounces must be a bool, got "
                              f"{self.unroll_bounces!r}")
+        if not isinstance(self.cull, bool):
+            raise ValueError(f"cull must be a bool, got {self.cull!r}")

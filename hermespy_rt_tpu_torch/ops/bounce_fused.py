@@ -45,7 +45,7 @@ from .fresnel import ETA_FIELDS, EtaPrecomputed, refl_coefs
 from .geometry import dot3, fast_acos
 from .intersect import FLT_EPS
 from .scattering import scat_coefs
-from .shade import _CLIP, SPEED_OF_LIGHT, shade_a
+from .shade import _CLIP, GEOM_COLS, SPEED_OF_LIGHT, shade_a
 
 __all__ = ["FusedSpec", "PreOut", "PostOut", "bounce_pre_plain",
            "bounce_post_plain", "loop_bwd_slim_plain", "bounce_pre_bwd_plain",
@@ -53,7 +53,6 @@ __all__ = ["FusedSpec", "PreOut", "PostOut", "bounce_pre_plain",
            "bounce_post_bwd_slim_plain", "payload_cols", "GEOM_COLS",
            "TABLE_COLS", "NORMAL_COL"]
 
-GEOM_COLS = 15                         # v0, e1, e2, normal, velocity
 TABLE_COLS = GEOM_COLS + len(ETA_FIELDS)  # + the 12 eta columns = 27
 NORMAL_COL = 9                         # the normal's first column
 _S, _S1A = ETA_FIELDS.index("s"), ETA_FIELDS.index("s1_alpha")

@@ -1,13 +1,22 @@
-"""The table scatter-add, the counterpart of
-``hermespy_rt_tpu.ops.fetch_pallas.pallas_scatter_add``:
-``dtable[k] = sum over r with idx[r] == k of g[r]``, the backward of a row
-fetch.  :func:`scatter_add_plain` is the plain version of the CUDA kernel in
-``csrc/scatter_add.cu`` (wrapper in :mod:`.fetch_cuda`)."""
+"""The row fetch and its backward, the table scatter-add: the counterparts
+of ``hermespy_rt_tpu.ops.fetch_pallas.pallas_onehot_fetch`` (``table[idx]``)
+and ``::pallas_scatter_add`` (``dtable[k] = sum over r with idx[r] == k of
+g[r]``).  :func:`gather_plain` and :func:`scatter_add_plain` are the plain
+versions of the CUDA kernels in ``csrc/gather.cu`` and
+``csrc/scatter_add.cu`` (wrappers in :mod:`.fetch_cuda`)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["scatter_add_plain"]
+__all__ = ["gather_plain", "scatter_add_plain"]
+
+
+def gather_plain(table, idx, col: int = 0, width=None):
+    """``table[idx]`` for ``table`` f32[T, W] and ``idx`` i32[N] in
+    ``[0, T)``: f32[N, width], the columns ``col .. col + width`` of each
+    row (all of them by default)."""
+    width = table.shape[1] - col if width is None else width
+    return table[idx.long(), col:col + width]
 
 
 def scatter_add_plain(idx, g, T: int):

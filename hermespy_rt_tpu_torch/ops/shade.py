@@ -5,20 +5,36 @@ Per active ray after its nearest hit: the differentiable hit distance from
 the gathered triangle, the incidence trig, ITU Fresnel reflection with the
 per-segment free-space loss, the complex amplitude update, the specular ray
 update with the 1e-4 self-hit offset, and the mesh-velocity Doppler.
+
+:func:`shade_a_plain` is the same chain on the operands of the CUDA kernel
+``csrc/shade.cu`` (wrapper in :mod:`.shade_cuda`): the payload rows as
+fetched, the state as six rows.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .fresnel import refl_coefs
+from .fresnel import ETA_FIELDS, EtaPrecomputed, refl_coefs
 from .geometry import cross3, dot3, fast_acos, reflect3
 from .intersect import FLT_EPS
 
-__all__ = ["shade_a"]
+__all__ = ["shade_a", "shade_a_plain", "split_payload", "GEOM_COLS"]
 
 SPEED_OF_LIGHT = float(np.float32(299792458.0))   # m/s, as the reference
 _CLIP = float(np.float32(1.0) - np.float32(FLT_EPS))  # grad-safe acos clamp
+GEOM_COLS = 15     # payload columns: v0, e1, e2, normal, velocity; then eta
+
+
+def split_payload(row, geo=None):
+    """``(hit, eta)`` of :func:`shade_a` from payload rows ``[..., 27]``;
+    ``geo``, when given, stands in for the 15 geometry columns."""
+    geo = row[..., :GEOM_COLS] if geo is None else geo
+    hit = dict(v0=geo[..., 0:3], e1=geo[..., 3:6], e2=geo[..., 6:9],
+               normal=geo[..., 9:12], velocity=geo[..., 12:15])
+    eta = EtaPrecomputed(**{f: row[..., GEOM_COLS + i]
+                            for i, f in enumerate(ETA_FIELDS)})
+    return hit, eta
 
 
 def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
@@ -71,3 +87,14 @@ def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
     freq2 = freq + torch.where(live, dot3(d_ref - d, vel) * k_dop, 0.0)
     return (o2, d2, ate_re2, ate_im2, atm_re2, atm_im2, tau2, freq2,
             theta, cos_t1, ndot, sin_t1, fscale)
+
+
+def shade_a_plain(o, d, st, live, row, sc):
+    """:func:`shade_a` on the kernel's operands: ``o``, ``d`` f32[R, 3],
+    ``st`` f32[6, R] (ate_re, ate_im, atm_re, atm_im, tau, freq), ``live``
+    bool[R], ``row`` f32[R, 27] the fetched payload rows, ``sc`` f32[2]
+    (fslm, k_dop).  Returns ``(o2 [R, 3], d2 [R, 3], st2 [6, R], ex [5,
+    R])``, ``ex`` the rows (theta, cos_t1, n.d, sin_t1, fscale)."""
+    hit, eta = split_payload(row)
+    out = shade_a(o, d, *st, live, hit, eta, sc[0], sc[1])
+    return out[0], out[1], torch.stack(out[2:8]), torch.stack(out[8:])

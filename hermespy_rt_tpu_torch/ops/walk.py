@@ -35,6 +35,11 @@ finds nothing (padding triangles have a zero determinant).
 CUDA kernels of ``csrc/walk.cu``; they run for CPU tensors and in the checks
 (``ops/walk_cuda.py`` launches the kernels).  No running-best pruning beyond
 the kernel's own reach test is added: pruning never changes ``(t, idx)``.
+
+The culled brute scan (``csrc/intersect.cu::nearest_hit_culled_kernel``)
+is the walk with every fine tile of :data:`CULL_BLOCK_TRIS` triangles listed
+for every ray tile in ascending order: :func:`culled_reach_plain` runs it so
+and returns which tiles each ray tile reached, the kernel's skip decisions.
 """
 from __future__ import annotations
 
@@ -45,9 +50,11 @@ import torch
 
 from .intersect import T_MAX, mt_hit
 
-__all__ = ["WALK_BLOCK_RAYS", "WALK_BLOCK_TRIS", "MAX_BOXES", "SceneWalk",
-           "prepare_walk", "walk_group", "tile_aabbs", "coarse_boxes",
-           "query_limits", "prepass_plain", "visit_rows", "walk_plain"]
+__all__ = ["WALK_BLOCK_RAYS", "WALK_BLOCK_TRIS", "MAX_BOXES",
+           "CULL_BLOCK_RAYS", "CULL_BLOCK_TRIS", "SceneWalk", "prepare_walk",
+           "walk_group", "tile_aabbs", "coarse_boxes", "cull_boxes",
+           "query_limits", "prepass_plain", "visit_rows", "walk_plain",
+           "culled_reach_plain"]
 
 # Hopper tile sizes: 256 rays a block (one thread per ray, the prepass's
 # 256 boxes a block over the same 256 staged rays) and fine tiles of 128
@@ -57,6 +64,10 @@ __all__ = ["WALK_BLOCK_RAYS", "WALK_BLOCK_TRIS", "MAX_BOXES", "SceneWalk",
 WALK_BLOCK_RAYS = 256
 WALK_BLOCK_TRIS = 128
 MAX_BOXES = 512        # coarse boxes per prepass row: group grows until this
+# the culled brute kernel: blocks of 256 rays, tiles of 64 triangles (the
+# 256-triangle canyon stand-in has 4 tiles)
+CULL_BLOCK_RAYS = 256
+CULL_BLOCK_TRIS = 64
 _NO_HIT = 2 ** 31 - 1  # running index before the first hit
 _INV_ZERO = 1e-30      # stands in for d == 0 in 1 / d, as the TPU kernels
 
@@ -123,6 +134,13 @@ def coarse_boxes(aabbs: torch.Tensor, group: int) -> torch.Tensor:
     a = aabbs.reshape(-1, group, 6)
     return torch.cat([a[..., 0:3].amin(dim=1), a[..., 3:6].amax(dim=1)],
                      dim=-1)
+
+
+def cull_boxes(tris) -> torch.Tensor:
+    """The culled kernel's tile boxes, ``f32[ceil(T / CULL_BLOCK_TRIS), 6]``
+    (:func:`tile_aabbs`)."""
+    t_pad = _round_up(tris.pad_triangles, CULL_BLOCK_TRIS)
+    return tile_aabbs(tris, CULL_BLOCK_TRIS, t_pad).contiguous()
 
 
 def prepare_walk(tris, block_rays: int = WALK_BLOCK_RAYS,
@@ -244,14 +262,17 @@ def visit_rows(reach: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
 def walk_plain(o: torch.Tensor, d: torch.Tensor, scene: SceneWalk,
                visits: torch.Tensor, lim: torch.Tensor,
                exclude: Optional[torch.Tensor] = None,
-               any_hit: bool = False, tile_chunk: int = 256
+               any_hit: bool = False, tile_chunk: int = 256,
+               reach_out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The walk: ``(t f32[R] (+inf miss), idx i32[R] (-1 miss))`` of rays
     ``o``, ``d`` ``f32[R, 3]`` over the fine tiles their tile's visit row
     names, in its order (see the module docstring).  ``lim`` is the padded
     limit of :func:`query_limits`; ``exclude`` (``i32[R]``, -1 none) one
     triangle per ray.  Evaluated tile by tile of the walk as torch ops, at
-    most ``tile_chunk`` ray tiles at once."""
+    most ``tile_chunk`` ray tiles at once.  ``reach_out`` (``bool[nRT,
+    nT]``), when given, gets whether each ray tile reached each fine tile
+    it listed."""
     R = o.shape[0]
     br, bt, group = scene.block_rays, scene.block_tris, scene.group
     n_pad = lim.shape[0]
@@ -280,6 +301,8 @@ def walk_plain(o: torch.Tensor, d: torch.Tensor, scene: SceneWalk,
         reach = _reach(*_slab(o[act], inv[act], box[..., 0:3],
                               box[..., 3:6]), limit)
         hot = reach.any(dim=1)
+        if reach_out is not None:
+            reach_out[act, j] = hot
         act, j = act[hot], j[hot]
         for a in range(0, act.shape[0], tile_chunk):
             tiles, jt = act[a:a + tile_chunk], j[a:a + tile_chunk]
@@ -304,3 +327,29 @@ def walk_plain(o: torch.Tensor, d: torch.Tensor, scene: SceneWalk,
     idx = torch.where(torch.isfinite(t), best_i.reshape(-1)[:R],
                       -1).to(torch.int32)
     return t, idx
+
+
+def culled_reach_plain(o: torch.Tensor, d: torch.Tensor, tris, lim,
+                       exclude: Optional[torch.Tensor] = None,
+                       block_rays: int = CULL_BLOCK_RAYS,
+                       block_tris: int = CULL_BLOCK_TRIS
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The culled brute scan's decisions as torch ops: ``(reach bool[nRT,
+    nT], t, idx)``.  ``reach`` says which tiles of ``block_tris`` triangles
+    each tile of ``block_rays`` rays reached, tiles in ascending order, each
+    ray's slab test against the tile's box (:func:`tile_aabbs`) within
+    ``min(running best t, lim)``, as ``_kernel_culled``'s
+    (``intersect_pallas.py:444-461``); ``(t, idx)`` is the query's answer.
+    ``lim`` is the padded limit of :func:`query_limits` at ``block_rays``.
+    The running best needs the triangles: the walk over every tile
+    (:func:`walk_plain`) computes it."""
+    scene = prepare_walk(tris, block_rays, block_tris, group=1)
+    n_rt, n_t = lim.shape[0] // block_rays, scene.n_tiles
+    tiles = torch.arange(n_t, dtype=torch.int32, device=o.device)
+    visits = torch.cat([torch.full((n_rt, 1), n_t, dtype=torch.int32,
+                                   device=o.device),
+                        tiles.expand(n_rt, n_t)], dim=1)
+    reach = torch.zeros((n_rt, n_t), dtype=torch.bool, device=o.device)
+    t, idx = walk_plain(o, d, scene, visits, lim, exclude=exclude,
+                        reach_out=reach)
+    return reach, t, idx

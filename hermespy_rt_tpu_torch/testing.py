@@ -1,11 +1,13 @@
 """Checks of the port's kernels against their plain versions.
 
 Shared by ``chip_smoke.py`` (on the card) and the tests
-(``tests/test_torch_fused.py`` and ``tests/test_torch_stages.py`` on the CPU
-against the JAX package, ``tests/test_torch_cuda.py`` on the card): the
-tolerances with their reasons, the comparisons, a recorder of the fused
-kernels' calls inside the tracer, and the material-calibration step of the
-JAX package's ``bench.py``.  Imports no JAX.
+(``tests/test_torch_fused.py``, ``tests/test_torch_stages.py`` and
+``tests/test_torch_shade.py`` on the CPU against the JAX package,
+``tests/test_torch_cuda.py`` on the card): the tolerances with their
+reasons, the comparisons, a recorder of the kernels' calls inside the tracer
+(the fused stages, the row gather, the shading, the culled query and the
+scatter-add), and the material-calibration step of the JAX package's
+``bench.py``.  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -15,19 +17,22 @@ import warnings
 import numpy as np
 import torch
 
+from . import tracer as tracer_module
 from .api import trace
 from .config import TracerConfig
 from .materials import MATERIAL_FIELDS, MaterialTable, default_materials
 from .ops import bounce_fused_cuda as fused_ops
-from .ops import fetch_cuda
+from .ops import fetch_cuda, shade_cuda
 from .ops.bounce_fused import (GEOM_COLS, TABLE_COLS, bounce_post_bwd_plain,
                                bounce_post_bwd_slim_plain, bounce_post_plain,
                                bounce_pre_bwd_plain,
                                bounce_pre_bwd_slim_plain, bounce_pre_plain,
                                loop_bwd_slim_plain)
-from .ops.fetch import scatter_add_plain
+from .ops.fetch import gather_plain, scatter_add_plain
 from .ops.fresnel import ETA_FIELDS, precompute_eta
 from .ops.intersect_cuda import nearest_hit
+from .ops.shade import shade_a_plain
+from .ops.walk import CULL_BLOCK_RAYS, culled_reach_plain, query_limits
 
 __all__ = ["ROW_RTOL", "LEAF_RTOL", "LEAF_ATOL", "PATH_GRAD_RTOL",
            "SUM_RTOL", "FAR_RAY_SHARE", "AMP_GROUPS", "VEC_GROUPS", "FUSED",
@@ -36,7 +41,8 @@ __all__ = ["ROW_RTOL", "LEAF_RTOL", "LEAF_ATOL", "PATH_GRAD_RTOL",
            "slots_agree", "recording_fused", "material_grads", "grads_of",
            "hold_pre", "hold_post", "hold_bwd", "hold_pre_bwd",
            "hold_post_bwd", "hold_pre_bwd_slim", "hold_post_bwd_slim",
-           "hold_scatter_add", "material_table", "calibration_config",
+           "hold_scatter_add", "hold_gather", "hold_shade", "hold_culled",
+           "material_table", "calibration_config",
            "calibration_step", "grad_loss"]
 
 # Tier of the fused kernels against their plain versions: decisions equal;
@@ -69,8 +75,10 @@ SUM_RTOL = 1e-4
 FUSED = ("bounce_pre", "bounce_post", "loop_bwd_slim")
 STAGE_BWD = ("bounce_pre_bwd", "bounce_post_bwd", "bounce_pre_bwd_slim",
              "bounce_post_bwd_slim")
+# the module whose attribute each recorded wrapper is, as the tracer calls it
 _MODULES = {**{name: fused_ops for name in FUSED + STAGE_BWD},
-            "scatter_add": fetch_cuda}
+            "scatter_add": fetch_cuda, "gather": fetch_cuda,
+            "shade_a": shade_cuda, "nearest_hit_culled": tracer_module}
 KERNELS = {"nearest_hit": nearest_hit,
            **{name: getattr(mod, name) for name, mod in _MODULES.items()}}
 PLAIN = {"bounce_pre": bounce_pre_plain, "bounce_post": bounce_post_plain,
@@ -79,7 +87,8 @@ PLAIN = {"bounce_pre": bounce_pre_plain, "bounce_post": bounce_post_plain,
          "bounce_post_bwd": bounce_post_bwd_plain,
          "bounce_pre_bwd_slim": bounce_pre_bwd_slim_plain,
          "bounce_post_bwd_slim": bounce_post_bwd_slim_plain,
-         "scatter_add": scatter_add_plain}
+         "scatter_add": scatter_add_plain, "gather": gather_plain,
+         "shade_a": shade_a_plain}
 OUTPUT_FIELDS = ("a_te", "a_tm", "tau", "freq_shift", "directions_rx")
 
 
@@ -167,17 +176,22 @@ def slots_agree(ref, ours, label):
 
 @contextlib.contextmanager
 def recording_fused():
-    """Stands in for the fused and scatter-add wrappers inside the tracer:
-    forwards each call to the wrapper (which counts the launch) and keeps
-    its inputs and the kernel's outputs, ``{name: [(args, out), ...]}``
-    (the scatter-add's as ``((idx, g, T), out)``: its ``out`` is the table
-    it added into)."""
+    """Stands in for the fused, gather, shading, culled-query and
+    scatter-add wrappers inside the tracer: forwards each call to the
+    wrapper (which counts the launch) and keeps its inputs and the kernel's
+    outputs, ``{name: [(args, out), ...]}`` (the scatter-add's as ``((idx,
+    g, T), out)``: its ``out`` is the table it added into; the culled
+    query's as ``((o, d, tris, kw), (t, idx))``)."""
     calls = {name: [] for name in _MODULES}
 
     def recorder(name):
         def call(*args, **kw):
             out = KERNELS[name](*args, **kw)
-            calls[name].append((args, out))
+            if name == "nearest_hit_culled":
+                kw = {k: v for k, v in kw.items() if k != "chunk_size"}
+                calls[name].append((args + (kw,), out))
+            else:
+                calls[name].append((args, out))
             return out
         return call
 
@@ -416,6 +430,58 @@ def hold_scatter_add(idx, g, T, label):
           f"beyond {SUM_RTOL} of their terms' magnitudes")
     return float(err.max()) if err.numel() else 0.0, int(
         ((idx >= 0) & (idx < T)).sum())
+
+
+def hold_gather(args, out, label):
+    """The row gather's output ``out`` against its plain version on its
+    arguments ``args`` ``(table, idx[, col, width])``: the same bits (an
+    exact copy)."""
+    p = gather_plain(*args)
+    check(torch.equal(out, p), f"{label}: gather differs from table[idx] "
+          f"({int((out != p).sum())} values)")
+
+
+def hold_shade(args, k, label):
+    """The shading kernel's ``(o2, d2, st2, ex)`` against its plain version
+    on ``args = (o, d, st, live, row, sc)``: a dead ray keeps its inputs bit
+    for bit (the live-dependent selects), every value within
+    :data:`ROW_RTOL` of its row's (or row group's) largest magnitude.
+    Returns the max abs error and the ulp gaps per output row."""
+    p = shade_a_plain(*args)
+    o, d, st, live = args[:4]
+    dead = ~live
+    check(torch.equal(k[0][dead], o[dead]) and torch.equal(k[1][dead], d[dead])
+          and torch.equal(k[2][:4, dead], st[:4, dead])
+          and torch.equal(k[2][4:, dead], p[2][4:, dead]),
+          f"{label}: a dead ray's state differs")
+    err = max(rows_close(k[0].T, p[0].T, ROW_RTOL, f"{label}: o2",
+                         VEC_GROUPS),
+              rows_close(k[1].T, p[1].T, ROW_RTOL, f"{label}: d2",
+                         VEC_GROUPS),
+              rows_close(k[2], p[2], ROW_RTOL, f"{label}: st2", AMP_GROUPS),
+              rows_close(k[3], p[3], ROW_RTOL, f"{label}: ex"))
+    ulps = {"o2": ulp_gap(k[0], p[0]), "d2": ulp_gap(k[1], p[1]),
+            "st2": [ulp_gap(k[2][j], p[2][j]) for j in range(6)],
+            "ex": [ulp_gap(k[3][j], p[3][j]) for j in range(5)]}
+    return err, ulps
+
+
+def hold_culled(o, d, tris, kw, t, idx, skipped, label):
+    """The culled query's answer ``(t, idx)`` and its count of skipped
+    (block, tile) pairs against :func:`culled_reach_plain` on the same
+    query: the same bits, the same count.  Returns the plain version's reach
+    ``bool[blocks, tiles]``."""
+    lim = query_limits(o.shape[0], CULL_BLOCK_RAYS, t_max=kw.get("t_max"),
+                       live=kw.get("live"), device=o.device)
+    reach, t_p, i_p = culled_reach_plain(o, d, tris, lim,
+                                         exclude=kw.get("exclude"))
+    flips = int((i_p != idx).sum())
+    check(flips == 0 and torch.equal(t_p, t),
+          f"{label}: {flips} flips against the plain culled scan")
+    n_skip = int((~reach).sum())
+    check(n_skip == skipped, f"{label}: {skipped} tiles skipped, the plain "
+          f"version skips {n_skip}")
+    return reach
 
 
 def grad_loss(res):

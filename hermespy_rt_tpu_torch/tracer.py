@@ -24,7 +24,13 @@ per-stage ``bounce_pre`` / ``bounce_post``.
 Scenes of 4096 padded triangles and more (``walk="auto"``) answer every
 query through the visit-list walk (``ops/walk_cuda.py``) instead of the brute
 scan; physical-parity shadow queries then stop each ray at its first blocker
-within range (``shadow_any_hit``).
+within range (``shadow_any_hit``).  Otherwise ``cull`` sends every query
+(LoS, bounce, shadow) to the culled brute kernel, which skips the triangle
+tiles no ray of a block reaches.
+
+On the op path every payload fetch is the row-gather kernel, whose backward
+is the scatter-add kernel (``ops/fetch_cuda.py``), and ``shade="pallas"``
+runs each bounce's reflection half as one kernel (``ops/shade_cuda.py``).
 """
 from __future__ import annotations
 
@@ -37,15 +43,16 @@ import torch
 
 from .config import TracerConfig
 from .ops import bounce_fused_cuda as fused_ops
-from .ops.bounce_fused import FusedSpec
+from .ops.bounce_fused import NORMAL_COL, FusedSpec
 from .ops.fetch_cuda import gather_rows
 from .ops.fresnel import ETA_FIELDS, EtaPrecomputed, precompute_eta
 from .ops.geometry import dot3, fast_acos, fibonacci_sphere
 from .ops.intersect import FLT_EPS, intersect_torch
-from .ops.intersect_cuda import nearest_hit
+from .ops.intersect_cuda import nearest_hit, nearest_hit_culled
 from .ops.scattering import scat_coefs
-from .ops.shade import _CLIP, SPEED_OF_LIGHT, shade_a
-from .ops.walk import prepare_walk
+from .ops.shade import _CLIP, GEOM_COLS, SPEED_OF_LIGHT, shade_a, split_payload
+from .ops.shade_cuda import shade_a_rows
+from .ops.walk import cull_boxes, prepare_walk
 from .ops.walk_cuda import walk_query
 from .scene.model import TriangleSoA, _morton_order
 
@@ -53,7 +60,6 @@ __all__ = ["ChannelInfo", "RaysInfo", "PathsResult", "trace_paths",
            "LocalSceneAccess", "SPEED_OF_LIGHT", "PI"]
 
 PI = float(np.float32(np.pi))
-_GEOM_COLS = 15
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +98,17 @@ class PathsResult:
     los_blocked: Optional[torch.Tensor] = None  # bool[NRx, NTx]
 
 
-def _select_intersect(cfg: TracerConfig):
+def _select_intersect(cfg: TracerConfig, tris: TriangleSoA):
     """The nearest-hit function for ``cfg.backend``: the plain twin for
-    ``"torch"``, else the kernel's wrapper, which alone decides by the rays'
-    device (twin on CPU tensors, kernel or raise on CUDA ones)."""
-    fn = intersect_torch if cfg.backend == "torch" else nearest_hit
+    ``"torch"``, else the kernel's wrapper (the culled kernel's with
+    ``cfg.cull``, on the scene's tile boxes), which alone decides by the
+    rays' device (twin on CPU tensors, kernel or raise on CUDA ones)."""
+    if cfg.backend == "torch":
+        fn = intersect_torch
+    elif cfg.cull:
+        fn = partial(nearest_hit_culled, aabbs=cull_boxes(tris))
+    else:
+        fn = nearest_hit
     return lambda o, d, tris, exclude=None, t_max=None, live=None: fn(
         o, d, tris, chunk_size=cfg.ray_chunk, exclude=exclude, t_max=t_max,
         live=live)
@@ -123,8 +135,9 @@ class LocalSceneAccess:
     def __init__(self, tris: TriangleSoA, cfg: TracerConfig,
                  eta: EtaPrecomputed):
         self.tris = tris
-        self._intersect = _select_intersect(cfg)
         self.walk = prepare_walk(tris) if _walks(cfg, tris) else None
+        self._intersect = (None if self.walk is not None
+                           else _select_intersect(cfg, tris))
         self._grad_geometry = cfg.grad_geometry
         self._eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
                                     dim=-1)                           # [M, 12]
@@ -155,18 +168,26 @@ class LocalSceneAccess:
     def _geo(self, x):
         return x if self._grad_geometry else x.detach()
 
+    def fetch_row(self, idx_safe):
+        """The ``[R, 27]`` payload rows of already-clamped indices, through
+        the row-gather kernel; under ``grad_geometry=False`` its backward
+        sums only the eta columns (the geometry is detached downstream)."""
+        return gather_rows(self._table, idx_safe, grad_cols=(
+            None if self._grad_geometry else (GEOM_COLS, self._table.shape[1])))
+
+    def split_row(self, row) -> Dict[str, object]:
+        """The fetch dict of payload rows: v0/e1/e2/normal/velocity (behind
+        ``detach`` unless ``grad_geometry``) and the eta rows."""
+        hit, eta = split_payload(row, self._geo(row[..., :GEOM_COLS]))
+        return dict(hit, eta=eta)
+
     def fetch(self, idx_safe) -> Dict[str, object]:
-        """Per-hit payload for already-clamped indices (a plain gather)."""
-        row = self._table[idx_safe.long()]
-        geo = self._geo(row)
-        out = dict(v0=geo[..., 0:3], e1=geo[..., 3:6], e2=geo[..., 6:9],
-                   normal=geo[..., 9:12], velocity=geo[..., 12:15])
-        out["eta"] = EtaPrecomputed(**{
-            f: row[..., _GEOM_COLS + i] for i, f in enumerate(ETA_FIELDS)})
-        return out
+        """Per-hit payload for already-clamped indices."""
+        return self.split_row(self.fetch_row(idx_safe))
 
     def normal_at(self, idx_safe):
-        return self._geo(self._table[idx_safe.long(), 9:12])
+        return self._geo(gather_rows(self._table, idx_safe,
+                                     cols=(NORMAL_COL, NORMAL_COL + 3)))
 
 
 def _safe_norm(v):
@@ -272,11 +293,17 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     live = act & (idx >= 0)
     safe = torch.clamp(idx, min=0)
 
-    hit = access.fetch(safe)
+    row = access.fetch_row(safe)
+    hit = access.split_row(row)
     mat_rows = hit["eta"]
+    shade_args = (o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live)
+    if cfg.shade == "pallas":
+        shaded = shade_a_rows(*shade_args, row, fslm, k_dop,
+                              grad_geometry=cfg.grad_geometry)
+    else:
+        shaded = shade_a(*shade_args, hit, mat_rows, fslm, k_dop)
     (o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, theta, cos_t1,
-     ndot, _, _) = shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq,
-                           live, hit, mat_rows, fslm, k_dop)
+     ndot, _, _) = shaded
     n = hit["normal"]
     vel = hit["velocity"]
     s_row, s1_row = mat_rows.s, mat_rows.s1_alpha

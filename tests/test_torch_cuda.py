@@ -19,6 +19,11 @@ table scatter-add (per-ray rows within their tier of the float64 plain
 version, sums across rays within theirs, the same bits in two runs), and
 that path's gradients (materials, positions, frequency, vertices) against
 the op path's.
+The row gather must equal ``table[idx]`` bit for bit; the shading kernel
+its plain version on a trace's recorded calls (a dead ray's state bit for
+bit, the rest within its tier); the culled query the brute twin's decisions
+and its skip count the plain version's; the op path with every kernel
+(``shade="pallas", cull=True``) the op path's gradients.
 The walk's prepass kernel must give the reach and key of its plain version
 bit for bit, and the walk kernel the (t, idx) of its plain version and of
 the brute kernel (in any-hit mode the same `blocked`, each reported hit a
@@ -35,12 +40,14 @@ from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch import TracerConfig, trace_paths
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
-from hermespy_rt_tpu_torch.ops.fetch_cuda import scatter_add
+from hermespy_rt_tpu_torch.ops.fetch_cuda import gather, scatter_add
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch, mt_hit
-from hermespy_rt_tpu_torch.ops.intersect_cuda import nearest_hit
-from hermespy_rt_tpu_torch.ops.walk import (prepare_walk, prepass_plain,
-                                            query_limits, visit_rows,
-                                            walk_plain)
+from hermespy_rt_tpu_torch.ops.intersect_cuda import (nearest_hit,
+                                                      nearest_hit_culled)
+from hermespy_rt_tpu_torch.ops.shade_cuda import shade_a
+from hermespy_rt_tpu_torch.ops.walk import (cull_boxes, prepare_walk,
+                                            prepass_plain, query_limits,
+                                            visit_rows, walk_plain)
 from hermespy_rt_tpu_torch.ops.walk_cuda import walk, walk_prepass, walk_query
 from hermespy_rt_tpu_torch.scene import (HostMesh, HostScene, box_scene,
                                          flatten_scene, random_soup_scene)
@@ -185,10 +192,14 @@ def test_fused_step_matches_op_path(dev):
         launches[shade] = {n: k.launches for n, k in checks.KERNELS.items()}
         grads[shade], scat[shade] = checks.grads_of(mats), res.scatter
     none = {n: 0 for n in checks.KERNELS}
+    # the payload table's eta rows: one row gather
     assert launches["fused"] == {**none, "nearest_hit": 7, "bounce_pre": 3,
-                                 "bounce_post": 3, "loop_bwd_slim": 1}
-    # the op path's table gradient: the eta rows summed per material
-    assert launches["xla"] == {**none, "nearest_hit": 7, "scatter_add": 1}
+                                 "bounce_post": 3, "loop_bwd_slim": 1,
+                                 "gather": 1}
+    # the op path's fetches: the eta rows, per bounce the payload rows and
+    # the occluder normals; the backward sums the first two per table row
+    assert launches["xla"] == {**none, "nearest_hit": 7, "gather": 7,
+                               "scatter_add": 4}
     checks.leaves_close(grads["fused"], grads["xla"], checks.PATH_GRAD_RTOL,
                         checks.LEAF_ATOL, "fused vs op path")
     for f in checks.OUTPUT_FIELDS:
@@ -440,7 +451,8 @@ def test_full_gradient_step_matches_op_path(dev):
     none = {n: 0 for n in checks.KERNELS}
     assert counts["fused"] == {**none, "nearest_hit": 7, "bounce_pre": 3,
                                "bounce_post": 3, "bounce_pre_bwd": 3,
-                               "bounce_post_bwd": 3, "scatter_add": 10}
+                               "bounce_post_bwd": 3, "scatter_add": 10,
+                               "gather": 1}
     checks.leaves_close(grads["fused"], grads["xla"], checks.PATH_GRAD_RTOL,
                         checks.LEAF_ATOL, "fused vs op path")
     assert all(bool(torch.isfinite(g).all()) for g in grads["fused"].values())
@@ -472,3 +484,93 @@ def test_stage_backward_kernels_reject_bad_operands(dev):
         scatter_add(i32(R).long(), f(R, 3), T)
     with pytest.raises(ValueError):
         scatter_add(i32(R), f(R, 3), T, out=f(T, 27), col=25)
+
+
+@pytest.mark.parametrize("T", [256, 131072])
+def test_gather_kernel_equals_plain(dev, T):
+    rng = np.random.default_rng(T)
+    table = torch.as_tensor(rng.normal(size=(T, 27)).astype(np.float32),
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, T, (1 << 16) + 77).astype(
+        np.int32), device=dev)
+    before = gather.launches
+    out = gather(table, idx)
+    torch.cuda.synchronize()
+    assert gather.launches == before + 1
+    checks.hold_gather((table, idx), out, f"T={T}")
+    assert torch.equal(gather(table, idx, 9, 3), table[idx.long(), 9:12])
+    for bad in (dict(table=table.double()), dict(idx=idx.long()),
+                dict(table=table.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            gather(**{"table": table, "idx": idx, **bad})
+    with pytest.raises(ValueError):
+        gather(table, idx, 25, 3)
+
+
+@pytest.mark.parametrize("parity", ["reference", "physical"])
+def test_shade_kernel_equals_plain(dev, parity):
+    tris = _moving_soup(dev)
+    with checks.recording_fused() as calls:
+        _grad_step(dev, tris, 2, 1 << 14, parity, shade="pallas")
+    assert len(calls["shade_a"]) == 3
+    for i, (args, out) in enumerate(calls["shade_a"]):
+        checks.hold_shade(args, out, f"shade_a{i}")
+        assert all(torch.equal(a, b) for a, b in zip(out, shade_a(*args)))
+    with pytest.raises(ValueError):
+        shade_a(*args[:4], args[4][:, :26].contiguous(), args[5])
+
+
+@pytest.mark.parametrize("opt", ["plain", "t_max", "t_max_rays", "live",
+                                 "all"])
+@pytest.mark.parametrize("scene", ["soup", "box"])
+def test_culled_kernel_equals_twin_and_plain(dev, scene, opt):
+    rng = np.random.default_rng(6)
+    host = (random_soup_scene(234, seed=0, extent=90.0, tri_size=8.0)
+            if scene == "soup" else box_scene())
+    tris = flatten_scene(host, sort_triangles=True, device=dev)
+    R = (1 << 16) + 77
+    o, d, kw = _inputs(rng, opt, R, tris.pad_triangles, dev)
+    skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+    before = nearest_hit_culled.launches
+    t_k, i_k = nearest_hit_culled(o, d, tris, cull_boxes(tris),
+                                  skipped=skipped, **kw)
+    torch.cuda.synchronize()
+    assert nearest_hit_culled.launches == before + 1
+    t_t, i_t = intersect_torch(o, d, tris, chunk_size=8192, **kw)
+    assert torch.equal(i_k, i_t) and torch.equal(t_k, t_t)
+    reach = checks.hold_culled(o, d, tris, kw, t_k, i_k, int(skipped),
+                               f"{scene}/{opt}")
+    assert int(skipped) == int((~reach).sum())
+    if scene == "box" and opt != "plain":     # rays of every block reach
+        assert int(skipped) > 0               # every tile of the soup
+
+
+def test_culled_kernel_rejects_bad_operands(dev):
+    tris = flatten_scene(box_scene(), device=dev)
+    o = torch.zeros((8, 3), device=dev)
+    d = torch.ones((8, 3), device=dev)
+    with pytest.raises(ValueError):
+        nearest_hit_culled(o, d, tris, cull_boxes(tris)[:-1])
+    with pytest.raises(ValueError):
+        nearest_hit_culled(o, d, tris, cull_boxes(tris),
+                           skipped=torch.zeros(1, device=dev))
+
+
+@pytest.mark.parametrize("parity", ["reference", "physical"])
+def test_pallas_op_path_matches_op_path(dev, parity):
+    tris = _moving_soup(dev)
+    grads, counts = {}, {}
+    for kw in (dict(), dict(shade="pallas", cull=True)):
+        for kern in checks.KERNELS.values():
+            kern.launches = 0
+        grads[bool(kw)] = _grad_step(dev, tris, 2, 1 << 14, parity, **kw)
+        counts[bool(kw)] = {n: k.launches for n, k in checks.KERNELS.items()}
+    none = {n: 0 for n in checks.KERNELS}
+    n_fetch = 1 + 3 * (1 + (parity == "reference"))
+    common = {"gather": n_fetch, "scatter_add": n_fetch}
+    assert counts[False] == {**none, **common, "nearest_hit": 7}
+    assert counts[True] == {**none, **common, "nearest_hit_culled": 7,
+                            "shade_a": 3}
+    checks.leaves_close(grads[True], grads[False], checks.PATH_GRAD_RTOL,
+                        checks.LEAF_ATOL, "pallas vs xla op path")
+    assert float(grads[True]["v0"].abs().max()) > 0

@@ -265,7 +265,7 @@ def test_300_materials_fused_equals_op_path():
 @pytest.mark.parametrize("kw,match", [
     (dict(shade="fused", unroll_bounces="no"), "unroll_bounces must be"),
     (dict(grad_positions=False, grad_geometry=True), "grad_geometry=False"),
-    (dict(shade="pallas"), "not ported"),
+    (dict(cull="yes"), "cull must be"),
     (dict(shade="bogus"), "shade must be"),
 ])
 def test_config_refuses(kw, match):
