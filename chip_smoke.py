@@ -85,7 +85,9 @@ F. city_loss  -- ``benchmarks/config5_e2e.py``'s loss once through the op
                  path (its fetches the row-gather kernel, their backward the
                  scatter-add): gradients to the materials and the TX
                  position, finite and nonzero; wall, device busy, PyTorch's
-                 indexing backward left; its gathers recorded for K.
+                 indexing backward left; its gathers recorded for K, its
+                 scatter-adds held as in H and the busiest on the sorted
+                 route (the 131,072-row table) timed.
 
 The full-gradient fused path (``trace(shade="fused")`` with the JAX
 defaults ``grad_positions=True, grad_geometry=True``: per-stage backward
@@ -99,8 +101,14 @@ G. grad_step  -- the canyon stand-in at 2^20 paths, B = 3, reference
                  window; at 2^16 paths every gradient against the op path's.
 H. bwd_kernel -- every recorded call of the full backwards and the
                  scatter-add held against its plain version in float64 (tier
-                 and ulp gaps per row), run twice to the same bits; device
-                 time (profiler and CUDA events), plain time, bound.
+                 and ulp gaps per row), run twice to the same bits, each
+                 scatter-add on its dense route (``ops/fetch.py::
+                 scatter_route``) also equal bit for bit to
+                 ``scatter_add_ordered_plain``; device time (profiler and
+                 CUDA events), plain time, bound; the scatter-add's first
+                 and busiest calls with the whole call's device time and
+                 operations and ``index_add_``'s time (on the kept rows, and
+                 on all rows with the dropped ones zeroed).
 I. slim_stages -- ``unroll_bounces=False`` (the slim per-stage backwards) at
                  2^20 paths, nrx = 1: launches, the two slim kernels and the
                  scatter-add held and timed the same way, the material
@@ -129,7 +137,10 @@ K. gather     -- every recorded gather of N (and of F on the city) equal to
                  ``table[idx]`` bit for bit; the first payload fetch (2^20
                  ids, 27 columns) timed against its plain version and
                  ``torch.index_select``, with its bound, on the canyon's
-                 256-row and the city's 131,072-row table.
+                 256-row (staged in shared memory) and the city's
+                 131,072-row table; then every recorded scatter-add of N
+                 held as in H and the busiest (an all-kept 2^20-row
+                 backward of a fetch, dense route) timed as in H.
 L. shade      -- every recorded shading call of N against its plain
                  version: a dead ray's state bit for bit, values within
                  their tier (ulp gaps); the first call timed and bounded.
@@ -297,11 +308,9 @@ def time_pair(run_k, run_p, reps_k=20, reps_p=3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_ms(fn, reps, kernel=None):
-    """Device time in ms per call of ``fn``: the device events' own times
-    (torch.profiler) over ``reps`` calls after one warm-up, only those of
-    ``kernel`` when it is named.  Unlike :func:`time_pair` it leaves out the
-    host's gaps between launches."""
+def device_events(fn, reps):
+    """The device events (torch.profiler's ``key_averages``) of ``reps``
+    calls of ``fn`` after one warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -312,9 +321,27 @@ def device_ms(fn, reps, kernel=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-          and (kernel is None or f"{kernel}_kernel" in e.key)]
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, reps, kernel=None):
+    """Device time in ms per call of ``fn``: the device events' own times
+    (torch.profiler) over ``reps`` calls after one warm-up, only those of
+    ``kernel`` when it is named.  Unlike :func:`time_pair` it leaves out the
+    host's gaps between launches."""
+    ev = [e for e in device_events(fn, reps)
+          if kernel is None or f"{kernel}_kernel" in e.key]
     return sum(_device_ms(e) for e in ev) / reps
+
+
+def call_profile(fn, reps):
+    """A whole call of ``fn`` on the device: its device time in ms, its
+    device operations and their names (every device event of the call)."""
+    ev = device_events(fn, reps)
+    return (sum(_device_ms(e) for e in ev) / reps,
+            sum(e.count for e in ev) / reps,
+            sorted({e.key[:60] for e in ev}))
 
 
 def flips_check():
@@ -1378,7 +1405,7 @@ def phase_city_loss(tris, dev):
         t0 = time.perf_counter()
         loss, g, g_tx = run()
         wall = time.perf_counter() - t0
-    gathers = calls["gather"]
+    gathers, scatters = calls["gather"], calls["scatter_add"]
     del calls
     leaves = torch.cat([v.reshape(-1) for v in g.values()]
                        + [g_tx.reshape(-1)])
@@ -1396,7 +1423,7 @@ def phase_city_loss(tris, dev):
          kernels=prof.get("kernels"),
          indexing_backward_ms=prof.get("indexing_backward_ms"),
          top_device=prof.get("top_device"), gpu=smi())
-    return (g, g_tx), gathers
+    return (g, g_tx), gathers, scatters
 
 
 # --- the full-gradient fused path ------------------------------------------
@@ -1607,9 +1634,11 @@ def hold_recorded(calls, names, label):
         err, kept = hold_scatter_add(idx, g, T, f"{label} scatter_add{i}")
         worst = max(worst, err)
         rows.append(dict(call=i, N=idx.numel(), C=g.shape[1], T=T,
-                         kept=kept, max_abs_err=err))
+                         kept=kept, max_abs_err=err,
+                         route=fetch_cuda.scatter_add.route(
+                             T, g.shape[1], g.device)))
     emit(phase="bwd_kernel", run=label, kernel="scatter_add", calls=rows,
-         same_bits_twice=True)
+         same_bits_twice=True, dense_equals_ordered_plain=True)
     # the first call (the last bounce's post-stage payload rows at the live
     # rays' hits) and the one with the most kept values (rows x columns)
     first = calls["scatter_add"][0][0]
@@ -1623,20 +1652,30 @@ def hold_recorded(calls, names, label):
 
 
 def time_scatter(idx, g, T, label):
-    """:func:`time_kernel` of one scatter-add call, with the whole call's
-    device time (the sort and zeros too) and the library call's."""
+    """:func:`time_kernel` of one scatter-add call (``ms``: its kernels'
+    device time), with its route and the whole call's device time and
+    operations (``call_ms``, ``call_ops``: the zeros of its table, and on
+    the sorted route the sort, too), and the library call's."""
     run_k = lambda: fetch_cuda.scatter_add(idx, g, T)   # noqa: E731
     timing = time_kernel("scatter_add", run_k,
                          lambda: PLAIN["scatter_add"](idx, g, T),
                          *scatter_work(idx, g, T))
-    timing["call_ms"] = device_ms(run_k, 20)
+    timing["route"] = fetch_cuda.scatter_add.route(T, g.shape[1], g.device)
+    (timing["call_ms"], timing["call_ops"],
+     timing["call_device_ops"]) = call_profile(run_k, 20)
     # the one PyTorch call that sums rows per index (atomics: the bits vary
-    # from run to run), on the kept rows, filtered outside the timing
+    # from run to run): on the kept rows, filtered outside the timing; and
+    # on all N rows, the dropped rows' ids and values set to 0 outside the
+    # timing (no host sync, as a caller without the filter would)
     keep = (idx >= 0) & (idx < T)
     idx_k, g_k = idx[keep].long(), g[keep]
+    idx_all = torch.where(keep, idx, 0).long()
+    g_all = torch.where(keep[:, None], g, 0.0)
     out = torch.zeros((T, g.shape[1]), device=g.device)
     timing["library_ms"] = device_ms(
         lambda: out.index_add_(0, idx_k, g_k), 20)
+    timing["library_all_rows_ms"] = device_ms(
+        lambda: out.index_add_(0, idx_all, g_all), 20)
     timing.update(N=idx.numel(), C=g.shape[1], T=T, kept=int(keep.sum()))
     emit(phase="bwd_kernel_time", run=label, kernel="scatter_add", **timing,
          gpu=smi())
@@ -1841,7 +1880,10 @@ def time_gather(table, idx, C, label):
                          *gather_work(table, idx, C))
     timing["library_ms"] = device_ms(
         lambda: torch.index_select(table, 0, idx), 20)
-    timing.update(N=idx.numel(), C=C, T=table.shape[0])
+    plan = fetch_cuda.gather.plan(idx.numel(), table.shape[0], C,
+                                  table.device)
+    timing.update(N=idx.numel(), C=C, T=table.shape[0], staged=plan.staged,
+                  blocks=plan.blocks)
     emit(phase="gather_time", run=label, **timing, gpu=smi())
     return timing
 
@@ -1860,6 +1902,32 @@ def phase_gather(runs, label):
     timing = time_gather(args[0], args[1], 27, label)
     emit(phase="gather", run=label, calls_held=n, bit_equal=True, gpu=smi())
     return timing
+
+
+def phase_scatter(runs, label, route):
+    """Every recorded scatter-add call of ``runs`` (``{run: [(args, out),
+    ...]}``) held as H holds G's (:func:`hold_scatter_add`: the same bits
+    twice, within :data:`SUM_RTOL` of float64, on the dense route the bits
+    of ``scatter_add_ordered_plain``); then, of the calls on ``route``, the
+    one with the most kept values (rows x columns) timed."""
+    rows, worst, on_route = [], 0.0, []
+    for run, calls in runs.items():
+        for i, (args, _) in enumerate(calls):
+            idx, g, T = args
+            err, kept = hold_scatter_add(idx, g, T,
+                                         f"{label} {run} scatter_add{i}")
+            r = fetch_cuda.scatter_add.route(T, g.shape[1], g.device)
+            worst = max(worst, err)
+            rows.append(dict(run=run, call=i, N=idx.numel(), C=g.shape[1],
+                             T=T, kept=kept, route=r, max_abs_err=err))
+            if r == route:
+                on_route.append((kept * g.shape[1], args))
+    check(on_route, f"{label}: no recorded scatter-add on the {route} route")
+    timing = time_scatter(*max(on_route, key=lambda c: c[0])[1],
+                          f"{label} {route}")
+    emit(phase="scatter", run=label, calls=rows, same_bits_twice=True,
+         gpu=smi())
+    return dict(max_abs_err=worst, calls=len(rows), timing=timing)
 
 
 def phase_shade(recorded):
@@ -2015,6 +2083,9 @@ def main():
     op_counts, recorded = phase_pallas_step(tris, dev)
     gather = phase_gather({f"canyon nrx={nrx}": calls["gather"]
                            for nrx, calls in recorded.items()}, "canyon")
+    scatter_op = phase_scatter({f"canyon nrx={nrx}": calls["scatter_add"]
+                                for nrx, calls in recorded.items()}, "N",
+                               "dense")
     shade = phase_shade(recorded)
     culled = phase_culled(recorded, tris)
     del recorded, tris
@@ -2024,9 +2095,10 @@ def main():
     culled["city"] = phase_city_equal(dev)
     fwd_launches = phase_city_forward(city)
     city_counts = phase_city_train(city, dev)
-    f_grads, city_gathers = phase_city_loss(city, dev)
+    f_grads, city_gathers, city_scatters = phase_city_loss(city, dev)
     gather["city"] = phase_gather({"city F": city_gathers}, "city")
-    del city_gathers
+    scatter_city = phase_scatter({"city F": city_scatters}, "F", "sorted")
+    del city_gathers, city_scatters
     city_grad_counts = phase_city_grad(city, dev, f_grads)
 
     t = timing["bounce_2^20"]
@@ -2098,6 +2170,8 @@ def main():
                   "city_grad": city_grad_counts[name]})
         if name == "scatter_add":
             steps["slim_step_nrx1"] = slim_counts[name]
+            steps.update({f"pallas_step_{k}": c[name]
+                          for k, c in op_counts.items()})
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(str(
@@ -2108,13 +2182,22 @@ def main():
             "max_abs_err": max(
                 [slim[name]["max_abs_err"]] if slim_kernel else
                 [b[name]["max_abs_err"] for b in bwd.values()]
-                + ([slim[name]["max_abs_err"]] if name == "scatter_add"
+                + ([slim[name]["max_abs_err"], scatter_op["max_abs_err"],
+                    scatter_city["max_abs_err"]] if name == "scatter_add"
                    else [])),
             "ms": t1["ms"], "plain_ms": t1["plain_ms"],
             "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
             "library_ms": t1.get("library_ms"), "wall_ms": t1["wall_ms"],
             "plain_wall_ms": t1["plain_wall_ms"],
-            **({"busiest": t1["busiest"]} if "busiest" in t1 else {}),
+            **({"busiest": t1["busiest"], "op_path_all_kept":
+                scatter_op["timing"], "city_sorted": scatter_city["timing"],
+                "timed_routes": {
+                    "first": t1["route"], "busiest": t1["busiest"]["route"],
+                    "op_path_all_kept": scatter_op["timing"]["route"],
+                    "city_sorted": scatter_city["timing"]["route"]},
+                "op_and_city_calls_held": scatter_op["calls"]
+                + scatter_city["calls"]}
+               if name == "scatter_add" else {}),
             **({} if slim_kernel else {"nrx4": bwd[4][name]["timing"]})})
     op_steps = {f"pallas_step_{k}": c for k, c in op_counts.items()}
     sources = {"nearest_hit_culled": SOURCE, "gather": fetch_cuda.GATHER_SOURCE,

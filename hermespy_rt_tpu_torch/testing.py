@@ -28,7 +28,8 @@ from .ops.bounce_fused import (GEOM_COLS, TABLE_COLS, bounce_post_bwd_plain,
                                bounce_pre_bwd_plain,
                                bounce_pre_bwd_slim_plain, bounce_pre_plain,
                                loop_bwd_slim_plain)
-from .ops.fetch import gather_plain, scatter_add_plain
+from .ops.fetch import (gather_plain, scatter_add_ordered_plain,
+                        scatter_add_plain)
 from .ops.fresnel import ETA_FIELDS, precompute_eta
 from .ops.intersect_cuda import nearest_hit
 from .ops.shade import shade_a_plain
@@ -65,7 +66,9 @@ VEC_GROUPS = ((0, 1, 2),)                    # a vector's components
 PATH_GRAD_RTOL = 1e-4
 # A sum across rays taken on the card (the RX-position and carrier-scalar
 # cotangents: per-block butterflies, then the blocks; a table row of the
-# scatter-add: ray order in chunks of 128, then the chunks in order)
+# scatter-add: on its dense route each warp's range of rows in row order,
+# then the warps of a block in order, then the blocks in order; on its
+# sorted route ray order in chunks of 128, then the chunks in order)
 # against the plain version's in float64: a sum of f32 terms rounded in
 # sequence is within (number of roundings) 2^-24 of the exact sum, relative
 # to the sum of the terms' magnitudes; below 1e-4 of it up to ~10^5
@@ -418,10 +421,17 @@ def hold_scatter_add(idx, g, T, label):
     """The scatter-add of ``g`` at ``idx`` into ``T`` rows, run twice on
     the card, against its plain version in float64: the same bits twice,
     each table entry within :data:`SUM_RTOL` of the sum of its terms'
-    magnitudes.  Returns the max abs error and the rows summed."""
+    magnitudes; on the dense route also the bits of
+    :func:`~.ops.fetch.scatter_add_ordered_plain` (the same adds in the
+    same grouping).  Returns the max abs error and the rows summed."""
     k = KERNELS["scatter_add"](idx, g, T)
     again = KERNELS["scatter_add"](idx, g, T)
     check(torch.equal(k, again), f"{label}: two runs differ")
+    if KERNELS["scatter_add"].route(T, g.shape[1], g.device) == "dense":
+        ordered = scatter_add_ordered_plain(idx, g, T)
+        check(torch.equal(k, ordered), f"{label}: dense route differs from "
+              f"scatter_add_ordered_plain ({int((k != ordered).sum())} "
+              f"values)")
     p = scatter_add_plain(idx, g.double(), T)
     scale = scatter_add_plain(idx, g.double().abs(), T)
     err = (k.double() - p).abs()

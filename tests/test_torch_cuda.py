@@ -40,6 +40,7 @@ from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch import TracerConfig, trace_paths
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
+from hermespy_rt_tpu_torch.ops.fetch import scatter_add_ordered_plain
 from hermespy_rt_tpu_torch.ops.fetch_cuda import gather, scatter_add
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch, mt_hit
 from hermespy_rt_tpu_torch.ops.intersect_cuda import (nearest_hit,
@@ -436,6 +437,65 @@ def test_scatter_add_kernel_equals_plain(dev, C):
     want = torch.ones((T, 30), device=dev)
     want[:, 30 - C:] += scatter_add(idx, g, T)
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("T,C", [(256, 27), (256, 12), (256, 3), (300, 12)])
+def test_scatter_add_dense_route_equals_ordered_plain(dev, T, C):
+    """The dense route (the canyon's windows, a 300-row material table)
+    adds in the grouping of ``scatter_add_ordered_plain``: the same bits."""
+    rng = np.random.default_rng(T + C)
+    N = (1 << 16) + 77
+    idx = rng.integers(-5, T + 5, N).astype(np.int32)   # drops both ends
+    idx[rng.uniform(size=N) < 0.3] = 17                  # a long run
+    g = torch.as_tensor((rng.normal(size=(N, C)) * 10.0 ** rng.integers(
+        -6, 6, (N, C))).astype(np.float32), device=dev)
+    idx = torch.as_tensor(idx, device=dev)
+    assert scatter_add.route(T, C, dev) == "dense"
+    before = scatter_add.launches
+    k = scatter_add(idx, g, T)
+    torch.cuda.synchronize()
+    assert scatter_add.launches == before + 1
+    assert torch.equal(k, scatter_add_ordered_plain(idx, g, T))
+    checks.hold_scatter_add(idx, g, T, f"dense T={T} C={C}")
+
+
+@pytest.mark.parametrize("T", [256, 131072])
+def test_scatter_add_reads_a_column_window(dev, T):
+    """g as a column window of a wider tensor (read through its leading
+    dimension, both routes) sums as the copied window does."""
+    rng = np.random.default_rng(T)
+    N = (1 << 16) + 77
+    idx = torch.as_tensor(rng.integers(-1, T, N).astype(np.int32),
+                          device=dev)
+    full = torch.as_tensor(rng.normal(size=(N, 40)).astype(np.float32),
+                           device=dev)
+    window = full[:, 13:25]
+    assert not window.is_contiguous()
+    out = torch.ones((T, 27), device=dev)
+    scatter_add(idx, window, T, out=out, col=15)
+    want = torch.ones((T, 27), device=dev)
+    scatter_add(idx, window.contiguous(), T, out=want, col=15)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    with pytest.raises(ValueError):         # rows that are not unit-stride
+        scatter_add(idx, torch.ones((1, 12), device=dev).expand(N, 12), T)
+
+
+def test_gather_kernel_zero_rows_and_tail(dev):
+    """Ids outside ``[0, T)`` give rows of zeros, staged (256 rows) and
+    from L2 (2,000 rows); a tail of 13 rows after one whole group."""
+    rng = np.random.default_rng(5)
+    for T in (256, 2000):
+        table = torch.as_tensor(rng.normal(size=(T, 27)).astype(np.float32),
+                                device=dev)
+        ids = rng.integers(0, T, 45).astype(np.int32)
+        ids[[0, 9, 40]] = [-1, T, -7]
+        idx = torch.as_tensor(ids, device=dev)
+        out = gather(table, idx, 2, 25)
+        torch.cuda.synchronize()
+        bad = torch.as_tensor((ids < 0) | (ids >= T), device=dev)
+        assert not out[bad].any()
+        assert torch.equal(out[~bad], table[idx[~bad].long(), 2:])
 
 
 def test_full_gradient_step_matches_op_path(dev):
