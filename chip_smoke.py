@@ -62,12 +62,17 @@ A. city       -- write, read and flatten the city: triangles, host seconds,
 B. walk       -- record the queries of one 2^20-path forward (nrx = 1) and
                  its launches; per query the prepass kernel against its
                  plain version (reach, key and visit rows equal), the walk
-                 kernel against its plain version on every 16th ray tile
-                 (0 flips) and against the brute kernel on every ray (nearest
-                 mode: every flip an f64 edge/tie case, counted; any-hit
-                 mode: `blocked` equal, each reported hit a valid hit within
-                 its limit); visit-list lengths; device times of prepass,
-                 sort and walk, their plain versions' and their bounds.
+                 kernel against its plain version on every ray (the same
+                 bits; the same bits again in a second run) and against the
+                 brute kernel on every ray (nearest mode: every flip an f64
+                 edge/tie case, counted; any-hit mode: `blocked` equal, each
+                 reported hit a valid hit within its limit); visit-list
+                 lengths, live rays, listed and block-reached fine tiles,
+                 the bound's ray-reached pairs and the contract's pairs
+                 (live rays x block-reached tiles x block_tris) with the
+                 time they bound; device times of prepass, sort and walk,
+                 their plain versions' and their bounds; the walk kernel's
+                 registers and spills from the build.
 C. city_equal -- a 14,336-triangle city at 2^14 paths: walk=True against
                  walk=False and against the culled query (walk=False,
                  cull=True), both parities, nrx = 1 and 4, every output equal
@@ -161,6 +166,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -247,7 +253,6 @@ CITY_RX0 = [30.0, -40.0, 1.5]
 # phase C's smaller city has wider blocks: these stand in its streets
 SMALL_CITY_TX = [[0.0, 120.0, 30.0]]
 SMALL_CITY_RX0 = [10.0, -20.0, 1.5]
-WALK_SAMPLE_EVERY = 16   # every 16th ray tile runs the plain walk
 # The tolerances of the kernels against their plain versions, with their
 # reasons, are in hermespy_rt_tpu_torch/testing.py.
 REPLACES = {"nearest_hit": "hermespy_rt_tpu/ops/intersect_pallas.py:369",
@@ -1007,13 +1012,19 @@ def city_paths(tris, nrx, paths, **kw):
     return los, sc
 
 
-def walk_work(o, d, scene, lim, visits, t, exclude_given):
-    """(bytes, f32 operations) that the walk of one query must move and do
-    on this run's data: 47 operations per (live ray, triangle) pair in the
-    fine tiles that ray's own slab test reaches within min(final t, lim),
-    and one slab test per (live ray, listed fine tile); the rays (o, d,
-    exclude, lim) in and (t, idx) out, the visit entries used, the fine
-    tiles' boxes and the triangles once."""
+def walk_work(o, d, scene, lim, visits, t, exclude_given, block_reached):
+    """What the walk of one query must move and do on this run's data.  The
+    bound (``bytes``, ``ops``): 47 operations per (live ray, triangle) pair
+    in the fine tiles that ray's own slab test reaches within min(final t,
+    lim) (``ray_reached_pairs``), and one slab test per (live ray, listed
+    fine tile) (``listed_pairs``); the rays (o, d, exclude, lim) in and (t,
+    idx) out, the visit entries used, the fine tiles' boxes and the
+    triangles once.  The contract's work: every live ray of a ray tile
+    evaluates every fine tile that any ray of the tile reaches
+    (``block_reached``, bool[nRT, nT], from the plain walk), so
+    ``contract_pairs`` = sum over ray tiles of live rays x block-reached
+    tiles x block_tris, and ``contract_ops`` those pairs at 47 operations
+    plus the same slab tests."""
     br, g, bt = scene.block_rays, scene.group, scene.block_tris
     n_rt = visits.shape[0]
     R = o.shape[0]
@@ -1051,11 +1062,35 @@ def walk_work(o, d, scene, lim, visits, t, exclude_given):
                & on[:, None, :] & live[a:b, :, None])
         reached += int(hit.sum())
         listed += int((on[:, None, :] & live[a:b, :, None]).sum())
-    n_ops = NEAREST_HIT_OPS_PER_PAIR * bt * reached + SLAB_OPS * listed
+    contract = bt * int((live.sum(dim=1) * block_reached.sum(dim=1)).sum())
     n_bytes = (R * (24 + 4 + (4 if exclude_given else 0)) + R * 8
                + 4 * int((counts + 1).sum()) + nbytes(scene.aabbs)
                + nbytes(scene.v0, scene.e1, scene.e2))
-    return n_bytes, n_ops
+    return dict(bytes=n_bytes,
+                ops=(NEAREST_HIT_OPS_PER_PAIR * bt * reached
+                     + SLAB_OPS * listed),
+                ray_reached_pairs=bt * reached, listed_pairs=listed,
+                contract_pairs=contract,
+                contract_ops=NEAREST_HIT_OPS_PER_PAIR * contract
+                + SLAB_OPS * listed)
+
+
+def kernel_ptxas(name):
+    """Registers, spills and shared memory of the kernel ``name`` from the
+    build's ``-Xptxas -v`` lines (None when this process did not build)."""
+    out, lines = None, LIBRARY.build_log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and f"{name}E" in ln:
+            out = {}
+            for nxt in lines[i + 1:i + 5]:
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("smem_bytes", r"(\d+) bytes smem")):
+                    m = re.search(pat, nxt)
+                    if m:
+                        out[key] = int(m.group(1))
+    return out
 
 
 def phase_walk(tris, dev):
@@ -1096,26 +1131,28 @@ def phase_walk(tris, dev):
               f"{label}: visit rows differ")
         t_w, i_w = walk_cuda.walk(o, d, lim, scene, visits, exclude=ex,
                                   any_hit=any_hit)
-        check(torch.equal(t_w, t_k) and torch.equal(i_w, i_k),
+        check(torch.equal(t_w.view(torch.int32), t_k.view(torch.int32))
+              and torch.equal(i_w, i_k),
               f"{label}: the walk is not deterministic")
-        # the plain walk on every 16th ray tile
-        tiles = torch.arange(0, visits.shape[0], WALK_SAMPLE_EVERY,
-                             device=dev)
-        rays = (tiles[:, None] * scene.block_rays
-                + torch.arange(scene.block_rays, device=dev)).reshape(-1)
-        rays = rays[rays < R]
-        t_p, i_p = walk_plain(
-            o[rays], d[rays], scene, visits[tiles],
-            lim.reshape(-1, scene.block_rays)[tiles].reshape(-1),
-            exclude=None if ex is None else ex[rays], any_hit=any_hit)
-        plain_flips = int((i_p != i_k[rays]).sum())
-        fin = torch.isfinite(t_p) & (i_p == i_k[rays])
-        walk_err = (float((t_p[fin] - t_k[rays][fin]).abs().max())
+        # the plain walk on every ray, with the fine tiles each ray tile
+        # reached
+        block_reached = torch.zeros((visits.shape[0], scene.n_tiles),
+                                    dtype=torch.bool, device=dev)
+        t0 = time.perf_counter()
+        t_p, i_p = walk_plain(o, d, scene, visits, lim, exclude=ex,
+                              any_hit=any_hit, tile_chunk=1024,
+                              reach_out=block_reached)
+        torch.cuda.synchronize()
+        walk_plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_flips = int((i_p != i_k).sum())
+        fin = torch.isfinite(t_p) & (i_p == i_k)
+        walk_err = (float((t_p[fin] - t_k[fin]).abs().max())
                     if fin.any() else 0.0)
         totals["walk_max_abs_err"] = max(totals["walk_max_abs_err"], walk_err)
         totals["prepass_key_max_abs_err"] = max(
             totals["prepass_key_max_abs_err"], key_err)
-        check(plain_flips == 0 and torch.equal(t_p, t_k[rays]),
+        check(plain_flips == 0 and torch.equal(t_p.view(torch.int32),
+                                               t_k.view(torch.int32)),
               f"{label}: {plain_flips} flips against the plain walk")
         # the brute kernel on every ray
         t_b, i_b = nearest_hit(o, d, tris, exclude=ex, t_max=t_max,
@@ -1148,12 +1185,24 @@ def phase_walk(tris, dev):
         totals["brute_flips"] += brute_flips
         counts = visits[:, 0].float()
         n_live = int((lim >= 0).sum())
+        work = walk_work(o, d, scene, lim, visits, t_k, ex is not None,
+                         block_reached)
         row = dict(rays=R, live=n_live, any_hit=any_hit,
                    hits=int((i_k >= 0).sum()), brute_flips=brute_flips,
-                   plain_flips=plain_flips, sampled_rays=int(rays.numel()),
+                   plain_flips=plain_flips, plain_rays=R,
                    visit_mean=float(counts.mean()),
                    visit_max=int(counts.max()), boxes=scene.n_boxes,
-                   group=scene.group)
+                   group=scene.group,
+                   listed_tiles=int(counts.sum()) * scene.group,
+                   block_reached_tiles=int(block_reached.sum()),
+                   ray_reached_pairs=work["ray_reached_pairs"],
+                   contract_pairs=work["contract_pairs"],
+                   contract_pair_ms=NEAREST_HIT_OPS_PER_PAIR
+                   * work["contract_pairs"] / F32_OPS_PER_S * 1e3,
+                   walk_bound=bound(work["bytes"], work["ops"]),
+                   contract_bound=bound(work["bytes"], work["contract_ops"]),
+                   walk_bytes=work["bytes"], walk_ops=work["ops"],
+                   walk_plain_ms=walk_plain_ms)
         # every query's prepass and walk device time: later bounces start
         # from scattered hit points, so their ray tiles are less coherent
         row["prepass_ms"] = device_ms(
@@ -1171,13 +1220,6 @@ def phase_walk(tris, dev):
                 o, d, lim, scene, visits, exclude=ex, any_hit=any_hit)
             pre_bytes = nbytes(o, d, lim, scene.boxes, reach, key)
             pre_ops = PREPASS_OPS_PER_PAIR * n_live * scene.n_boxes
-            w_bytes, w_ops = walk_work(o, d, scene, lim, visits, t_k,
-                                       ex is not None)
-            t0 = time.perf_counter()
-            walk_plain(o, d, scene, visits, lim, exclude=ex, any_hit=any_hit,
-                       tile_chunk=1024)
-            torch.cuda.synchronize()
-            walk_plain_s = time.perf_counter() - t0
             row.update(
                 prepass_ms=device_ms(run_pre, 20, "walk_prepass"),
                 prepass_plain_ms=device_ms(
@@ -1185,21 +1227,27 @@ def phase_walk(tris, dev):
                                           scene.block_rays), 2),
                 sort_ms=device_ms(run_sort, 20),
                 walk_ms=device_ms(run_walk, 20, "walk"),
-                walk_plain_ms=walk_plain_s * 1e3,
+                # the whole call: the kernel and the sort of its block order
+                walk_call_ms=device_ms(run_walk, 20),
                 # CUDA events: the profiler reported no device time for
                 # these 0.1-1 s launches
                 brute_ms=cuda_ms(lambda: nearest_hit(
                     o, d, tris, exclude=ex, t_max=t_max, live=live), 1),
                 prepass_bound=bound(pre_bytes, pre_ops),
-                walk_bound=bound(w_bytes, w_ops), walk_bytes=w_bytes,
-                walk_ops=w_ops, prepass_bytes=pre_bytes, prepass_ops=pre_ops)
+                prepass_bytes=pre_bytes, prepass_ops=pre_ops)
             if any_hit:     # what the early exit saves on this query
                 row["walk_nearest_mode_ms"] = device_ms(
                     lambda: walk_cuda.walk(o, d, lim, scene, visits,
                                            exclude=ex), 20, "walk")
             timing[name] = row
         emit(phase="walk", query=qi, **row, gpu=smi())
-    emit(phase="walk_summary", launches_per_forward=launches, **totals)
+        timing.setdefault("queries", []).append({k: row[k] for k in (
+            "rays", "live", "any_hit", "walk_ms", "walk_bound",
+            "contract_bound", "listed_tiles", "block_reached_tiles",
+            "ray_reached_pairs", "contract_pairs")})
+    timing["ptxas"] = kernel_ptxas("walk_kernel")
+    emit(phase="walk_summary", launches_per_forward=launches, **totals,
+         walk_kernel_ptxas=timing["ptxas"])
     timing["errors"] = totals
     return launches, timing
 
@@ -2157,7 +2205,12 @@ def main():
             "shadow_bound_ms": sh[f"{key}_bound"][0],
             "sort_ms": b["sort_ms"], "brute_ms": b["brute_ms"],
             "brute_flips": b["brute_flips"] + sh["brute_flips"],
-            "triangles": city.num_triangles})
+            "triangles": city.num_triangles,
+            **({} if name == "walk_prepass" else {
+                "call_ms": b["walk_call_ms"],
+                "contract_bound_ms": b["contract_bound"][0],
+                "queries": walk_timing["queries"],
+                "ptxas": walk_timing["ptxas"]})})
     check(not FAILURES, f"{len(FAILURES)} kernel calls beyond their tier: "
           f"{FAILURES}")
     for name in ("bounce_pre_bwd", "bounce_post_bwd", "scatter_add",

@@ -23,22 +23,70 @@
 // walk_kernel replaces ::_kernel_walk_res (triangles resident in VMEM) and
 // ::_kernel_walk (triangle tiles streamed from HBM by DMA), which differ only
 // in where the TPU keeps the triangles; here they come from device memory
-// through L2, so one kernel covers both.  One block per ray tile, one thread
-// per ray.  The block walks its visit row: for each listed coarse box, each
-// member fine tile of `group`; every ray slab-tests the tile's exact AABB
-// within limit = min(best t, lim) (in any-hit mode -1 once it has a hit);
-// when any ray of the block reaches the tile (__syncthreads_or, as the TPU
-// kernel's pl.when(any(reach))) the block stages the tile's (v0, e1, e2) in
-// shared memory (block_tris <= 256; 4.6 KB at 128) and every ray evaluates
-// every triangle with the Möller–Trumbore step of mt.cuh, t <= lim inside
-// the test, and the (t, idx) lexicographic minimum as the update, so ties go
-// to the lower index whatever the visit order.  In any-hit mode the block
-// stops when none of its rays is still searching.  Output idx = -1 where t
-// is +inf.
-// What bounds it: f32 work, 47 operations per (live ray, triangle) pair in
-// the tiles the walk must evaluate, plus the slab tests; the triangles are
-// read from L2 once per evaluating block.  A simple kernel: no cp.async/TMA
-// double buffering of tiles and no per-ray BVH (later speed work).
+// through L2, so one kernel covers both.  One block of 256 threads per ray
+// tile of 256 rays walks the tile's visit row: for each listed coarse box,
+// each member fine tile of `group`; every live ray slab-tests the tile's
+// exact AABB within limit = min(best t, lim) (in any-hit mode -1 once it has
+// a hit); when any ray of the tile reaches it (__syncthreads_or, as the TPU
+// kernel's pl.when(any(reach))) the block evaluates every triangle of the
+// tile for every live ray with mt.cuh's Möller–Trumbore step (point 4),
+// t <= lim inside the test, and the (t, idx) lexicographic minimum as the
+// update, so ties go to the lower index whatever the visit order.  In
+// any-hit mode the block stops after a box once no live ray is still without
+// a hit.  Output idx = -1 where t is +inf.
+//
+// What bounds it: f32 work, 47 operations per (live ray, triangle) pair of
+// the fine tiles its block reaches (the contract makes every live ray of
+// the tile evaluate a tile that any of them reaches), plus one slab test
+// per (live ray, listed tile); the triangles, 131,072 x 48 bytes for the
+// config-5 city, stay in the 50 MB L2.  The design, and why each part
+// gives the bits of the plain version (ops/walk.py::walk_plain):
+//
+// 1. Only live rays evaluate.  The block packs its live rays (lim >= 0; the
+//    padding rays of the last tile have lim = -1) by ballot and prefix count
+//    into shared memory, once: lim does not change during the walk, so the
+//    live set of every reached tile is this one.  A dead ray can never
+//    update: an accepted t needs t > eps > 0 > lim.  Its slab test is never
+//    true either (limit <= lim < 0), so skipping it changes no decision.
+// 2. A reached tile's pairs are dealt over the whole block.  Live rays go in
+//    groups of Lw (32, or the next power of two >= L below 32) to the lanes
+//    of a warp, 32 / Lw lanes per ray taking every (32 / Lw)-th triangle;
+//    the tile's triangles are cut into n = 8 / gcd(G, 8) slices for the G
+//    groups, so the G x n (group, slice) tasks are a multiple of the 8 warps
+//    and every warp takes as many.  With 256 live rays that is one ray a
+//    thread over the whole tile, as in the brute kernel; one ray (the LoS
+//    query) spreads its tile over 128 threads.  Each lane keeps the least
+//    (t, idx) of its triangles (ascending index, strict <), and a lane with
+//    a hit folds it into its ray's best with a 64-bit atomicMin on
+//    (float bits of t) << 32 | idx in shared memory.  An accepted t is
+//    positive and finite, so its bits order as unsigned integers, and the
+//    index in the low word breaks ties to the lower index: the packed
+//    minimum is the lexicographic one.  A minimum does not depend on the
+//    order of its terms, so the bits are the same in every run and equal
+//    the plain version's, which takes the same minimum tile by tile.
+// 3. The tiles are staged ahead.  prepare_walk keeps each triangle as one
+//    48-byte record (v0, 0 | e1, 0 | e2, 0; ops/walk.py::triangle_records),
+//    so a fine tile is one contiguous run of block_tris x 48 bytes, read by
+//    three 16-byte shared-memory loads a pair.  A ring of kStages buffers in
+//    dynamic shared memory holds the next listed tiles: one thread copies
+//    each with one bulk copy (cp.async.bulk), completed on an mbarrier of
+//    its buffer, kStages - 1 listed tiles ahead of the walk, whether or not
+//    they will be reached.  The reach test of a tile still runs after the
+//    previous tile's evaluation, on the updated best; a tile not reached is
+//    never read, and its buffer is refilled once its copy has landed.  The
+//    block drains its copies before it exits.
+// 4. A pair stops at its first failed test.  mt_valid is mt.cuh::mt_hit's
+//    Möller–Trumbore step with the same operations in the same order (so
+//    the same roundings under -fmad=false), returning as soon as det or u,
+//    then v, fails its test: valid is the AND of the tests, so what is
+//    skipped cannot make the pair valid.  A warp skips the rest of a pair
+//    when all its lanes have failed, which coherent rays mostly do together.
+//    The division stays.  The slab test is slab.cuh's, as in the prepass.
+// 5. Long rows start first.  Block b walks ray tile order[b], the ray tiles
+//    by visit-row length, longest first (ops/walk_cuda.py sorts them on the
+//    card), so that no long row is left running alone at the end.  Each
+//    ray tile is still walked whole by one block: the order of the blocks
+//    changes no bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -96,78 +144,252 @@ __global__ void __launch_bounds__(kBoxes) walk_prepass_kernel(
   key[out] = k_min;
 }
 
+// One triangle of a staged tile: (v0, 0) (e1, 0) (e2, 0).
+constexpr int kRecord = 3;       // float4s a triangle
+constexpr int kStages = 4;       // fine tiles in flight: the ring of buffers
+constexpr int kWarps = kRays / 32;
+constexpr unsigned long long kNoHitKey =
+    (static_cast<unsigned long long>(0x7f800000u) << 32) | kNoHit;
+
+static_assert(kRays % 32 == 0 && kWarps == 8,
+              "the slices of a tile are dealt over 8 warps");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(1u)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with the given parity has completed.
+__device__ __forceinline__ void barrier_wait(unsigned long long* bar,
+                                             unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing a phase of `bar`.
+__device__ __forceinline__ void tile_copy(float4* dst, const float4* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float hit_t(unsigned long long key) {
+  return __uint_as_float(static_cast<unsigned>(key >> 32));
+}
+
+// The Möller–Trumbore step of mt.cuh::mt_hit, the same operations in the
+// same order, cut at its tests: `valid` is the AND of the tests, so once
+// det or u fails (or then v), the rest cannot make the pair valid and is
+// not computed; a warp skips it when all its lanes have failed.  Returns
+// valid and sets t where valid.
+__device__ __forceinline__ bool mt_valid(
+    float ox, float oy, float oz, float dx, float dy, float dz, float v0x,
+    float v0y, float v0z, float e1x, float e1y, float e1z, float e2x,
+    float e2y, float e2z, float& t) {
+  using hrt::kEps;
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  const float u = (sx * px + sy * py + sz * pz) * inv_det;
+  if (!(fabsf(det) >= kEps && u >= -kEps && u <= 1.0f + kEps)) return false;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+  if (!(v >= -kEps && u + v <= 1.0f + kEps)) return false;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return t > kEps && t < hrt::kTMax;
+}
+
 __global__ void __launch_bounds__(kRays) walk_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ lim, const int* __restrict__ exclude, int R,
-    const float* __restrict__ v0, const float* __restrict__ e1,
-    const float* __restrict__ e2, const float* __restrict__ aabbs,
+    const float4* __restrict__ records, const float* __restrict__ aabbs,
     const int* __restrict__ visits, int stride, int group, int block_tris,
-    int any_hit, float* __restrict__ t_out, int* __restrict__ idx_out) {
-  // component-major tile: rows 0-2 v0, 3-5 e1, 6-8 e2
-  __shared__ float tri[9][kMaxTile];
+    int any_hit, const long long* __restrict__ order,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  extern __shared__ __align__(128) float4 s_tiles[];  // kStages tiles
+  __shared__ float4 s_ray[kRays][2];   // live rays: (o, lim) (d, exclude)
+  __shared__ unsigned long long s_best[kRays];   // packed (t, idx)
+  __shared__ unsigned long long s_bar[kStages];
+  __shared__ int s_count[kWarps];
 
-  const int r = blockIdx.x * kRays + threadIdx.x;
-  const bool in_range = r < R;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ray_tile = static_cast<int>(order[blockIdx.x]);
+  const int r = ray_tile * kRays + tid;
+  const float l = lim[r];             // padded: -1 for out-of-range rays
+  const bool live = r < R && l >= 0.0f;
+  if (tid == 0) {
+    for (int b = 0; b < kStages; ++b) barrier_init(&s_bar[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) s_count[warp] = __popc(ballot);
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  int ex = -1;
-  if (in_range) {
+  if (live) {
     ox = o[3 * r]; oy = o[3 * r + 1]; oz = o[3 * r + 2];
     dx = d[3 * r]; dy = d[3 * r + 1]; dz = d[3 * r + 2];
-    if (exclude != nullptr) ex = exclude[r];
   }
   const float ix = inverse(dx), iy = inverse(dy), iz = inverse(dz);
-  const float l = lim[r];          // padded: -1 for out-of-range rays
-  float best_t = CUDART_INF_F;
-  int best_i = kNoHit;
+  __syncthreads();
+  int pos = __popc(ballot & ((1u << lane) - 1u)), L = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = s_count[w];
+    if (w < warp) pos += c;
+    L += c;
+  }
+  if (live) {
+    const int ex = exclude != nullptr ? exclude[r] : -1;
+    s_ray[pos][0] = make_float4(ox, oy, oz, l);
+    s_ray[pos][1] = make_float4(dx, dy, dz, __int_as_float(ex));
+    s_best[pos] = kNoHitKey;
+  }
 
-  const int* row = visits + static_cast<size_t>(blockIdx.x) * stride;
-  const int n = row[0];
-  for (int e = 0; e < n; ++e) {
-    const int box = row[1 + e];
-    for (int m = 0; m < group; ++m) {
-      const int j = box * group + m;
+  const int* row = visits + static_cast<size_t>(ray_tile) * stride;
+  const int n_tiles = L > 0 ? row[0] * group : 0;   // listed fine tiles
+  const int tile_floats = block_tris * kRecord;     // float4s a tile
+  const unsigned tile_bytes = static_cast<unsigned>(tile_floats) * 16u;
+  // fine tile of the s-th listed step
+  auto fine = [&](int s) { return row[1 + s / group] * group + s % group; };
+  // the copies: buffer s % kStages holds listed tile s; bit b of `pending`
+  // marks a copy into buffer b not yet waited for, bit b of `parity` the
+  // parity of its phase (the same in every thread: every decision below is
+  // the block's)
+  unsigned pending = 0, parity = 0;
+  for (int s = 0; s < n_tiles && s < kStages - 1; ++s) {
+    if (tid == 0)
+      tile_copy(s_tiles + s * tile_floats,
+                records + static_cast<size_t>(fine(s)) * tile_floats,
+                tile_bytes, &s_bar[s]);
+    pending |= 1u << s;
+  }
+  __syncthreads();
+
+  // the deal of a reached tile's (live ray, triangle) pairs (point 2)
+  const int Lw = L >= 32 ? 32 : (L <= 1 ? 1 : 1 << (32 - __clz(L - 1)));
+  const int per_ray = 32 / Lw;                  // lanes a ray
+  const int groups = (L + Lw - 1) / Lw;
+  const int slices = L > 0 ? kWarps >> min(__ffs(groups) - 1, 3) : 1;
+  const int tasks = groups * slices;
+  const int qi = lane & (Lw - 1), sub = lane / Lw;
+
+  int j = n_tiles > 0 ? fine(0) : 0;
+  for (int s = 0; s < n_tiles; ++s) {
+    const int j_next = s + 1 < n_tiles ? fine(s + 1) : j;
+    // refill: listed tile s + kStages - 1 into the buffer of tile s - 1,
+    // which every thread has finished reading (the barriers of step s - 1)
+    const int ahead = s + kStages - 1;
+    if (ahead < n_tiles) {
+      const unsigned b = ahead % kStages, bit = 1u << b;
+      if (tid == 0) {
+        if (pending & bit) barrier_wait(&s_bar[b], (parity & bit) != 0);
+        tile_copy(s_tiles + b * tile_floats,
+                  records + static_cast<size_t>(fine(ahead)) * tile_floats,
+                  tile_bytes, &s_bar[b]);
+      }
+      if (pending & bit) parity ^= bit;
+      pending |= bit;
+    }
+    bool reach = false;
+    if (live) {
+      const float best_t = hit_t(s_best[pos]);
       float limit = fminf(best_t, l);
       if (any_hit && best_t < CUDART_INF_F) limit = -1.0f;
       float t_near, t_far;
       slab(ox, oy, oz, ix, iy, iz, aabbs + 6 * j, t_near, t_far);
-      // also the barrier after the previous tile's evaluation
-      if (!__syncthreads_or(reaches(t_near, t_far, limit))) continue;
+      reach = reaches(t_near, t_far, limit);
+    }
+    if (__syncthreads_or(reach)) {
+      const unsigned b = s % kStages, bit = 1u << b;
+      barrier_wait(&s_bar[b], (parity & bit) != 0);
+      parity ^= bit;
+      pending &= ~bit;
+      const float4* tile = s_tiles + b * tile_floats;
       const int base = j * block_tris;
-      for (int k = threadIdx.x; k < block_tris; k += kRays) {
-        const size_t g = 3 * static_cast<size_t>(base + k);
-        tri[0][k] = v0[g]; tri[1][k] = v0[g + 1]; tri[2][k] = v0[g + 2];
-        tri[3][k] = e1[g]; tri[4][k] = e1[g + 1]; tri[5][k] = e1[g + 2];
-        tri[6][k] = e2[g]; tri[7][k] = e2[g + 1]; tri[8][k] = e2[g + 2];
+      for (int task = warp; task < tasks; task += kWarps) {
+        const int g = task / slices, slice = task - g * slices;
+        const int q = g * Lw + qi;
+        if (q >= L) continue;
+        const float4 ro = s_ray[q][0], rd = s_ray[q][1];
+        const int ex = __float_as_int(rd.w);
+        const int k_end = (slice + 1) * block_tris / slices;
+        float best = CUDART_INF_F;
+        int best_k = 0;
+        for (int k = slice * block_tris / slices + sub; k < k_end;
+             k += per_ray) {
+          const float4 p = tile[kRecord * k], e = tile[kRecord * k + 1],
+                       f = tile[kRecord * k + 2];
+          float t;
+          if (mt_valid(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, p.x, p.y, p.z,
+                       e.x, e.y, e.z, f.x, f.y, f.z, t) &&
+              base + k != ex && t <= ro.w && t < best) {
+            best = t;
+            best_k = k;
+          }
+        }
+        if (best < CUDART_INF_F)
+          atomicMin(&s_best[q],
+                    (static_cast<unsigned long long>(__float_as_uint(best))
+                     << 32) | static_cast<unsigned>(base + best_k));
       }
       __syncthreads();
-      for (int k = 0; k < block_tris; ++k) {
-        bool valid;
-        const float t = hrt::mt_hit(ox, oy, oz, dx, dy, dz, tri[0][k],
-                                    tri[1][k], tri[2][k], tri[3][k],
-                                    tri[4][k], tri[5][k], tri[6][k],
-                                    tri[7][k], tri[8][k], valid);
-        const int g = base + k;
-        if (valid && g != ex && t <= l &&
-            (t < best_t || (t == best_t && g < best_i))) {
-          best_t = t;
-          best_i = g;
-        }
-      }
     }
-    if (any_hit &&
-        !__syncthreads_or(l >= 0.0f && !(best_t < CUDART_INF_F)))
-      break;   // no ray of the block still searching
+    if (any_hit && s % group == group - 1 &&
+        !__syncthreads_or(live && !(hit_t(s_best[pos]) < CUDART_INF_F)))
+      break;   // no live ray of the block still searching
+    j = j_next;
   }
-  if (in_range) {
-    t_out[r] = best_t;
-    idx_out[r] = best_t < CUDART_INF_F ? best_i : -1;
+  // no copy may land in shared memory after the block has left it
+  if (tid == 0)
+    for (int b = 0; b < kStages; ++b)
+      if (pending >> b & 1u) barrier_wait(&s_bar[b], parity >> b & 1u);
+  if (r < R) {
+    float t = CUDART_INF_F;
+    int idx = -1;
+    if (live) {
+      const unsigned long long key = s_best[pos];
+      t = hit_t(key);
+      if (t < CUDART_INF_F) idx = static_cast<int>(key & 0xffffffffu);
+    }
+    t_out[r] = t;
+    idx_out[r] = idx;
   }
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  Pointers are device pointers; `lim` has
-// n_tiles * 256 entries (-1 past R), exclude may be null.  Each launches on
+// n_tiles * 256 entries (-1 past R), exclude may be null; the walk's
+// `records` are f32[n_fine_tiles * block_tris, 12], 16-byte aligned, and
+// `order` a permutation of the n_tiles ray tiles.  Each launches on
 // `stream` and returns cudaGetLastError() of the launch.
 extern "C" int hrt_walk_prepass(const float* o, const float* d,
                                 const float* lim, int R, int n_tiles,
@@ -183,14 +405,24 @@ extern "C" int hrt_walk_prepass(const float* o, const float* d,
 
 extern "C" int hrt_walk(const float* o, const float* d, const float* lim,
                         const int* exclude, int R, int n_tiles,
-                        const float* v0, const float* e1, const float* e2,
-                        const float* aabbs, const int* visits, int stride,
-                        int group, int block_tris, int any_hit, float* t_out,
-                        int* idx_out, void* stream) {
+                        const float* records, const float* aabbs,
+                        const int* visits, int stride, int group,
+                        int block_tris, int any_hit, const long long* order,
+                        float* t_out, int* idx_out, void* stream) {
   if (n_tiles <= 0) return 0;
   if (block_tris <= 0 || block_tris > kMaxTile) return cudaErrorInvalidValue;
-  walk_kernel<<<n_tiles, kRays, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, lim, exclude, R, v0, e1, e2, aabbs, visits, stride, group,
-      block_tris, any_hit, t_out, idx_out);
+  if (reinterpret_cast<size_t>(records) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const size_t smem =
+      static_cast<size_t>(kStages) * block_tris * kRecord * sizeof(float4);
+  // the largest ring (48 KB at block_tris 256) with the static arrays is
+  // above the 48 KB a block gets without asking
+  const cudaError_t err = cudaFuncSetAttribute(
+      walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kStages * kMaxTile * kRecord * sizeof(float4)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  walk_kernel<<<n_tiles, kRays, smem, static_cast<cudaStream_t>(stream)>>>(
+      o, d, lim, exclude, R, reinterpret_cast<const float4*>(records), aabbs,
+      visits, stride, group, block_tris, any_hit, order, t_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

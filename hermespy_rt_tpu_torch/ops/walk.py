@@ -53,6 +53,7 @@ from .intersect import T_MAX, mt_hit
 __all__ = ["WALK_BLOCK_RAYS", "WALK_BLOCK_TRIS", "MAX_BOXES",
            "CULL_BLOCK_RAYS", "CULL_BLOCK_TRIS", "SceneWalk", "prepare_walk",
            "walk_group", "tile_aabbs", "coarse_boxes", "cull_boxes",
+           "triangle_records",
            "query_limits", "prepass_plain", "visit_rows", "walk_plain",
            "culled_reach_plain"]
 
@@ -87,12 +88,15 @@ def walk_group(n_tiles: int, max_boxes: int = MAX_BOXES) -> int:
 @dataclasses.dataclass(frozen=True)
 class SceneWalk:
     """A scene cut for the walk, on one device: the triangles padded with
-    zeros to whole groups of fine tiles, the fine tiles' AABBs
+    zeros to whole groups of fine tiles, as ``v0``, ``e1``, ``e2``
+    ``f32[T, 3]`` (the plain version's) and as the kernel's 48-byte records
+    ``f32[T, 12]`` (:func:`triangle_records`), the fine tiles' AABBs
     ``f32[nT, 6]`` (lo xyz, hi xyz) and the coarse boxes ``f32[C, 6]``."""
 
     v0: torch.Tensor
     e1: torch.Tensor
     e2: torch.Tensor
+    records: torch.Tensor
     aabbs: torch.Tensor
     boxes: torch.Tensor
     block_rays: int
@@ -143,6 +147,15 @@ def cull_boxes(tris) -> torch.Tensor:
     return tile_aabbs(tris, CULL_BLOCK_TRIS, t_pad).contiguous()
 
 
+def triangle_records(v0: torch.Tensor, e1: torch.Tensor,
+                     e2: torch.Tensor) -> torch.Tensor:
+    """One 48-byte record per triangle, ``f32[T, 12]``: ``(v0, 0, e1, 0,
+    e2, 0)``, so that the walk kernel stages a fine tile as one contiguous
+    run and reads a triangle as three 16-byte loads."""
+    pad = v0.new_zeros((v0.shape[0], 1))
+    return torch.cat([v0, pad, e1, pad, e2, pad], dim=1).contiguous()
+
+
 def prepare_walk(tris, block_rays: int = WALK_BLOCK_RAYS,
                  block_tris: int = WALK_BLOCK_TRIS,
                  group: Optional[int] = None) -> SceneWalk:
@@ -162,8 +175,9 @@ def prepare_walk(tris, block_rays: int = WALK_BLOCK_RAYS,
                 torch.cat([x, x.new_zeros((t_pad - T, 3))])).contiguous()
 
     aabbs = tile_aabbs(tris, block_tris, t_pad).contiguous()
-    return SceneWalk(v0=pad(tris.v0), e1=pad(tris.e1), e2=pad(tris.e2),
-                     aabbs=aabbs,
+    v0, e1, e2 = pad(tris.v0), pad(tris.e1), pad(tris.e2)
+    return SceneWalk(v0=v0, e1=e1, e2=e2,
+                     records=triangle_records(v0, e1, e2), aabbs=aabbs,
                      boxes=coarse_boxes(aabbs, group).contiguous(),
                      block_rays=block_rays, block_tris=block_tris,
                      group=group)

@@ -33,8 +33,8 @@ SOURCE = CSRC / "walk.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PREPASS_ARGTYPES = (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P)
-_WALK_ARGTYPES = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                  _P, _P, _P)
+_WALK_ARGTYPES = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                  _P, _P)
 _KERNEL_RAYS = 256    # rays per tile of both kernels (csrc/walk.cu kRays)
 _KERNEL_MAX_TILE = 256
 
@@ -123,8 +123,9 @@ class WalkKernel:
         check("lim", lim, torch.float32, (n_rt * _KERNEL_RAYS,))
         if n_rt * _KERNEL_RAYS < R:
             raise ValueError("walk: lim is shorter than the rays")
-        for name in ("v0", "e1", "e2"):
-            check(name, getattr(scene, name), torch.float32, (t_pad, 3))
+        check("records", scene.records, torch.float32, (t_pad, 12))
+        if scene.records.data_ptr() % 16:
+            raise ValueError("walk: records are not 16-byte aligned")
         check("aabbs", scene.aabbs, torch.float32, (scene.n_tiles, 6))
         check("visits", visits, torch.int32, (n_rt, 1 + scene.n_boxes))
         if scene.n_boxes * scene.group != scene.n_tiles:
@@ -138,14 +139,19 @@ class WalkKernel:
         if R == 0:
             return t_out, idx_out
         with torch.cuda.device(dev):
+            # the ray tiles with the longest visit rows start first, so that
+            # no long one is left running alone at the end
+            order = torch.argsort(visits[:, 0], descending=True,
+                                  stable=True)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = self._fn(
                 o.data_ptr(), d.data_ptr(), lim.data_ptr(),
                 None if exclude is None else exclude.data_ptr(), R, n_rt,
-                scene.v0.data_ptr(), scene.e1.data_ptr(), scene.e2.data_ptr(),
-                scene.aabbs.data_ptr(), visits.data_ptr(), visits.shape[1],
+                scene.records.data_ptr(), scene.aabbs.data_ptr(),
+                visits.data_ptr(), visits.shape[1],
                 scene.group, scene.block_tris, int(bool(any_hit)),
-                t_out.data_ptr(), idx_out.data_ptr(), stream)
+                order.data_ptr(), t_out.data_ptr(), idx_out.data_ptr(),
+                stream)
         raise_on("walk", err)
         self.launches += 1
         return t_out, idx_out

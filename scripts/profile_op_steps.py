@@ -1,8 +1,10 @@
 #!/usr/bin/env python
-"""Profile two op-path steps of the PyTorch port on one NVIDIA GPU, for one
-or more checkouts of the repo in turns.
+"""Profile steps of the PyTorch port on one NVIDIA GPU, for one or more
+checkouts of the repo in turns.
 
     python3 scripts/profile_op_steps.py --tree OLD --tree . --order 0110
+    python3 scripts/profile_op_steps.py --tree OLD --tree . --order 0110 \
+        --steps city
 
 Each entry of ``--order`` (an index into the ``--tree`` list) runs in a
 process of its own that imports ``hermespy_rt_tpu_torch`` from that tree
@@ -18,19 +20,37 @@ tree has it) at 2^20 paths, B = 3, nrx = 1, reference parity:
   ``grad_geometry``; loss ``testing.grad_loss``; gradients to the
   materials, the RX and TX positions, the frequency and the vertices).
 
+and on the config-5 city of ``chip_smoke.py`` (``scene.make_city``: 131,072
+triangles written as Sionna XML + PLY under the tree's ``_build/``, read
+back, Morton-sorted; TX (-120, 80, 45), RX (30, -40, 1.5), 3 GHz, 2^20
+paths, B = 3, physical parity, coherent launch order; every query through
+the visit-list walk), nrx = 1:
+
+- ``D``: the op-path forward (``chip_smoke.py`` phase D);
+- ``E``: the fused material-calibration step (phase E);
+- ``walk``: the seven walk queries of one D forward, recorded: each
+  query's walk kernel and prepass kernel device time (profiler, 5 calls
+  after a warm-up), its rays and live rays, and the device-to-host copies
+  and synchronisations in one profiler window over one ``walk_query``
+  (the window's own closing synchronise included).
+
+``--steps`` picks ``canyon`` (phase9, N and the single calls), ``city`` (D,
+E and the walk queries) or ``all`` (the default).
+
 Per step: the host-clock wall of 3 steps after two warm-ups, then one
 torch.profiler window over one step: wall, device busy, device operations,
 idle share (``1 - busy / wall``), and the device time and operations of the
-row gather, the scatter-add and the sorts.  Then single calls of the
-scatter-add and the gather at the steps' shapes (``calls``: 2^20 rows of 27
-columns, seeded, runs of 64 equal ids): the scatter-add into the canyon's
-256 rows with the first 7,699 rows kept (as G's first call) and with every
-row kept (as N's payload backward), and into the city's 131,072 rows with
-every row kept; the gather of 2^20 rows from 256.  For each, the whole
-call's device time and device operations per call, over 20 calls after a
-warm-up.  One JSON line per process, then
-a summary per tree (the means of its turns), the card's name and power
-limit.  Exits non-zero without a CUDA device.
+row gather, the scatter-add, the sorts and the two walk kernels.  Then
+(canyon) single calls of the scatter-add and the gather at the steps'
+shapes (``calls``: 2^20 rows of 27 columns, seeded, runs of 64 equal ids):
+the scatter-add into the canyon's 256 rows with the first 7,699 rows kept
+(as G's first call) and with every row kept (as N's payload backward), and
+into the city's 131,072 rows with every row kept; the gather of 2^20 rows
+from 256.  For each, the whole call's device time and device operations
+per call, over 20 calls after a warm-up.  One JSON line per process, then a
+summary per tree (the mean of its turns and, under ``spread``, their least
+and greatest value), the card's name and power limit.  Exits non-zero
+without a CUDA device.
 """
 import argparse
 import dataclasses
@@ -45,7 +65,9 @@ BOUNCES = 3
 TX = [[-20.0, -10.0, 10.0]]
 RX = [[10.0, 5.0, 2.0]]
 FREQ_GHZ = 3.0
-NAMED = ("gather", "scatter_add", "sort")
+CITY_TX = [[-120.0, 80.0, 45.0]]
+CITY_RX = [[30.0, -40.0, 1.5]]
+NAMED = ("gather", "scatter_add", "sort", "walk_kernel", "walk_prepass")
 
 
 def smi():
@@ -53,6 +75,12 @@ def smi():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+
+
+def _ms(e):
+    """A profiler row's own device time in ms."""
+    us = getattr(e, "self_device_time_total", None)
+    return (e.self_cuda_time_total if us is None else us) / 1e3
 
 
 def window(torch, fn):
@@ -69,16 +97,11 @@ def window(torch, fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-
-    def ms(e):
-        us = getattr(e, "self_device_time_total", None)
-        return (e.self_cuda_time_total if us is None else us) / 1e3
-
-    busy = sum(ms(e) for e in rows)
+    busy = sum(_ms(e) for e in rows)
     named = {}
     for name in NAMED:
         ev = [e for e in rows if name in e.key.lower()]
-        named[name] = dict(ms=sum(ms(e) for e in ev),
+        named[name] = dict(ms=sum(_ms(e) for e in ev),
                            ops=sum(e.count for e in ev))
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 device_ops=sum(e.count for e in rows),
@@ -86,12 +109,74 @@ def window(torch, fn):
                 named=named)
 
 
-def calls(torch, fetch_cuda, dev):
-    """Whole-call device time and operations of single scatter-add and
-    gather calls (see the module docstring)."""
+def device_rows(torch, fn, reps):
+    """The profiler's events of ``reps`` calls of ``fn`` after a warm-up:
+    ``(device rows, host rows)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    return ([e for e in rows if e.device_type == DeviceType.CUDA],
+            [e for e in rows if e.device_type != DeviceType.CUDA])
+
+
+def kernel_ms(torch, fn, name, reps=5):
+    """Device time in ms per call of the kernels named ``name``."""
+    dev_rows, _ = device_rows(torch, fn, reps)
+    return sum(_ms(e) for e in dev_rows if name in e.key) / reps
+
+
+def walk_queries(torch, tracer, walk_cuda, walk_ops, city_paths):
+    """The seven walk queries of one city forward (see the module
+    docstring)."""
+    recorded = []
+    real = tracer.walk_query
+
+    def spy(o, d, scene, **kw):
+        recorded.append((o, d, scene, kw))
+        return real(o, d, scene, **kw)
+
+    tracer.walk_query = spy
+    try:
+        city_paths()
+    finally:
+        tracer.walk_query = real
+    out = []
+    for o, d, scene, kw in recorded:
+        t_max, live = kw.get("t_max"), kw.get("live")
+        any_hit = bool(kw.get("any_hit")) and t_max is not None
+        lim = walk_ops.query_limits(o.shape[0], scene.block_rays, t_max=t_max,
+                                    live=live, device=o.device)
+        reach, key = walk_cuda.walk_prepass(o, d, lim, scene.boxes)
+        visits = walk_ops.visit_rows(reach, key)
+
+        def run_walk():
+            walk_cuda.walk(o, d, lim, scene, visits,
+                           exclude=kw.get("exclude"), any_hit=any_hit)
+
+        dev_rows, host = device_rows(torch, lambda: real(o, d, scene, **kw), 1)
+        out.append(dict(
+            rays=o.shape[0], live=int((lim >= 0).sum()), any_hit=any_hit,
+            walk_ms=kernel_ms(torch, run_walk, "walk_kernel"),
+            prepass_ms=kernel_ms(
+                torch, lambda: walk_cuda.walk_prepass(o, d, lim, scene.boxes),
+                "walk_prepass"),
+            query_dtoh=sum(e.count for e in dev_rows if "DtoH" in e.key),
+            query_syncs=sum(e.count for e in host
+                            if "Synchronize" in e.key)))
+    return out
+
+
+def calls(torch, fetch_cuda, dev):
+    """Whole-call device time and operations of single scatter-add and
+    gather calls (see the module docstring)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     N, C = 1 << 20, 27
     g = torch.randn((N, C), generator=gen, device=dev)
@@ -114,23 +199,13 @@ def calls(torch, fetch_cuda, dev):
     }
     out = {}
     for name, fn in cases.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        us = sum(getattr(e, "self_device_time_total", None)
-                 or e.self_cuda_time_total for e in rows)
-        out[name] = dict(call_ms=us / 1e3 / 20,
+        rows, _ = device_rows(torch, fn, 20)
+        out[name] = dict(call_ms=sum(_ms(e) for e in rows) / 20,
                          call_ops=sum(e.count for e in rows) / 20)
     return out
 
 
-def child(tree):
+def child(tree, steps):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -171,7 +246,19 @@ def child(tree):
         torch.cuda.synchronize()
 
     out = dict(tree=tree, gpu=smi())
-    for name, step in (("phase9", op_step), ("N", n_step)):
+    timed = []
+    if steps in ("canyon", "all"):
+        timed += [("phase9", op_step), ("N", n_step)]
+    if steps in ("city", "all"):
+        city, city_paths = city_scene(dev)
+        e_cfg = calibration_config(PATHS, BOUNCES, True, parity="physical")
+
+        def e_step():
+            calibration_step(city, CITY_RX, CITY_TX, FREQ_GHZ,
+                             default_materials(dev), e_cfg)
+
+        timed += [("D", city_paths), ("E", e_step)]
+    for name, step in timed:
         step()
         step()                                                  # warm-ups
         t0 = time.perf_counter()
@@ -179,25 +266,62 @@ def child(tree):
             step()
         out[name] = dict(wall_mean_ms=(time.perf_counter() - t0) / 3 * 1e3,
                          profile=window(torch, step))
-    out["calls"] = calls(torch, fetch_cuda, dev)
+    if steps in ("canyon", "all"):
+        out["calls"] = calls(torch, fetch_cuda, dev)
+    if steps in ("city", "all"):
+        from hermespy_rt_tpu_torch import tracer
+        from hermespy_rt_tpu_torch.ops import walk as walk_ops
+        from hermespy_rt_tpu_torch.ops import walk_cuda
+        out["walk"] = walk_queries(torch, tracer, walk_cuda, walk_ops,
+                                   city_paths)
     print(json.dumps(out), flush=True)
+
+
+def city_scene(dev):
+    """The config-5 city on the card, and its forward (see the module
+    docstring)."""
+    import shutil
+
+    import torch
+
+    from hermespy_rt_tpu_torch import compute_paths
+    from hermespy_rt_tpu_torch.ops._cuda_build import BUILD_DIR
+    from hermespy_rt_tpu_torch.scene import (flatten_scene, load_scene,
+                                             make_city)
+
+    out_dir = BUILD_DIR / "city131k_profile"
+    city = flatten_scene(load_scene(make_city(str(out_dir))),
+                         sort_triangles=True, device=dev)
+    shutil.rmtree(out_dir)
+
+    def city_paths():
+        compute_paths(city, CITY_RX, CITY_TX, [[0.0, 0.0, 0.0]],
+                      [[0.0, 0.0, 0.0]], FREQ_GHZ, 1, 1, PATHS, BOUNCES,
+                      device=dev, parity="physical",
+                      launch_order="coherent", compact_rays=True,
+                      keep_rays=False)
+        torch.cuda.synchronize()
+
+    return city, city_paths
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=None)
     ap.add_argument("--order", default=None)
+    ap.add_argument("--steps", default="all",
+                    choices=("all", "canyon", "city"))
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        return child(args.child)
+        return child(args.child, args.steps)
     trees = args.tree or ["."]
     order = [int(c) for c in (args.order or "0" * len(trees))]
     runs = []
     for i in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--child", trees[i]], capture_output=True,
-                              text=True, timeout=900)
+                               "--child", trees[i], "--steps", args.steps],
+                              capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
             sys.exit(f"profile_op_steps: tree {trees[i]} failed")
@@ -209,21 +333,37 @@ def main():
         if not mine:
             continue
 
-        def mean(get):
-            return sum(get(r) for r in mine) / len(mine)
+        def stat(get):
+            vals = [get(r) for r in mine]
+            return sum(vals) / len(vals), [min(vals), max(vals)]
 
-        summary[tree] = {"turns": len(mine)}
-        for step in ("phase9", "N"):
-            summary[tree][step] = {
-                key: mean(lambda r: r[step]["profile"][key])
-                for key in ("wall_ms", "device_busy_ms", "device_ops",
-                            "idle_share")}
-            summary[tree][step]["wall_mean_ms"] = mean(
-                lambda r: r[step]["wall_mean_ms"])
-        summary[tree]["calls"] = {
-            c: {k: mean(lambda r: r["calls"][c][k])
-                for k in ("call_ms", "call_ops")}
-            for c in mine[0]["calls"]}
+        summary[tree] = {"turns": len(mine), "spread": {}}
+        steps = [k for k in ("phase9", "N", "D", "E") if k in mine[0]]
+        for step in steps:
+            keys = {k: (lambda r, k=k: r[step]["profile"][k])
+                    for k in ("wall_ms", "device_busy_ms", "device_ops",
+                              "idle_share")}
+            keys["wall_mean_ms"] = lambda r: r[step]["wall_mean_ms"]
+            for name in ("walk_kernel", "walk_prepass"):
+                keys[f"{name}_ms"] = (
+                    lambda r, n=name: r[step]["profile"]["named"][n]["ms"])
+            summary[tree][step], summary[tree]["spread"][step] = {}, {}
+            for k, get in keys.items():
+                summary[tree][step][k], summary[tree]["spread"][step][k] = (
+                    stat(get))
+        if "calls" in mine[0]:
+            summary[tree]["calls"] = {
+                c: {k: stat(lambda r: r["calls"][c][k])[0]
+                    for k in ("call_ms", "call_ops")}
+                for c in mine[0]["calls"]}
+        if "walk" in mine[0]:
+            summary[tree]["walk"], summary[tree]["spread"]["walk"] = [], []
+            for q in range(len(mine[0]["walk"])):
+                row, spread = dict(mine[0]["walk"][q]), {}
+                for k in ("walk_ms", "prepass_ms"):
+                    row[k], spread[k] = stat(lambda r: r["walk"][q][k])
+                summary[tree]["walk"].append(row)
+                summary[tree]["spread"]["walk"].append(spread)
     print(json.dumps({"summary": summary}), flush=True)
     print(smi(), flush=True)
 

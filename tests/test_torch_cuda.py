@@ -311,6 +311,131 @@ def test_walk_kernel_equals_plain_and_brute(dev, ties, any_hit):
         assert hit.numel() and bool(((hit < 3000) | (ex == hit - 3000)).all())
 
 
+def _tile_tie_scene(dev):
+    """Ten blocks of 64 random triangles, each followed by its exact copy:
+    every hit ties a triangle with its copy 64 rows later, in the same fine
+    tile of 128 (another slice or lane of the kernel's deal)."""
+    m = random_soup_scene(640, seed=5, extent=60.0, tri_size=3.0).meshes[0]
+    idx = m.indices.astype(np.int64).reshape(10, 64, 3)
+    idx = np.concatenate([idx, idx], axis=1).reshape(-1, 3)
+    return flatten_scene(HostScene([HostMesh(
+        m.vertices, idx, material_index=m.material_index)]), device=dev)
+
+
+def _walk_inputs(rng, tris, R, share, any_hit, dev, coherent=False):
+    """Rays, padded limits and exclude for a walk query of R rays with the
+    given live share: a fraction, "one_a_tile" (one live ray in every tile
+    of 256) or "every_7th".  Half the rays aim at a random triangle's
+    centroid (the first four always), so most of those hit; ``coherent``
+    rays start at one point, in launch order (neighbours in a tile are
+    neighbours in direction).  Any-hit queries take a per-ray t_max (beyond
+    the scene for coherent rays)."""
+    T = tris.num_triangles
+    cen = (tris.v0 + (tris.e1 + tris.e2) / 3.0)[:T].cpu().numpy()
+    if coherent:
+        o = np.broadcast_to(np.float32([5.0, -3.0, 20.0]), (R, 3)).copy()
+    else:
+        o = rng.uniform(-80, 80, (R, 3)).astype(np.float32)
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    aim = (rng.uniform(size=R) < 0.5) | (np.arange(R) < 4)
+    d[aim] = cen[rng.integers(0, T, int(aim.sum()))] - o[aim]
+    if coherent:
+        d = d[np.lexsort((d[:, 1], np.sign(d[:, 2])))]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    r = np.arange(R)
+    if share == "one_a_tile":
+        live = r % 256 == 37 % min(R, 256)
+    elif share == "every_7th":
+        live = r % 7 == 0
+    else:
+        live = rng.uniform(size=R) < share
+    lo, hi = (150, 250) if coherent else (0, 90)   # coherent: beyond all
+    t_max = (torch.as_tensor(rng.uniform(lo, hi, R).astype(np.float32),
+                             device=dev) if any_hit else None)
+    lim = query_limits(R, 256, t_max=t_max,
+                       live=torch.as_tensor(live, device=dev), device=dev)
+    exclude = torch.as_tensor(rng.integers(-1, tris.pad_triangles, R)
+                              .astype(np.int32), device=dev)
+    return (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
+            lim, exclude, int(live.sum()))
+
+
+def _hold_walk(scene, o, d, lim, exclude, any_hit):
+    """The walk kernel twice and its plain version once on every ray: the
+    same bits in both runs and the plain version's bits.  Returns
+    ``(t, idx)``."""
+    visits = visit_rows(*walk_prepass(o, d, lim, scene.boxes))
+    before = walk.launches
+    t1, i1 = walk(o, d, lim, scene, visits, exclude=exclude, any_hit=any_hit)
+    t2, i2 = walk(o, d, lim, scene, visits, exclude=exclude, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 2
+    assert torch.equal(t1.view(torch.int32), t2.view(torch.int32))
+    assert torch.equal(i1, i2)
+    t_p, i_p = walk_plain(o, d, scene, visits, lim, exclude=exclude,
+                          any_hit=any_hit)
+    assert torch.equal(i1, i_p)
+    assert torch.equal(t1.view(torch.int32), t_p.view(torch.int32))
+    return t1, i1
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("share", [0.0, "one_a_tile", "every_7th", 0.17, 0.36,
+                                   0.52, 1.0])
+def test_walk_kernel_live_shares(dev, share, any_hit):
+    rng = np.random.default_rng(21)
+    tris = _walk_scene(dev)
+    scene = prepare_walk(tris)
+    o, d, lim, ex, n_live = _walk_inputs(rng, tris, (1 << 16) + 37, share,
+                                         any_hit, dev)
+    t, i = _hold_walk(scene, o, d, lim, ex, any_hit)
+    dead = (lim[:o.shape[0]] < 0)
+    assert bool((i[dead] == -1).all()) and bool(torch.isinf(t[dead]).all())
+    assert (n_live == 0) == (not bool((i >= 0).any()))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("R", [1, 4, 255, 257, (1 << 16) + 37])
+def test_walk_kernel_ray_counts(dev, R, any_hit):
+    rng = np.random.default_rng(22)
+    tris = _walk_scene(dev)
+    scene = prepare_walk(tris)
+    o, d, lim, ex, _ = _walk_inputs(rng, tris, R, 1.0, any_hit, dev,
+                                    coherent=True)
+    _, i = _hold_walk(scene, o, d, lim, ex, any_hit)
+    assert bool((i >= 0).any())
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("block_tris", [64, 128, 256])
+def test_walk_kernel_tile_sizes(dev, block_tris, group):
+    rng = np.random.default_rng(23)
+    tris = _walk_scene(dev)
+    scene = prepare_walk(tris, block_tris=block_tris, group=group)
+    assert (scene.block_tris, scene.group) == (block_tris, group)
+    for any_hit, coherent in ((False, False), (True, True)):
+        o, d, lim, ex, _ = _walk_inputs(rng, tris, 20000, 0.36, any_hit, dev,
+                                        coherent=coherent)
+        _, i = _hold_walk(scene, o, d, lim, ex, any_hit)
+        assert bool((i >= 0).any())
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_kernel_ties(dev, any_hit):
+    rng = np.random.default_rng(24)
+    for tris, copy in ((_walk_scene(dev, ties=True), 3000),
+                       (_tile_tie_scene(dev), 64)):
+        scene = prepare_walk(tris)
+        o, d, lim, ex, _ = _walk_inputs(rng, tris, 30000, 0.52, any_hit, dev)
+        t, i = _hold_walk(scene, o, d, lim, ex, any_hit)
+        if any_hit and copy == 3000:
+            continue   # the copy's tile may come first and end the search
+        # an original wins its tie unless it is the ray's excluded triangle
+        h = i >= 0
+        orig = (i[h] // copy) % 2 == 0 if copy == 64 else i[h] < copy
+        assert h.any() and bool((orig | (ex[h] == i[h] - copy)).all())
+
+
 def test_walk_rejects_bad_operands(dev):
     tris = _walk_scene(dev)
     scene = prepare_walk(tris)
@@ -329,6 +454,10 @@ def test_walk_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         walk(o, d, lim, scene, visits,
              exclude=torch.zeros(8, dtype=torch.int64, device=dev))
+    shifted = torch.zeros(scene.records.numel() + 1, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        walk(o, d, lim, dataclasses.replace(
+            scene, records=shifted.view(scene.records.shape)), visits)
 
 
 @pytest.mark.parametrize("parity", ["reference", "physical"])

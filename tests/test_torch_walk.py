@@ -12,7 +12,13 @@ the same numpy inputs at the same tile sizes:
   ``intersect_jnp`` to the tier of ``tests/test_torch_intersect.py``: every
   index flip an f64 edge or tie case, ``t`` within rtol 2e-5 where the index
   agrees (the JAX walk computes Möller–Trumbore as matrix products);
-- in any-hit mode, ``blocked = idx >= 0 & t <= t_max`` equal;
+- in any-hit mode, ``blocked = idx >= 0 & t <= t_max`` equal, and
+  ``(t, idx)`` the contract's (a ray with a hit still evaluates the tiles
+  other rays of its tile reach; the JAX walk's indices up to explained
+  flips), which on dense hits differs from the first hit;
+- the cases the walk kernel deals differently (1 and 4 rays, one live ray
+  a tile, every 7th live, a dead tile among live ones, ties inside a fine
+  tile), and the kernel's triangle records equal to ``v0``/``e1``/``e2``;
 - traces with ``walk=True`` equal traces with ``walk=False`` bit for bit (op
   path in both parities, the fused step at physical parity, its material
   gradients too), and agree with the JAX ``trace_paths`` within the tier of
@@ -58,6 +64,18 @@ def _rays(n, rng, extent):
     return o, d
 
 
+def _aimed_rays(n, rng, extent, soa):
+    """Rays from random origins, each aimed at a random triangle's centroid
+    (so most hit)."""
+    T = int(soa.num_triangles)
+    cen = np.asarray(soa.v0)[:T] + (np.asarray(soa.e1)[:T]
+                                    + np.asarray(soa.e2)[:T]) / 3.0
+    o = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    d = (cen[rng.integers(0, T, n)] - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
 def _soup(n, seed, extent, sort=True):
     return js.flatten_scene(js.random_soup_scene(n, seed=seed, extent=extent),
                             sort_triangles=sort)
@@ -72,6 +90,17 @@ def _duplicated_soup():
     return js.flatten_scene(js.HostScene([js.HostMesh(
         m.vertices, np.concatenate([idx, idx]),
         material_index=m.material_index, name="dup")]))
+
+
+def _tile_tie_soup():
+    """Five blocks of 64 random triangles, each followed by its exact copy,
+    in file order: every hit ties a triangle with its copy 64 rows later in
+    the same fine tile of 128, which the lower index must win."""
+    m = js.random_soup_scene(320, seed=6, extent=30.0).meshes[0]
+    idx = m.indices.astype(np.int64).reshape(5, 64, 3)
+    return js.flatten_scene(js.HostScene([js.HostMesh(
+        m.vertices, np.concatenate([idx, idx], axis=1).reshape(-1, 3),
+        material_index=m.material_index, name="tile_ties")]))
 
 
 def _jax_visit_rows(soa, o, d, lim, block_rays, block_tris, group):
@@ -105,6 +134,22 @@ def test_visit_rows_equal_jax_prepass(rng, group):
     assert (rows[:, 0] > 0).all()
 
 
+def test_triangle_records_equal_triangles():
+    """The walk kernel's 48-byte records hold (v0, 0, e1, 0, e2, 0) bit for
+    bit, the padding triangles as zeros, 16-byte aligned."""
+    tris = soa_from_jax(vars(_soup(700, 11, 45.0)))
+    scene = prepare_walk(tris, block_tris=64, group=8)       # 768 -> 1024
+    rec = scene.records
+    assert rec.shape == (1024, 12) and rec.dtype == torch.float32
+    assert rec.is_contiguous() and rec.data_ptr() % 16 == 0
+    for c, x in enumerate((scene.v0, scene.e1, scene.e2)):
+        assert torch.equal(rec[:, 4 * c:4 * c + 3].view(torch.int32),
+                           x.view(torch.int32))
+        assert not bool(rec[:, 4 * c + 3].view(torch.int32).any())
+    assert torch.equal(scene.v0[:tris.pad_triangles], tris.v0)
+    assert not bool(rec[tris.pad_triangles:].view(torch.int32).any())
+
+
 def test_group_rule_matches_jax():
     # JAX: the smallest power of two with n_tiles <= 512 * group
     for n, g in ((1, 1), (512, 1), (513, 2), (1024, 2), (1025, 4),
@@ -134,6 +179,18 @@ CASES = {
     "exclude": (lambda: _soup(600, 2, 40.0), 600, 50.0, 64, 0,
                 ("exclude",)),
     "ties": (_duplicated_soup, 512, 35.0, 128, 0, ()),
+    # the shapes the walk kernel deals differently: the LoS query's 1 ray
+    # and nrx = 4's 4, one live ray in each ray tile, every 7th live, a
+    # dead ray tile between live ones, ties inside one fine tile
+    "los_1": (lambda: _soup(900, 3, 50.0), 1, 60.0, 128, 0, ("aimed",)),
+    "los_4": (lambda: _soup(900, 3, 50.0), 4, 60.0, 128, 2, ("aimed",)),
+    "one_live_a_tile": (lambda: _soup(900, 3, 50.0), 777, 60.0, 128, 0,
+                        ("aimed", "one_live")),
+    "every_7th_live": (lambda: _soup(700, 11, 45.0), 640, 55.0, 64, 0,
+                       ("every_7th",)),
+    "dead_tile": (lambda: _soup(700, 11, 45.0), 768, 55.0, 64, 2,
+                  ("dead_tile",)),
+    "ties_in_tile": (_tile_tie_soup, 512, 35.0, 128, 0, ("aimed",)),
 }
 
 
@@ -142,8 +199,15 @@ def test_walk_matches_jax_walk_and_golden(rng, case):
     build, R, extent, block_tris, group, opts = CASES[case]
     soa = build()
     tris = soa_from_jax(vars(soa))
-    o, d = _rays(R, rng, extent)
+    o, d = (_aimed_rays(R, rng, extent, soa) if "aimed" in opts
+            else _rays(R, rng, extent))
     t_max = ex = None
+    r = np.arange(R)
+    live_only = {"one_live": r % 256 == 5, "every_7th": r % 7 == 0,
+                 "dead_tile": r // 256 != 1}
+    for opt, live in live_only.items():
+        if opt in opts:
+            t_max = np.where(live, 1e9, -1.0).astype(np.float32)
     if "t_max_rows" in opts:
         t_max = np.where(np.arange(R) % 3 == 0, -1.0,
                          np.where(np.arange(R) % 3 == 1, 1.0, 1e9)
@@ -180,7 +244,8 @@ def test_walk_matches_jax_walk_and_golden(rng, case):
     t_b, i_b = intersect_torch(torch.as_tensor(o), torch.as_tensor(d), tris,
                                **kw)
     assert torch.equal(i, i_b) and torch.equal(t, t_b)
-    assert int((i >= 0).sum()) > R // 50
+    n_live = R if t_max is None else int((t_max >= 0).sum())
+    assert int((i >= 0).sum()) > min(R // 50, n_live // 20)
     _compare(soa, o, d, t_w, i_w, t, i, f"{case}: vs JAX walk")
     _compare(soa, o, d, t_g, i_g, t, i, f"{case}: vs intersect_jnp")
     if t_max is not None:
@@ -190,15 +255,74 @@ def test_walk_matches_jax_walk_and_golden(rng, case):
         # every hit is on the original, never on its copy 300 rows later
         hit = i.numpy()[i.numpy() >= 0]
         assert hit.size and (hit < 300).all()
+    if case == "ties_in_tile":
+        # ... and on the original 64 rows before its copy, in one tile
+        hit = i.numpy()[i.numpy() >= 0]
+        assert hit.size and ((hit // 64) % 2 == 0).all()
 
 
-@pytest.mark.parametrize("group", [1, 2])
-def test_any_hit_blocked_matches_jax(rng, group):
-    soa = _soup(700, 11, 45.0)
+def _any_hit_walk(o, d, scene, visits, lim, first_hit_only):
+    """The any-hit walk written out ray tile by ray tile, fine tile by fine
+    tile, as ``ops/walk.py`` states it: a ray with a hit no longer reaches
+    tiles (its limit is -1) but evaluates, within its own ``lim``, every
+    tile that another ray of its tile reaches.  With ``first_hit_only`` it
+    stops evaluating too: not the contract, the answer a kernel that skipped
+    such rays would give."""
+    br, bt, g = scene.block_rays, scene.block_tris, scene.group
+    R, n_pad = o.shape[0], lim.shape[0]
+    o = torch.cat([o, o.new_zeros((n_pad - R, 3))])
+    d = torch.cat([d, d.new_zeros((n_pad - R, 3))])
+    inv = 1.0 / torch.where(d == 0, 1e-30, d)
+    best_t = torch.full((n_pad,), torch.inf)
+    best_i = torch.full((n_pad,), 2 ** 31 - 1, dtype=torch.int64)
+    for rt in range(n_pad // br):
+        s = slice(rt * br, (rt + 1) * br)
+        for e in range(int(visits[rt, 0])):
+            for m in range(g):
+                j = int(visits[rt, 1 + e]) * g + m
+                has = best_t[s] < torch.inf
+                limit = torch.where(has, -1.0, torch.minimum(best_t[s],
+                                                             lim[s]))
+                lo, hi = scene.aabbs[j, 0:3], scene.aabbs[j, 3:6]
+                t_n = torch.amax(torch.minimum((lo - o[s]) * inv[s],
+                                               (hi - o[s]) * inv[s]), dim=1)
+                t_f = torch.amin(torch.maximum((lo - o[s]) * inv[s],
+                                               (hi - o[s]) * inv[s]), dim=1)
+                if not bool(((t_f >= 0) & (t_n <= t_f) & (t_n <= limit)
+                             & (limit >= 0)).any()):
+                    continue
+                k = torch.arange(j * bt, (j + 1) * bt)
+                t, valid = mt_hit(
+                    tuple(o[s][:, c:c + 1] for c in range(3)),
+                    tuple(d[s][:, c:c + 1] for c in range(3)),
+                    *(tuple(x[k][None, :, c] for c in range(3))
+                      for x in (scene.v0, scene.e1, scene.e2)))
+                ev_lim = torch.where(has, -1.0, lim[s]) if first_hit_only \
+                    else lim[s]
+                t = torch.where(valid & (t <= ev_lim[:, None]), t,
+                                torch.inf)
+                t_min, arg = torch.min(t, dim=1)
+                idx = arg + j * bt
+                better = (t_min < best_t[s]) | ((t_min == best_t[s])
+                                                & (idx < best_i[s]))
+                best_t[s] = torch.where(better, t_min, best_t[s])
+                best_i[s] = torch.where(better, idx, best_i[s])
+    t = best_t[:R]
+    return t, torch.where(torch.isfinite(t), best_i[:R], -1).to(torch.int32)
+
+
+@pytest.mark.parametrize("group,aimed", [
+    pytest.param(1, False, id="1"), pytest.param(2, False, id="2"),
+    pytest.param(2, True, id="aimed")])
+def test_any_hit_blocked_matches_jax(rng, group, aimed):
+    # aimed: a dense soup crossed by rays aimed at its triangles, with limits
+    # past them, so most rays hit and many could hit again
+    soa = _soup(700, 11, 15.0 if aimed else 45.0)
     tris = soa_from_jax(vars(soa))
     R = 640
-    o, d = _rays(R, rng, 55.0)
-    t_max = rng.uniform(0.0, 60.0, R).astype(np.float32)
+    o, d = _aimed_rays(R, rng, 20.0, soa) if aimed else _rays(R, rng, 55.0)
+    t_max = rng.uniform(*((20.0, 60.0) if aimed else (0.0, 60.0)),
+                        R).astype(np.float32)
     t_max[::7] = -1.0
     t_j, i_j = pallas_intersect(jnp.asarray(o), jnp.asarray(d), soa,
                                 block_rays=256, block_tris=32,
@@ -227,6 +351,20 @@ def test_any_hit_blocked_matches_jax(rng, group):
                          comp(torch.as_tensor(d)[hit]), comp(tris.v0[sel]),
                          comp(tris.e1[sel]), comp(tris.e2[sel]))
     assert bool(valid.all()) and torch.equal(t_re, t[hit])
+    # (t, idx) is the contract's: a ray that already hit still evaluates the
+    # tiles that other rays of its tile reach, which changes the answer of
+    # some rays from their first hit; the JAX walk keeps the same contract
+    lim = query_limits(R, 256, t_max=tm)
+    visits = visit_rows(*prepass_plain(torch.as_tensor(o), torch.as_tensor(d),
+                                       lim, scene.boxes, 256))
+    args = (torch.as_tensor(o), torch.as_tensor(d), scene, visits, lim)
+    t_c, i_c = _any_hit_walk(*args, first_hit_only=False)
+    assert torch.equal(i_c, i) and torch.equal(t_c, t)
+    if aimed:       # most rays hit, so some hit again in later tiles
+        _, i_f = _any_hit_walk(*args, first_hit_only=True)
+        assert bool((i_f != i).any())
+    assert_flips_explained(soa, o, d, np.asarray(t_j), np.asarray(i_j),
+                           t.numpy(), i.numpy(), label="vs JAX any-hit")
 
 
 def _trace(tris, mats, nrx, cfg):
