@@ -11,18 +11,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                card, on the street canyon (or its stand-in) and the box
                scene: 2^18 rays from the launch point and 2^18 from random
                origins, with exclude, scalar and per-ray t_max, and live
-               masks.  Every hit decision that differs must be an f64
-               edge/tie case (tests/utils.py::assert_flips_explained) and t
-               must agree to rtol 2e-5 where the decision agrees.
+               masks.  Every ray's (t, idx) must be the twin's bits.
 3. trace    -- the op path (``shade="xla"``), forward only:
                ``compute_paths`` at 2^20 paths, 3 bounces, reference parity,
                nrx = 1 and 4, through the kernel: its launch count, finite
                outputs, a written scatter; at 2^16 paths the same trace with
                the plain twin must agree; forward queries/s of both.  Every
                kernel query of the two 2^20-path traces is recorded.
-4. path     -- each recorded query re-run through the twin and held to the
-               tier of phase 2; then the kernel's and the twin's time on the
-               recorded nrx = 4 bounce and shadow queries.
+4. path     -- each recorded query re-run through the twin and held to its
+               bits, with its kernel time and its blocks of 256 rays by
+               live rays (0, 1-31, 32-255, 256); then the kernel's and the
+               twin's time on the recorded nrx = 4 bounce and shadow
+               queries.
 5. profile  -- one torch.profiler window per nrx over a warm 2^20-path
                ``compute_paths`` (op path): device busy, device operations,
                host time.
@@ -360,37 +360,49 @@ def flips_check():
     return mod.assert_flips_explained
 
 
+def plain_kw(kw):
+    """A query's operands for the plain twin: without the kernels' triangle
+    records and tile boxes."""
+    return {k: v for k, v in kw.items() if k not in ("records", "aabbs")}
+
+
+def blocks_by_live(o, kw):
+    """How many blocks of 256 rays hold 0, 1-31, 32-255 and 256 live rays
+    (live set and a limit >= 0)."""
+    lim = query_limits(o.shape[0], CULL_BLOCK_RAYS, t_max=kw.get("t_max"),
+                       live=kw.get("live"), device=o.device)
+    n = (lim >= 0).reshape(-1, CULL_BLOCK_RAYS).sum(1)
+    return {"0": int((n == 0).sum()), "1-31": int(((n > 0) & (n < 32)).sum()),
+            "32-255": int(((n >= 32) & (n < CULL_BLOCK_RAYS)).sum()),
+            "256": int((n == CULL_BLOCK_RAYS).sum())}
+
+
 def hold_against_twin(tris, o, d, kw, t_k, i_k, label):
     """Hold the kernel's answer ``(t_k, i_k)`` to query ``(o, d, **kw)``
-    against the plain twin on the same inputs: every decision flip an f64
-    edge/tie case, ``t`` within rtol 2e-5 where the decisions agree, dead
-    rays missing and no ray hitting its excluded triangle.  Returns
-    ``(flips, max_abs_err, hits)``."""
-    t_p, i_p = intersect_torch(o, d, tris, chunk_size=TWIN_CHUNK, **kw)
-    ns = types.SimpleNamespace(**{f: getattr(tris, f).cpu().numpy()
-                                  for f in ("v0", "e1", "e2")})
-    t_k, i_k, t_p, i_p = (x.cpu().numpy() for x in (t_k, i_k, t_p, i_p))
-    flips = flips_check()(ns, o.cpu().numpy(), d.cpu().numpy(), t_p, i_p,
-                          t_k, i_k, t_rtol=2e-5, label=label)
-    m = (i_k == i_p) & (i_k >= 0)
-    err = float(np.abs(t_k[m] - t_p[m]).max()) if m.any() else 0.0
-    rel = (float((np.abs(t_k[m] - t_p[m]) / np.abs(t_p[m])).max())
-           if m.any() else 0.0)
-    check(rel <= 2e-5, f"{label}: t rel err {rel}")
+    against the plain twin on the same inputs: the same bits, dead rays
+    missing and no ray hitting its excluded triangle.  Returns ``(flips,
+    max_abs_err, hits)`` (0 flips and 0 error once the bits agree)."""
+    t_p, i_p = intersect_torch(o, d, tris, chunk_size=TWIN_CHUNK,
+                               **plain_kw(kw))
+    flips = int((i_k != i_p).sum())
+    check(flips == 0 and torch.equal(t_k.view(torch.int32),
+                                     t_p.view(torch.int32)),
+          f"{label}: the kernel's (t, idx) are not the twin's bits "
+          f"({flips} index flips)")
     if kw.get("live") is not None:
-        dead = ~kw["live"].cpu().numpy()
-        check(bool((i_k[dead] == -1).all()), f"{label}: a dead ray hit")
+        check(bool((i_k[~kw["live"]] == -1).all()), f"{label}: a dead ray hit")
     if kw.get("exclude") is not None:
-        ex = kw["exclude"].cpu().numpy()
+        ex = kw["exclude"]
         check(not bool(((ex >= 0) & (i_k == ex)).any()),
               f"{label}: a ray hit its excluded triangle")
-    return int(flips), err, int((i_k >= 0).sum())
+    return flips, 0.0, int((i_k >= 0).sum())
 
 
 class QueryRecorder:
     """Stands in for the kernel's wrapper inside the tracer for one trace:
     forwards every query to :data:`nearest_hit` (which counts the launch)
-    and keeps the query's inputs and the kernel's answer."""
+    and keeps the query's inputs (the scene's triangle records among its
+    operands) and the kernel's answer."""
 
     def __init__(self):
         self.queries = []
@@ -533,9 +545,10 @@ def phase_trace(host, scene_name, dev):
 
 
 def phase_path(recorded):
-    """The recorded main-path queries against the twin, then the kernel's
-    and the twin's time on the nrx = 4 trace's first bounce query (2^20
-    rays) and its shadow query (4 x 2^20 rays)."""
+    """The recorded main-path queries against the twin (each with its
+    kernel time and its blocks by live rays), then the kernel's and the
+    twin's time on the nrx = 4 trace's first bounce query (2^20 rays) and
+    its shadow query (4 x 2^20 rays)."""
     worst, total_flips = 0.0, 0
     for nrx, queries in recorded.items():
         for i, (o, d, tris, kw, t_k, i_k) in enumerate(queries):
@@ -547,9 +560,12 @@ def phase_path(recorded):
             live = kw.get("live")
             emit(phase="path", nrx=nrx, query=i, R=o.shape[0],
                  T=tris.pad_triangles, operands=sorted(
-                     k for k, v in kw.items() if v is not None),
+                     k for k, v in plain_kw(kw).items() if v is not None),
                  live=None if live is None else int(live.sum()),
-                 hits=hits, flips=flips, max_abs_err=err)
+                 blocks_by_live=blocks_by_live(o, kw),
+                 ms=device_ms(lambda: nearest_hit(  # noqa: B023
+                     o, d, tris, **kw), 5, "nearest_hit"),
+                 hits=hits, flips=flips, bit_equal=True, max_abs_err=err)
 
     timing = {}
     queries = recorded[4]
@@ -560,7 +576,8 @@ def phase_path(recorded):
                              else 4 * PATHS), f"{label}: {o.shape[0]} rays")
         run_k = lambda: nearest_hit(o, d, tris, **kw)  # noqa: E731
         run_p = lambda: intersect_torch(o, d, tris,  # noqa: E731
-                                        chunk_size=TWIN_CHUNK, **kw)
+                                        chunk_size=TWIN_CHUNK,
+                                        **plain_kw(kw))
         wall_ms, plain_wall_ms = time_pair(run_k, run_p)
         ms = device_ms(run_k, 20, "nearest_hit")
         plain_ms = device_ms(run_p, 3)
@@ -568,11 +585,13 @@ def phase_path(recorded):
         n_live = o.shape[0] if live is None else int(live.sum())
         t_k, i_k = q[4], q[5]
         bound_ms, bound_by = bound(
-            nbytes(o, d, *kw.values(), tris.v0, tris.e1, tris.e2, t_k, i_k),
+            nbytes(o, d, *plain_kw(kw).values(), tris.v0, tris.e1, tris.e2,
+                   t_k, i_k),
             NEAREST_HIT_OPS_PER_PAIR * n_live * tris.pad_triangles)
         timing[label] = dict(ms=ms, plain_ms=plain_ms, wall_ms=wall_ms,
-                             plain_wall_ms=plain_wall_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             rays=o.shape[0], live=n_live,
+                             plain_wall_ms=plain_wall_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, rays=o.shape[0], live=n_live,
+                             blocks_by_live=blocks_by_live(o, kw),
                              T=tris.pad_triangles)
         emit(phase="kernel_time", query=label, **timing[label], gpu=smi())
     return worst, total_flips, timing
@@ -1314,7 +1333,7 @@ def phase_city_equal(dev):
                                 o, d, q_tris, **q_kw),
                             lambda: intersect_torch(  # noqa: B023
                                 o, d, q_tris, chunk_size=TWIN_CHUNK,
-                                **brute_kw), n_bytes, n_ops)
+                                **plain_kw(q_kw)), n_bytes, n_ops)
                         timing["brute_ms"] = device_ms(
                             lambda: nearest_hit(  # noqa: B023
                                 o, d, q_tris, **brute_kw), 20, "nearest_hit")
@@ -2013,8 +2032,8 @@ def culled_work(o, d, tris, kw, reach, t, idx):
     pairs = int((reach.sum(1) * live_per_tile).sum()) * CULL_BLOCK_TRIS
     n_ops = (NEAREST_HIT_OPS_PER_PAIR * pairs
              + SLAB_OPS * n_live * reach.shape[1])
-    return (nbytes(o, d, *(v for k, v in kw.items() if k != "aabbs"),
-                   tris.v0, tris.e1, tris.e2, kw["aabbs"], t, idx), n_ops)
+    return (nbytes(o, d, *plain_kw(kw).values(), tris.v0, tris.e1, tris.e2,
+                   kw["aabbs"], t, idx), n_ops)
 
 
 def hold_culled_query(tris, o, d, kw, t, idx, label, assert_flips, ns):
@@ -2073,7 +2092,7 @@ def phase_culled(recorded, tris):
                     lambda: nearest_hit_culled(o, d, q_tris, **kw),  # noqa: B023
                     lambda: intersect_torch(o, d, q_tris,  # noqa: B023
                                             chunk_size=TWIN_CHUNK,
-                                            **brute_kw),
+                                            **plain_kw(kw)),
                     n_bytes, n_ops)
                 tk["brute_ms"] = device_ms(
                     lambda: nearest_hit(o, d, q_tris, **brute_kw),  # noqa: B023
@@ -2164,6 +2183,8 @@ def main():
         "bound_by": t["bound_by"], "library_ms": None,
         "wall_ms": t["wall_ms"], "plain_wall_ms": t["plain_wall_ms"],
         "shadow_ms": timing["shadow_4x2^20"]["ms"],
+        "shadow_live": timing["shadow_4x2^20"]["live"],
+        "shadow_blocks_by_live": timing["shadow_4x2^20"]["blocks_by_live"],
         "shadow_plain_ms": timing["shadow_4x2^20"]["plain_ms"],
         "shadow_bound_ms": timing["shadow_4x2^20"]["bound_ms"]}]
     for name in FUSED:

@@ -75,13 +75,16 @@
 //    previous tile's evaluation, on the updated best; a tile not reached is
 //    never read, and its buffer is refilled once its copy has landed.  The
 //    block drains its copies before it exits.
-// 4. A pair stops at its first failed test.  mt_valid is mt.cuh::mt_hit's
-//    Möller–Trumbore step with the same operations in the same order (so
-//    the same roundings under -fmad=false), returning as soon as det or u,
-//    then v, fails its test: valid is the AND of the tests, so what is
-//    skipped cannot make the pair valid.  A warp skips the rest of a pair
-//    when all its lanes have failed, which coherent rays mostly do together.
-//    The division stays.  The slab test is slab.cuh's, as in the prepass.
+// 4. A pair stops at its first failed test: mt.cuh::mt_valid, the
+//    Möller–Trumbore step with the plain version's operations in its order
+//    (so its roundings under -fmad=false), cut after det, after a
+//    division-free bound on u (with a margin that keeps every pair the
+//    exact test accepts), after u and after v: valid is the AND of the
+//    tests, so what is skipped cannot make the pair valid.  The slab test
+//    is slab.cuh's, as in the prepass.
+//    Points 1-4 (the packing, the deal, the records and their ring, the
+//    pair test) are shared with the brute and culled scans of intersect.cu
+//    through tile_scan.cuh and mt.cuh.
 // 5. Long rows start first.  Block b walks ray tile order[b], the ray tiles
 //    by visit-row length, longest first (ops/walk_cuda.py sorts them on the
 //    card), so that no long row is left running alone at the end.  Each
@@ -91,15 +94,13 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "mt.cuh"
 #include "slab.cuh"
+#include "tile_scan.cuh"
 
 namespace {
 
-constexpr int kRays = 256;      // rays per tile: threads of either kernel
 constexpr int kBoxes = 256;     // coarse boxes per prepass block
 constexpr int kMaxTile = 256;   // largest fine tile the walk stages
-constexpr int kNoHit = 0x7fffffff;
 
 static_assert(kRays == kBoxes, "the prepass stages one ray per thread");
 
@@ -144,90 +145,7 @@ __global__ void __launch_bounds__(kBoxes) walk_prepass_kernel(
   key[out] = k_min;
 }
 
-// One triangle of a staged tile: (v0, 0) (e1, 0) (e2, 0).
-constexpr int kRecord = 3;       // float4s a triangle
 constexpr int kStages = 4;       // fine tiles in flight: the ring of buffers
-constexpr int kWarps = kRays / 32;
-constexpr unsigned long long kNoHitKey =
-    (static_cast<unsigned long long>(0x7f800000u) << 32) | kNoHit;
-
-static_assert(kRays % 32 == 0 && kWarps == 8,
-              "the slices of a tile are dealt over 8 warps");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void barrier_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(1u)
-               : "memory");
-}
-
-// Wait until the phase of `bar` with the given parity has completed.
-__device__ __forceinline__ void barrier_wait(unsigned long long* bar,
-                                             unsigned parity) {
-  const unsigned a = smem_addr(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into shared memory, completing a phase of `bar`.
-__device__ __forceinline__ void tile_copy(float4* dst, const float4* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ float hit_t(unsigned long long key) {
-  return __uint_as_float(static_cast<unsigned>(key >> 32));
-}
-
-// The Möller–Trumbore step of mt.cuh::mt_hit, the same operations in the
-// same order, cut at its tests: `valid` is the AND of the tests, so once
-// det or u fails (or then v), the rest cannot make the pair valid and is
-// not computed; a warp skips it when all its lanes have failed.  Returns
-// valid and sets t where valid.
-__device__ __forceinline__ bool mt_valid(
-    float ox, float oy, float oz, float dx, float dy, float dz, float v0x,
-    float v0y, float v0z, float e1x, float e1y, float e1z, float e2x,
-    float e2y, float e2z, float& t) {
-  using hrt::kEps;
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-  const float u = (sx * px + sy * py + sz * pz) * inv_det;
-  if (!(fabsf(det) >= kEps && u >= -kEps && u <= 1.0f + kEps)) return false;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-  if (!(v >= -kEps && u + v <= 1.0f + kEps)) return false;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  return t > kEps && t < hrt::kTMax;
-}
 
 __global__ void __launch_bounds__(kRays) walk_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
@@ -237,22 +155,19 @@ __global__ void __launch_bounds__(kRays) walk_kernel(
     int any_hit, const long long* __restrict__ order,
     float* __restrict__ t_out, int* __restrict__ idx_out) {
   extern __shared__ __align__(128) float4 s_tiles[];  // kStages tiles
-  __shared__ float4 s_ray[kRays][2];   // live rays: (o, lim) (d, exclude)
-  __shared__ unsigned long long s_best[kRays];   // packed (t, idx)
+  __shared__ LiveRays s_live;
   __shared__ unsigned long long s_bar[kStages];
-  __shared__ int s_count[kWarps];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int ray_tile = static_cast<int>(order[blockIdx.x]);
   const int r = ray_tile * kRays + tid;
   const float l = lim[r];             // padded: -1 for out-of-range rays
   const bool live = r < R && l >= 0.0f;
   if (tid == 0) {
     for (int b = 0; b < kStages; ++b) barrier_init(&s_bar[b]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    barrier_init_fence();
   }
-  const unsigned ballot = __ballot_sync(0xffffffffu, live);
-  if (lane == 0) s_count[warp] = __popc(ballot);
+  const unsigned ballot = pack_count(s_live, live);
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   if (live) {
     ox = o[3 * r]; oy = o[3 * r + 1]; oz = o[3 * r + 2];
@@ -260,18 +175,11 @@ __global__ void __launch_bounds__(kRays) walk_kernel(
   }
   const float ix = inverse(dx), iy = inverse(dy), iz = inverse(dz);
   __syncthreads();
-  int pos = __popc(ballot & ((1u << lane) - 1u)), L = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = s_count[w];
-    if (w < warp) pos += c;
-    L += c;
-  }
-  if (live) {
-    const int ex = exclude != nullptr ? exclude[r] : -1;
-    s_ray[pos][0] = make_float4(ox, oy, oz, l);
-    s_ray[pos][1] = make_float4(dx, dy, dz, __int_as_float(ex));
-    s_best[pos] = kNoHitKey;
-  }
+  int L;
+  const int pos = pack_slot(s_live, ballot, L);
+  if (live)
+    pack_ray(s_live, pos, ox, oy, oz, l, dx, dy, dz,
+             exclude != nullptr ? exclude[r] : -1);
 
   const int* row = visits + static_cast<size_t>(ray_tile) * stride;
   const int n_tiles = L > 0 ? row[0] * group : 0;   // listed fine tiles
@@ -293,13 +201,7 @@ __global__ void __launch_bounds__(kRays) walk_kernel(
   }
   __syncthreads();
 
-  // the deal of a reached tile's (live ray, triangle) pairs (point 2)
-  const int Lw = L >= 32 ? 32 : (L <= 1 ? 1 : 1 << (32 - __clz(L - 1)));
-  const int per_ray = 32 / Lw;                  // lanes a ray
-  const int groups = (L + Lw - 1) / Lw;
-  const int slices = L > 0 ? kWarps >> min(__ffs(groups) - 1, 3) : 1;
-  const int tasks = groups * slices;
-  const int qi = lane & (Lw - 1), sub = lane / Lw;
+  const Deal deal(L);   // of a reached tile's pairs (point 2)
 
   int j = n_tiles > 0 ? fine(0) : 0;
   for (int s = 0; s < n_tiles; ++s) {
@@ -320,7 +222,7 @@ __global__ void __launch_bounds__(kRays) walk_kernel(
     }
     bool reach = false;
     if (live) {
-      const float best_t = hit_t(s_best[pos]);
+      const float best_t = hit_t(s_live.best[pos]);
       float limit = fminf(best_t, l);
       if (any_hit && best_t < CUDART_INF_F) limit = -1.0f;
       float t_near, t_far;
@@ -332,38 +234,12 @@ __global__ void __launch_bounds__(kRays) walk_kernel(
       barrier_wait(&s_bar[b], (parity & bit) != 0);
       parity ^= bit;
       pending &= ~bit;
-      const float4* tile = s_tiles + b * tile_floats;
-      const int base = j * block_tris;
-      for (int task = warp; task < tasks; task += kWarps) {
-        const int g = task / slices, slice = task - g * slices;
-        const int q = g * Lw + qi;
-        if (q >= L) continue;
-        const float4 ro = s_ray[q][0], rd = s_ray[q][1];
-        const int ex = __float_as_int(rd.w);
-        const int k_end = (slice + 1) * block_tris / slices;
-        float best = CUDART_INF_F;
-        int best_k = 0;
-        for (int k = slice * block_tris / slices + sub; k < k_end;
-             k += per_ray) {
-          const float4 p = tile[kRecord * k], e = tile[kRecord * k + 1],
-                       f = tile[kRecord * k + 2];
-          float t;
-          if (mt_valid(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, p.x, p.y, p.z,
-                       e.x, e.y, e.z, f.x, f.y, f.z, t) &&
-              base + k != ex && t <= ro.w && t < best) {
-            best = t;
-            best_k = k;
-          }
-        }
-        if (best < CUDART_INF_F)
-          atomicMin(&s_best[q],
-                    (static_cast<unsigned long long>(__float_as_uint(best))
-                     << 32) | static_cast<unsigned>(base + best_k));
-      }
+      eval_tile(s_live, deal, L, s_tiles + b * tile_floats, block_tris,
+                j * block_tris);
       __syncthreads();
     }
     if (any_hit && s % group == group - 1 &&
-        !__syncthreads_or(live && !(hit_t(s_best[pos]) < CUDART_INF_F)))
+        !__syncthreads_or(live && !(hit_t(s_live.best[pos]) < CUDART_INF_F)))
       break;   // no live ray of the block still searching
     j = j_next;
   }
@@ -375,7 +251,7 @@ __global__ void __launch_bounds__(kRays) walk_kernel(
     float t = CUDART_INF_F;
     int idx = -1;
     if (live) {
-      const unsigned long long key = s_best[pos];
+      const unsigned long long key = s_live.best[pos];
       t = hit_t(key);
       if (t < CUDART_INF_F) idx = static_cast<int>(key & 0xffffffffu);
     }

@@ -52,7 +52,7 @@ from .ops.intersect_cuda import nearest_hit, nearest_hit_culled
 from .ops.scattering import scat_coefs
 from .ops.shade import _CLIP, GEOM_COLS, SPEED_OF_LIGHT, shade_a, split_payload
 from .ops.shade_cuda import shade_a_rows
-from .ops.walk import cull_boxes, prepare_walk
+from .ops.walk import cull_boxes, prepare_walk, triangle_records
 from .ops.walk_cuda import walk_query
 from .scene.model import TriangleSoA, _morton_order
 
@@ -102,13 +102,16 @@ def _select_intersect(cfg: TracerConfig, tris: TriangleSoA):
     """The nearest-hit function for ``cfg.backend``: the plain twin for
     ``"torch"``, else the kernel's wrapper (the culled kernel's with
     ``cfg.cull``, on the scene's tile boxes), which alone decides by the
-    rays' device (twin on CPU tensors, kernel or raise on CUDA ones)."""
+    rays' device (twin on CPU tensors, kernel or raise on CUDA ones).  The
+    kernels' triangle records are built here, once per scene."""
     if cfg.backend == "torch":
         fn = intersect_torch
-    elif cfg.cull:
-        fn = partial(nearest_hit_culled, aabbs=cull_boxes(tris))
     else:
-        fn = nearest_hit
+        records = triangle_records(tris.v0.detach(), tris.e1.detach(),
+                                   tris.e2.detach())
+        fn = (partial(nearest_hit_culled, aabbs=cull_boxes(tris),
+                      records=records) if cfg.cull
+              else partial(nearest_hit, records=records))
     return lambda o, d, tris, exclude=None, t_max=None, live=None: fn(
         o, d, tris, chunk_size=cfg.ray_chunk, exclude=exclude, t_max=t_max,
         live=live)

@@ -18,7 +18,29 @@ tree has it) at 2^20 paths, B = 3, nrx = 1, reference parity:
 - ``N``: the full-gradient step on the op path with every kernel
   (``chip_smoke.py`` phase N, ``shade="pallas", cull=True``,
   ``grad_geometry``; loss ``testing.grad_loss``; gradients to the
-  materials, the RX and TX positions, the frequency and the vertices).
+  materials, the RX and TX positions, the frequency and the vertices);
+- ``7``: ``bench.py``'s material-calibration step on the fused path
+  (``chip_smoke.py`` phase 7), and ``7_nrx4`` the same at nrx = 4;
+- ``G``: the full-gradient fused step (``chip_smoke.py`` phase G: the
+  JAX defaults ``grad_positions``, ``grad_geometry``), and ``G_nrx4``;
+
+and the nearest-hit queries (``queries``), each recorded inside the tracer
+and then run alone: per query its rays, live rays (the ones with a limit
+``>= 0``), the count of 256-ray blocks holding 0, 1-31, 32-255 and 256
+live rays, the kernel's device time (profiler, 5 calls after a warm-up)
+and the device-to-host copies and host synchronisations in one profiler
+window over one call (the window's own closing synchronise included):
+
+- ``path``: the seven brute queries of one op-path forward
+  (``chip_smoke.py`` phases 3-4: ``compute_paths``, its default launch
+  order, compact rays) at nrx = 1 and 4;
+- ``N``: the seven culled queries of one N step at nrx = 1, each with the
+  culled kernel's skipped (block, tile) pairs and the brute kernel's time
+  on the same query;
+- ``soup2000``: the seven brute queries of the same forward at nrx = 1 on
+  ``random_soup_scene(2000, seed=0, extent=90, tri_size=8)`` (2,048 padded
+  triangles, the size of the street canyon), each also through the culled
+  kernel (its skipped pairs and time).
 
 and on the config-5 city of ``chip_smoke.py`` (``scene.make_city``: 131,072
 triangles written as Sionna XML + PLY under the tree's ``_build/``, read
@@ -34,8 +56,9 @@ the visit-list walk), nrx = 1:
   and synchronisations in one profiler window over one ``walk_query``
   (the window's own closing synchronise included).
 
-``--steps`` picks ``canyon`` (phase9, N and the single calls), ``city`` (D,
-E and the walk queries) or ``all`` (the default).
+``--steps`` picks ``canyon`` (phase9, N, 7, G, the single calls and the
+queries), ``queries`` (the queries alone), ``city`` (D, E and the walk
+queries) or ``all`` (the default).
 
 Per step: the host-clock wall of 3 steps after two warm-ups, then one
 torch.profiler window over one step: wall, device busy, device operations,
@@ -67,7 +90,15 @@ RX = [[10.0, 5.0, 2.0]]
 FREQ_GHZ = 3.0
 CITY_TX = [[-120.0, 80.0, 45.0]]
 CITY_RX = [[30.0, -40.0, 1.5]]
-NAMED = ("gather", "scatter_add", "sort", "walk_kernel", "walk_prepass")
+NAMED = ("gather", "scatter_add", "sort", "walk_kernel", "walk_prepass",
+         "nearest_hit_kernel", "nearest_hit_culled_kernel")
+BLOCK_RAYS = 256       # rays per block of the nearest-hit kernels
+
+
+def rx_positions(nrx):
+    """``chip_smoke.py``'s receivers: (10, 5, 2) + k (1.5, -2, 0.25)."""
+    return [[10.0 + 1.5 * k, 5.0 - 2.0 * k, 2.0 + 0.25 * k]
+            for k in range(nrx)]
 
 
 def smi():
@@ -174,6 +205,94 @@ def walk_queries(torch, tracer, walk_cuda, walk_ops, city_paths):
     return out
 
 
+def recorded_queries(tracer, run):
+    """The brute and culled queries ``(o, d, tris, kw)`` that ``run()``
+    makes inside the tracer, by kind."""
+    out = {"nearest_hit": [], "nearest_hit_culled": []}
+    real = {name: getattr(tracer, name) for name in out}
+
+    def spy(name):
+        def call(o, d, tris, *args, **kw):
+            kw = {k: v for k, v in kw.items() if k != "chunk_size"}
+            if args:                                     # the culled aabbs
+                kw["aabbs"] = args[0]
+            out[name].append((o, d, tris, kw))
+            return real[name](o, d, tris, **kw)
+        return call
+
+    for name in out:
+        setattr(tracer, name, spy(name))
+    try:
+        run()
+    finally:
+        for name, fn in real.items():
+            setattr(tracer, name, fn)
+    return out
+
+
+def query_row(torch, walk_ops, kernels, o, d, tris, kw, culled):
+    """One query's rays, live rays, live rays per block and device times
+    (see the module docstring).  ``culled``: the query is the culled
+    kernel's (its brute time beside it), else the brute kernel's (with a
+    culled twin where the query carries none: the culled time beside it)."""
+    brute, cull = kernels
+    R = o.shape[0]
+    lim = walk_ops.query_limits(R, BLOCK_RAYS, t_max=kw.get("t_max"),
+                                live=kw.get("live"), device=o.device)
+    per_block = (lim >= 0).reshape(-1, BLOCK_RAYS).sum(1)
+    bins = [int((per_block == 0).sum()),
+            int(((per_block >= 1) & (per_block < 32)).sum()),
+            int(((per_block >= 32) & (per_block < BLOCK_RAYS)).sum()),
+            int((per_block == BLOCK_RAYS).sum())]
+    brute_kw = {k: v for k, v in kw.items() if k != "aabbs"}
+    cull_kw = dict(kw)
+    if "aabbs" not in cull_kw:
+        cull_kw["aabbs"] = walk_ops.cull_boxes(tris)
+    skipped = torch.zeros(1, dtype=torch.int64, device=o.device)
+    run_b = lambda: brute(o, d, tris, **brute_kw)          # noqa: E731
+    run_c = lambda: cull(o, d, tris, **cull_kw)            # noqa: E731
+    cull(o, d, tris, skipped=skipped, **cull_kw)
+    run = run_c if culled else run_b
+    dev_rows, host = device_rows(torch, run, 1)
+    return dict(
+        rays=R, live=int(per_block.sum()), T=tris.pad_triangles,
+        operands=sorted(k for k in kw if kw[k] is not None),
+        blocks_by_live=dict(zip(("0", "1-31", "32-255", "256"), bins)),
+        brute_ms=kernel_ms(torch, run_b, "nearest_hit_kernel"),
+        culled_ms=kernel_ms(torch, run_c, "nearest_hit_culled_kernel"),
+        culled_skipped=int(skipped), culled_pairs=int(
+            per_block.numel() * cull_kw["aabbs"].shape[0]),
+        query_dtoh=sum(e.count for e in dev_rows if "DtoH" in e.key),
+        query_syncs=sum(e.count for e in host if "Synchronize" in e.key),
+        query_ops=sum(e.count for e in dev_rows))
+
+
+def queries(torch, dev, tris, paths_of, n_step):
+    """The ``queries`` measurements (see the module docstring)."""
+    from hermespy_rt_tpu_torch import tracer
+    from hermespy_rt_tpu_torch.ops import walk as walk_ops
+    from hermespy_rt_tpu_torch.ops.intersect_cuda import (nearest_hit,
+                                                          nearest_hit_culled)
+    from hermespy_rt_tpu_torch.scene import flatten_scene, random_soup_scene
+
+    kernels = (nearest_hit, nearest_hit_culled)
+    out = {}
+    soup = flatten_scene(random_soup_scene(2000, seed=0, extent=90.0,
+                                           tri_size=8.0), device=dev)
+    for label, scene, nrx, culled in (("path_nrx1", tris, 1, False),
+                                      ("path_nrx4", tris, 4, False),
+                                      ("N_nrx1", tris, 1, True),
+                                      ("soup2000_nrx1", soup, 1, False)):
+        run = (n_step if culled else
+               lambda scene=scene, nrx=nrx: paths_of(scene, nrx))
+        rec = recorded_queries(tracer, run)
+        kind = "nearest_hit_culled" if culled else "nearest_hit"
+        out[label] = [query_row(torch, walk_ops, kernels, *q, culled)
+                      for q in rec[kind]]
+        del rec
+    return out
+
+
 def calls(torch, fetch_cuda, dev):
     """Whole-call device time and operations of single scatter-add and
     gather calls (see the module docstring)."""
@@ -209,8 +328,10 @@ def child(tree, steps):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
+    import numpy as np
+
     import hermespy_rt_tpu_torch as pkg
-    from hermespy_rt_tpu_torch import default_materials, trace
+    from hermespy_rt_tpu_torch import compute_paths, default_materials, trace
     from hermespy_rt_tpu_torch.ops import fetch_cuda
     from hermespy_rt_tpu_torch.scene import (flatten_scene, load_hrt,
                                              random_soup_scene)
@@ -233,22 +354,40 @@ def child(tree, steps):
 
     n_cfg = calibration_config(PATHS, BOUNCES, False, grad_geometry=True,
                                shade="pallas", cull=True)
+    g_cfg = calibration_config(PATHS, BOUNCES, True, grad_geometry=True,
+                               grad_positions=True)
 
-    def n_step():
+    def grad_step(cfg, rx=RX):
         mats = default_materials(dev)
         v0 = tris.v0.detach().clone().requires_grad_(True)
         leaves = [torch.tensor(x, device=dev, requires_grad=True)
-                  for x in (RX, TX, FREQ_GHZ)]
+                  for x in (rx, TX, FREQ_GHZ)]
         res = trace(dataclasses.replace(tris, v0=v0), leaves[0], leaves[1],
-                    carrier_frequency=leaves[2], config=n_cfg,
+                    carrier_frequency=leaves[2], config=cfg,
                     materials=mats)
         grad_loss(res).backward()
+        torch.cuda.synchronize()
+
+    def fused_step(rx):
+        calibration_step(tris, rx, TX, FREQ_GHZ, default_materials(dev),
+                         calibration_config(PATHS, BOUNCES, True))
+
+    def paths_of(scene, nrx):
+        compute_paths(scene, rx_positions(nrx), TX, np.zeros((nrx, 3)),
+                      np.zeros((1, 3)), FREQ_GHZ, nrx, 1, PATHS, BOUNCES,
+                      device=dev, parity="reference", keep_rays=False,
+                      compact_rays=True)
         torch.cuda.synchronize()
 
     out = dict(tree=tree, gpu=smi())
     timed = []
     if steps in ("canyon", "all"):
-        timed += [("phase9", op_step), ("N", n_step)]
+        rx4 = rx_positions(4)
+        timed += [("phase9", op_step), ("N", lambda: grad_step(n_cfg)),
+                  ("7", lambda: fused_step(RX)),
+                  ("7_nrx4", lambda: fused_step(rx4)),
+                  ("G", lambda: grad_step(g_cfg)),
+                  ("G_nrx4", lambda: grad_step(g_cfg, rx4))]
     if steps in ("city", "all"):
         city, city_paths = city_scene(dev)
         e_cfg = calibration_config(PATHS, BOUNCES, True, parity="physical")
@@ -268,6 +407,9 @@ def child(tree, steps):
                          profile=window(torch, step))
     if steps in ("canyon", "all"):
         out["calls"] = calls(torch, fetch_cuda, dev)
+    if steps in ("canyon", "queries", "all"):
+        out["queries"] = queries(torch, dev, tris, paths_of,
+                                 lambda: grad_step(n_cfg))
     if steps in ("city", "all"):
         from hermespy_rt_tpu_torch import tracer
         from hermespy_rt_tpu_torch.ops import walk as walk_ops
@@ -310,13 +452,23 @@ def main():
     ap.add_argument("--tree", action="append", default=None)
     ap.add_argument("--order", default=None)
     ap.add_argument("--steps", default="all",
-                    choices=("all", "canyon", "city"))
+                    choices=("all", "canyon", "city", "queries"))
+    ap.add_argument("--out", default=None,
+                    help="also write every JSON line to this file")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
         return child(args.child, args.steps)
     trees = args.tree or ["."]
     order = [int(c) for c in (args.order or "0" * len(trees))]
+    out = open(args.out, "w") if args.out else None
+
+    def emit(line):
+        print(line, flush=True)
+        if out is not None:
+            out.write(line + "\n")
+            out.flush()
+
     runs = []
     for i in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -326,7 +478,7 @@ def main():
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
             sys.exit(f"profile_op_steps: tree {trees[i]} failed")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]), flush=True)
+        emit(json.dumps(runs[-1]))
     summary = {}
     for tree in trees:
         mine = [r for r in runs if r["tree"] == tree]
@@ -338,13 +490,15 @@ def main():
             return sum(vals) / len(vals), [min(vals), max(vals)]
 
         summary[tree] = {"turns": len(mine), "spread": {}}
-        steps = [k for k in ("phase9", "N", "D", "E") if k in mine[0]]
+        steps = [k for k in ("phase9", "N", "7", "7_nrx4", "G", "G_nrx4",
+                             "D", "E") if k in mine[0]]
         for step in steps:
             keys = {k: (lambda r, k=k: r[step]["profile"][k])
                     for k in ("wall_ms", "device_busy_ms", "device_ops",
                               "idle_share")}
             keys["wall_mean_ms"] = lambda r: r[step]["wall_mean_ms"]
-            for name in ("walk_kernel", "walk_prepass"):
+            for name in ("walk_kernel", "walk_prepass", "nearest_hit_kernel",
+                         "nearest_hit_culled_kernel"):
                 keys[f"{name}_ms"] = (
                     lambda r, n=name: r[step]["profile"]["named"][n]["ms"])
             summary[tree][step], summary[tree]["spread"][step] = {}, {}
@@ -364,8 +518,21 @@ def main():
                     row[k], spread[k] = stat(lambda r: r["walk"][q][k])
                 summary[tree]["walk"].append(row)
                 summary[tree]["spread"]["walk"].append(spread)
-    print(json.dumps({"summary": summary}), flush=True)
-    print(smi(), flush=True)
+        if "queries" in mine[0]:
+            summary[tree]["queries"], summary[tree]["spread"]["queries"] = (
+                {}, {})
+            for label, rows in mine[0]["queries"].items():
+                summary[tree]["queries"][label] = []
+                summary[tree]["spread"]["queries"][label] = []
+                for q in range(len(rows)):
+                    row, spread = dict(rows[q]), {}
+                    for k in ("brute_ms", "culled_ms"):
+                        row[k], spread[k] = stat(
+                            lambda r: r["queries"][label][q][k])
+                    summary[tree]["queries"][label].append(row)
+                    summary[tree]["spread"]["queries"][label].append(spread)
+    emit(json.dumps({"summary": summary}))
+    emit(smi())
 
 
 if __name__ == "__main__":

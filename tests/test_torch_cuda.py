@@ -19,6 +19,9 @@ table scatter-add (per-ray rows within their tier of the float64 plain
 version, sums across rays within theirs, the same bits in two runs), and
 that path's gradients (materials, positions, frequency, vertices) against
 the op path's.
+The brute and culled scans must give ``intersect_torch``'s bits, and the
+culled one the plain version's skip count, at every live share, ray count,
+triangle count and tie the tests plant.
 The row gather must equal ``table[idx]`` bit for bit; the shading kernel
 its plain version on a trace's recorded calls (a dead ray's state bit for
 bit, the rest within its tier); the culled query the brute twin's decisions
@@ -48,7 +51,8 @@ from hermespy_rt_tpu_torch.ops.intersect_cuda import (nearest_hit,
 from hermespy_rt_tpu_torch.ops.shade_cuda import shade_a
 from hermespy_rt_tpu_torch.ops.walk import (cull_boxes, prepare_walk,
                                             prepass_plain, query_limits,
-                                            visit_rows, walk_plain)
+                                            triangle_records, visit_rows,
+                                            walk_plain)
 from hermespy_rt_tpu_torch.ops.walk_cuda import walk, walk_prepass, walk_query
 from hermespy_rt_tpu_torch.scene import (HostMesh, HostScene, box_scene,
                                          flatten_scene, random_soup_scene)
@@ -743,6 +747,196 @@ def test_culled_kernel_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         nearest_hit_culled(o, d, tris, cull_boxes(tris),
                            skipped=torch.zeros(1, device=dev))
+
+
+def _scan_scene(dev, T, n=None, seed=7, copy=None):
+    """A soup of ``n`` (default ``T - 9``) random triangles padded to
+    exactly ``T``; with ``copy`` the soup's first ``copy`` triangles are
+    followed by their exact copies (``copy`` rows later), so a hit on one
+    ties with the other across tile edges of 64 and, for ``copy`` 200, of
+    256."""
+    m = random_soup_scene(n or max(T - 9, 1), seed=seed, extent=60.0,
+                          tri_size=4.0).meshes[0]
+    idx = m.indices.astype(np.int64)
+    if copy is not None:
+        idx = np.concatenate([idx[:copy], idx[:copy]])
+    host = HostScene([HostMesh(m.vertices, idx,
+                               material_index=m.material_index)])
+    tris = flatten_scene(host, pad_to=T, device=dev)
+    assert tris.pad_triangles == T
+    return tris
+
+
+def _scan_inputs(rng, tris, R, share, limit, dev):
+    """A query of R rays, half of them (the first four always) aimed at a
+    random triangle's centroid, with exclude (a random triangle, or for a
+    quarter of the aimed rays their target), the given live share (a
+    fraction scattered at random; "banded" fractions as runs of live rays
+    in bands of 2048; "one_a_block": one live ray in every block of 256;
+    "every_7th") and limit (None, "scalar" or "rays")."""
+    T = tris.num_triangles
+    cen = (tris.v0 + (tris.e1 + tris.e2) / 3.0)[:T].cpu().numpy()
+    o = rng.uniform(-70, 70, (R, 3)).astype(np.float32)
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    aim = (rng.uniform(size=R) < 0.5) | (np.arange(R) < 4)
+    target = rng.integers(0, T, int(aim.sum()))
+    d[aim] = cen[target] - o[aim]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ex = rng.integers(-1, tris.pad_triangles, R).astype(np.int32)
+    ex[np.flatnonzero(aim)[1::4]] = target[1::4]
+    r = np.arange(R)
+    if share == "one_a_block":
+        live = r % 256 == 37 % min(R, 256)
+    elif share == "every_7th":
+        live = r % 7 == 0
+    elif isinstance(share, str):                     # "0.17 banded"
+        live = r % 2048 < float(share.split()[0]) * 2048
+    else:
+        live = rng.uniform(size=R) < share
+    kw = dict(exclude=torch.as_tensor(ex, device=dev),
+              live=torch.as_tensor(live, device=dev))
+    if limit == "scalar":
+        kw["t_max"] = 60.0
+    elif limit == "rays":
+        kw["t_max"] = torch.as_tensor(rng.uniform(0, 90, R).astype(
+            np.float32), device=dev)
+    return torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev), kw
+
+
+def _hold_scans(o, d, tris, kw, label):
+    """The brute and the culled kernel, each twice, on the scene's records:
+    the same bits in both runs, ``intersect_torch``'s bits, and the culled
+    kernel's skip count ``culled_reach_plain``'s.  Returns ``(t, idx)``."""
+    records = triangle_records(tris.v0, tris.e1, tris.e2)
+    aabbs = cull_boxes(tris)
+    t_p, i_p = intersect_torch(o, d, tris, chunk_size=4096, **kw)
+    before = (nearest_hit.launches, nearest_hit_culled.launches)
+    for _ in range(2):
+        t_b, i_b = nearest_hit(o, d, tris, records=records, **kw)
+        skipped = torch.zeros(1, dtype=torch.int64, device=o.device)
+        t_c, i_c = nearest_hit_culled(o, d, tris, aabbs, skipped=skipped,
+                                      records=records, **kw)
+        torch.cuda.synchronize()
+        for t, i in ((t_b, i_b), (t_c, i_c)):
+            assert torch.equal(i, i_p), label
+            assert torch.equal(t.view(torch.int32), t_p.view(torch.int32))
+        checks.hold_culled(o, d, tris, kw, t_c, i_c, int(skipped), label)
+    assert (nearest_hit.launches, nearest_hit_culled.launches) == (
+        before[0] + 2, before[1] + 2)
+    return t_p, i_p
+
+
+@pytest.mark.parametrize("limit", [None, "scalar", "rays"])
+@pytest.mark.parametrize("share", [0.0, "one_a_block", "every_7th", 0.17,
+                                   "0.17 banded", 0.36, "0.36 banded", 1.0])
+def test_scan_kernels_live_shares(dev, share, limit):
+    rng = np.random.default_rng(31)
+    tris = _scan_scene(dev, 2048)
+    o, d, kw = _scan_inputs(rng, tris, (1 << 16) + 37, share, limit, dev)
+    t, i = _hold_scans(o, d, tris, kw, f"{share}/{limit}")
+    dead = ~kw["live"]
+    assert bool((i[dead] == -1).all()) and bool(torch.isinf(t[dead]).all())
+    assert (share == 0.0) == (not bool((i >= 0).any()))
+
+
+@pytest.mark.parametrize("R", [1, 255, 257, (1 << 16) + 37, (1 << 18) + 37])
+def test_scan_kernels_ray_counts(dev, R):
+    # on an H100's 132 SMs the brute kernel's blocks take 32 rays up to
+    # 2^16, 64 at 2^16 + 37 and 256 at 2^18 + 37 (brute_block_rays)
+    rng = np.random.default_rng(32)
+    tris = _scan_scene(dev, 2048)
+    for share, limit in ((1.0, None), (0.36, "rays")):
+        o, d, kw = _scan_inputs(rng, tris, R, share, limit, dev)
+        _hold_scans(o, d, tris, kw, f"R={R}/{share}")
+
+
+@pytest.mark.parametrize("T", [128, 256, 1000, 2048, 4095, 6000])
+def test_scan_kernels_triangle_counts(dev, T):
+    # 6000 triangles (288 KB of records) exceed the shared memory a block
+    # could hold the whole scene in
+    rng = np.random.default_rng(33)
+    tris = _scan_scene(dev, T)
+    for share, limit in ((1.0, "scalar"), ("one_a_block", None),
+                         (0.17, "rays")):
+        o, d, kw = _scan_inputs(rng, tris, 20000, share, limit, dev)
+        _, i = _hold_scans(o, d, tris, kw, f"T={T}/{share}")
+        assert bool((i >= 0).any())
+
+
+@pytest.mark.parametrize("copy", [64, 200])
+def test_scan_kernels_ties(dev, copy):
+    rng = np.random.default_rng(34)
+    tris = _scan_scene(dev, 512, n=copy, seed=9, copy=copy)
+    o, d, kw = _scan_inputs(rng, tris, 30000, 0.52, "rays", dev)
+    _, i = _hold_scans(o, d, tris, kw, f"ties/{copy}")
+    # an original wins its tie unless it is the ray's excluded triangle
+    h = i >= 0
+    ex = kw["exclude"][h]
+    assert bool(h.any()) and bool(((i[h] < copy) | (ex == i[h] - copy))
+                                  .all())
+    assert bool((i[h] >= copy).any())
+
+
+def _edge_rays(rng, tris, R, dev):
+    """R rays aimed at points a hair inside and outside random triangles'
+    edges: barycentric u, v or 1 - u - v within 5e-7 of 0, where the exact
+    tests on u and v decide and the division-free cut on u (mt.cuh) must
+    keep every pair the exact test accepts."""
+    T = tris.num_triangles
+    v0, e1, e2 = (getattr(tris, f)[:T].cpu().numpy() for f in
+                  ("v0", "e1", "e2"))
+    k = rng.integers(0, T, R)
+    off = rng.choice(np.float32([0, 1e-7, -1e-7, 2e-7, -2e-7, 5e-7, -5e-7]),
+                     (R, 2))
+    w = rng.uniform(0, 1, R).astype(np.float32)
+    edge = rng.integers(0, 3, R)          # u = 0, v = 0 or u + v = 1
+    a = np.where(edge == 0, off[:, 0], np.where(edge == 1, w, w + off[:, 0]))
+    b = np.where(edge == 0, w, np.where(edge == 1, off[:, 1],
+                                        1 - w + off[:, 1]))
+    target = (v0[k] + a[:, None].astype(np.float32) * e1[k]
+              + b[:, None].astype(np.float32) * e2[k])
+    o = target + rng.normal(size=(R, 3)).astype(np.float32) * 30.0
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.as_tensor(o.astype(np.float32), device=dev),
+            torch.as_tensor(d.astype(np.float32), device=dev))
+
+
+def test_scan_kernels_edge_hits(dev):
+    rng = np.random.default_rng(35)
+    tris = _scan_scene(dev, 256)
+    R = (1 << 16) + 37
+    o, d = _edge_rays(rng, tris, R, dev)
+    for kw in ({}, dict(live=torch.as_tensor(rng.uniform(size=R) < 0.36,
+                                             device=dev))):
+        _, i = _hold_scans(o, d, tris, kw, f"edges/{sorted(kw)}")
+        assert bool((i >= 0).any())
+
+
+def test_walk_kernel_edge_hits(dev):
+    rng = np.random.default_rng(36)
+    tris = _walk_scene(dev)
+    scene = prepare_walk(tris)
+    R = (1 << 16) + 37
+    o, d = _edge_rays(rng, tris, R, dev)
+    lim = query_limits(R, 256, device=dev)
+    _, i = _hold_walk(scene, o, d, lim, None, False)
+    assert bool((i >= 0).any())
+
+
+def test_scan_kernels_reject_bad_records(dev):
+    tris = _scan_scene(dev, 256)
+    o = torch.zeros((8, 3), device=dev)
+    d = torch.ones((8, 3), device=dev)
+    records = triangle_records(tris.v0, tris.e1, tris.e2)
+    with pytest.raises(ValueError):
+        nearest_hit(o, d, tris, records=records[:-1])
+    with pytest.raises(ValueError):
+        nearest_hit_culled(o, d, tris, cull_boxes(tris),
+                           records=records.double())
+    misaligned = torch.empty(256 * 12 + 1, device=dev)[1:].view(256, 12)
+    with pytest.raises(ValueError):
+        nearest_hit(o, d, tris, records=misaligned)
 
 
 @pytest.mark.parametrize("parity", ["reference", "physical"])

@@ -27,7 +27,8 @@ from hermespy_rt_tpu_torch.ops.intersect_cuda import nearest_hit_culled
 from hermespy_rt_tpu_torch.ops.walk import (CULL_BLOCK_RAYS, CULL_BLOCK_TRIS,
                                             cull_boxes, culled_reach_plain,
                                             query_limits)
-from tests.test_torch_intersect import _compare, _options, _rays, _scene
+from tests.test_torch_intersect import (_aimed_query, _compare, _options,
+                                        _rays, _scene, _tie_scene)
 
 
 def _np_reach(o, d, lo, hi, lim, tile_t):
@@ -72,6 +73,16 @@ def test_culled_reach_matches_numpy_slab_test(rng, opt):
         d[sl] = cone / np.linalg.norm(cone, axis=1, keepdims=True)
         o[sl] = origin
     kw = {k: torch.as_tensor(v) for k, v in _options(rng, opt, R, T).items()}
+    ref = _hold_reach(soa, tris, o, d, kw)
+    assert 0 < int(ref.sum()) < ref.size       # some tiles skipped, some not
+
+
+def _hold_reach(soa, tris, o, d, kw):
+    """``culled_reach_plain``'s reach against the numpy slab test on JAX's
+    ``_tile_aabbs``, each ray's nearest hit per tile within its limit from
+    the brute query on the tile's triangles; its answer against the brute
+    query's.  Returns the reference reach."""
+    R, T = o.shape[0], tris.pad_triangles
     lim = query_limits(R, CULL_BLOCK_RAYS, t_max=kw.get("t_max"),
                        live=kw.get("live"))
     reach, t, idx = culled_reach_plain(torch.as_tensor(o), torch.as_tensor(d),
@@ -107,7 +118,24 @@ def test_culled_reach_matches_numpy_slab_test(rng, opt):
     ref = _np_reach(pad(o), pad(d), boxes[:, 0:3], boxes[:, 3:6], lim_np,
                     tile_t)
     np.testing.assert_array_equal(reach.numpy(), ref)
-    assert 0 < int(ref.sum()) < ref.size       # some tiles skipped, some not
+    return ref
+
+
+@pytest.mark.parametrize("pattern", ["one_a_block", "every_7th", "0.17",
+                                     "0.17 banded"])
+def test_culled_reach_on_scan_patterns(rng, pattern):
+    # the scan kernels' live patterns, 2600 rays (not a multiple of 256),
+    # ties across tile edges of 64 (tests/test_torch_intersect.py)
+    soa = _tie_scene()
+    tris = soa_from_jax(vars(soa))
+    o, d, kw = _aimed_query(rng, soa, 2600, pattern)
+    ref = _hold_reach(soa, tris, o, d, {k: torch.as_tensor(v)
+                                        for k, v in kw.items()})
+    assert int(ref.sum()) > 0
+    if pattern in ("one_a_block", "0.17 banded"):
+        # blocks of one live ray, or none: some tiles are skipped (with
+        # ~40 scattered live rays a block, every tile is reached)
+        assert int(ref.sum()) < ref.size
 
 
 @pytest.mark.parametrize("opt", ["plain", "t_max_rays", "live", "all"])
