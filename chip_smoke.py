@@ -54,14 +54,15 @@ The large-scene path, on the config-5 city (``scene.make_city``: 131,072
 triangles, written as a Sionna XML + PLY scene, read back by
 ``load_scene``, Morton-sorted), TX (-120, 80, 45), RX (30, -40, 1.5) +
 k (1.5, -2, 0.25), 3 GHz, B = 3, physical parity, coherent launch order,
-compact rays; every query goes through the visit-list walk (prepass kernel,
-a stable sort, walk kernel):
+compact rays; every query goes through the visit-list walk (the prepass
+kernel, which writes the visit rows, then the walk kernel):
 
 A. city       -- write, read and flatten the city: triangles, host seconds,
                  fine tiles and coarse boxes, the materials in use.
 B. walk       -- record the queries of one 2^20-path forward (nrx = 1) and
-                 its launches; per query the prepass kernel against its
-                 plain version (reach, key and visit rows equal), the walk
+                 its launches; per query the prepass kernel's visit rows
+                 equal to the plain version's (``visit_rows`` of
+                 ``prepass_plain``) and to a second run's, the walk
                  kernel against its plain version on every ray (the same
                  bits; the same bits again in a second run) and against the
                  brute kernel on every ray (nearest mode: every flip an f64
@@ -70,9 +71,14 @@ B. walk       -- record the queries of one 2^20-path forward (nrx = 1) and
                  lengths, live rays, listed and block-reached fine tiles,
                  the bound's ray-reached pairs and the contract's pairs
                  (live rays x block-reached tiles x block_tris) with the
-                 time they bound; device times of prepass, sort and walk,
-                 their plain versions' and their bounds; the walk kernel's
-                 registers and spills from the build.
+                 time they bound; device times of prepass and walk, their
+                 plain versions' and their bounds (the prepass's over the
+                 pairs its per-tile prune keeps, ``prepass_kept_plain``,
+                 which must keep every reached box, and the prune's tests;
+                 beside it over all live pairs at the f32 rate and at the
+                 half rate that operations without FMA reach, with its
+                 live ray tiles); both kernels' registers and spills from
+                 the build.
 C. city_equal -- a 14,336-triangle city at 2^14 paths: walk=True against
                  walk=False and against the culled query (walk=False,
                  cull=True), both parities, nrx = 1 and 4, every output equal
@@ -113,7 +119,8 @@ H. bwd_kernel -- every recorded call of the full backwards and the
                  CUDA events), plain time, bound; the scatter-add's first
                  and busiest calls with the whole call's device time and
                  operations and ``index_add_``'s time (on the kept rows, and
-                 on all rows with the dropped ones zeroed).
+                 on all rows with the dropped ones zeroed); each timed
+                 kernel's share of its bound, registers and spills.
 I. slim_stages -- ``unroll_bounces=False`` (the slim per-stage backwards) at
                  2^20 paths, nrx = 1: launches, the two slim kernels and the
                  scatter-add held and timed the same way, the material
@@ -122,7 +129,9 @@ J. city_grad  -- ``config5_e2e.py``'s loss through the full-gradient fused
                  path on the city at 2^20 paths, nrx = 1: gradients to the
                  materials and the TX position, finite, nonzero and within
                  their tier of phase F's; wall, device busy, idle share,
-                 launches.
+                 launches; its full pre backward calls (kernel 12) held as
+                 in H, each with its device time, bound and share, and the
+                 kernel's registers and spills.
 
 The op path with every kernel (``trace(shade="pallas", cull=True,
 compact_rays=True)``: the culled query, the row gather with the scatter-add
@@ -157,8 +166,11 @@ M. culled     -- every recorded culled query of N (LoS, bounce, shadow;
                  shadow query and C's city bounce query timed against the
                  brute kernel and the plain version, with their bounds.
 
-Then the kernel summary, the card's name and power limit, and the result
-line.  Without a CUDA device it exits non-zero and prints no result.
+Then the profiler's windows (each opened on a warm-up cycle and taken
+again while it misses launches; every device time is a window's sum over
+its calls) and the launches they still missed, the kernel summary, the
+card's name and power limit, and the result line.  Without a CUDA device
+it exits non-zero and prints no result.
 """
 import contextlib
 import dataclasses
@@ -166,7 +178,6 @@ import importlib.util
 import json
 import math
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -180,6 +191,10 @@ from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
                                    default_materials, trace)
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS, MATERIAL_NAMES
+from hermespy_rt_tpu_torch.measure import (
+    BWD_POST_OPS, BWD_PRE_OPS, F32_OPS_PER_S, NEAREST_HIT_OPS_PER_PAIR,
+    POST_OPS_PER_RX, PRE_OPS_PER_RAY, PRE_OPS_PER_RX, SLAB_OPS, bound,
+    bwd_work, event_ms, kernel_ptxas, nbytes, prepass_bounds, profiled)
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops import fetch_cuda, shade_cuda, walk_cuda
 from hermespy_rt_tpu_torch.ops._cuda_build import BUILD_DIR, LIBRARY
@@ -191,9 +206,9 @@ from hermespy_rt_tpu_torch.ops.intersect_cuda import (SOURCE, nearest_hit,
                                                       nearest_hit_culled)
 from hermespy_rt_tpu_torch.ops.shade import shade_a_plain
 from hermespy_rt_tpu_torch.ops.walk import (CULL_BLOCK_RAYS, CULL_BLOCK_TRIS,
-                                            prepare_walk, prepass_plain,
-                                            query_limits, visit_rows,
-                                            walk_plain)
+                                            prepare_walk, prepass_kept_plain,
+                                            prepass_plain, query_limits,
+                                            visit_rows, walk_plain)
 from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene, load_hrt,
                                          load_scene, make_city,
                                          random_soup_scene)
@@ -216,36 +231,8 @@ SMALL_PATHS = 1 << 16    # paths of the kernel-vs-twin trace and the backward
 KERNEL_RAYS = 1 << 18    # rays per kernel-vs-twin query
 TWIN_CHUNK = 1 << 15     # ray chunk of the plain twin on the card
 
-# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device memory rate
-# and f32 rate outside the tensor cores.  The bound of a kernel is the larger
-# of its bytes (each input read once, each output written once) over the
-# first and its f32 operations over the second.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# f32 operations counted in the kernels' sources (mul, add, sub, div, sqrt
-# and each libm call as one): nearest hit per (live ray, triangle) pair
-# (csrc/intersect.cu: 46 mul/add/sub and one division); the pre stage per
-# ray plus per (ray, RX); the post stage per (ray, RX); the backward per live
-# ray and bounce (pre vjp) plus per written (ray, RX) and bounce (post vjp)
-# (csrc/bounce_fused.cu), each rounded up.
-NEAREST_HIT_OPS_PER_PAIR = 47
-PRE_OPS_PER_RAY, PRE_OPS_PER_RX = 180, 30
-POST_OPS_PER_RX = 150
-BWD_PRE_OPS, BWD_POST_OPS = 120, 100
-# the per-stage backwards (csrc/bounce_bwd.cu), each the forward it
-# recomputes plus its vjp: the full pre per ray (forward, Fresnel vjp,
-# geometry vjp) plus per (ray, RX) (shadow set-up and its vjp); the full post
-# per (ray, RX) (forward, Doppler, scattering and amplitude vjps); the slim
-# ones as the whole-loop backward's per-bounce parts (BWD_PRE_OPS per live
-# ray, BWD_POST_OPS per written (ray, RX)); the scatter-add one add per
-# (kept row, column)
-PRE_BWD_OPS_PER_RAY, PRE_BWD_OPS_PER_RX = 460, 60
-POST_BWD_OPS_PER_RX = 360
-# f32 operations counted in csrc/walk.cu: one slab test of a ray against a
-# box (3 axes of 2 sub, 2 mul, min, max; the 4 min/max joining them; 4
-# compares), and the prepass's per-pair key (max with 0, min)
-SLAB_OPS = 26
-PREPASS_OPS_PER_PAIR = SLAB_OPS + 2
+# The card's peak rates, the kernels' f32 operation counts and the bounds
+# they give are in hermespy_rt_tpu_torch/measure.py.
 CITY = {}                  # make_city's defaults: 131,072 triangles
 CITY_TRIANGLES = 131072
 CITY_TX = [[-120.0, 80.0, 45.0]]
@@ -313,38 +300,40 @@ def time_pair(run_k, run_p, reps_k=20, reps_p=3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_events(fn, reps):
-    """The device events (torch.profiler's ``key_averages``) of ``reps``
-    calls of ``fn`` after one warm-up."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+PROFILER = dict(windows=0, taken_again=0, missed=0, windows_with_misses=[])
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+
+def device_window(fn, reps, label):
+    """A profiler window over ``reps`` calls of ``fn``
+    (``measure.profiled``: warm, opened on a warm-up cycle, taken again
+    while it misses launches), the kernel wrappers' launch counts checked
+    against its device rows.  Every window is counted in :data:`PROFILER`,
+    and one that still missed launches is listed there under ``label``."""
+    w = profiled(fn, reps, read_counts)
+    PROFILER["windows"] += 1
+    PROFILER["taken_again"] += w.tries > 1
+    if w.missed:
+        PROFILER["missed"] += w.missed
+        PROFILER["windows_with_misses"].append([label, reps, w.missed,
+                                                w.odd[:4]])
+    return w
 
 
 def device_ms(fn, reps, kernel=None):
-    """Device time in ms per call of ``fn``: the device events' own times
-    (torch.profiler) over ``reps`` calls after one warm-up, only those of
-    ``kernel`` when it is named.  Unlike :func:`time_pair` it leaves out the
+    """Device time in ms per call of ``fn``: the own times of the device
+    events (torch.profiler) of ``reps`` calls, only those of ``kernel`` when
+    it is named, over ``reps``.  Unlike :func:`time_pair` it leaves out the
     host's gaps between launches."""
-    ev = [e for e in device_events(fn, reps)
-          if kernel is None or f"{kernel}_kernel" in e.key]
-    return sum(_device_ms(e) for e in ev) / reps
+    ev = device_window(fn, reps, kernel or "whole call").device
+    return sum(event_ms(e) for e in ev
+               if kernel is None or f"{kernel}_kernel" in e.key) / reps
 
 
 def call_profile(fn, reps):
     """A whole call of ``fn`` on the device: its device time in ms, its
     device operations and their names (every device event of the call)."""
-    ev = device_events(fn, reps)
-    return (sum(_device_ms(e) for e in ev) / reps,
+    ev = device_window(fn, reps, "whole call").device
+    return (sum(event_ms(e) for e in ev) / reps,
             sum(e.count for e in ev) / reps,
             sorted({e.key[:60] for e in ev}))
 
@@ -597,45 +586,29 @@ def phase_path(recorded):
     return worst, total_flips, timing
 
 
-def _device_ms(evt):
-    us = getattr(evt, "self_device_time_total", None)
-    if us is None:
-        us = evt.self_cuda_time_total
-    return us / 1e3
-
-
 def phase_profile(host, dev):
     """One profiler window per nrx over a warm 2^20-path ``compute_paths``
     (launch directions cached).  Device busy is the sum of the device
     events' own times (kernels and copies run one at a time on the one
     stream); the idle share is the rest of the profiled call's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for nrx in (1, 4):
-        run_paths(host, nrx, dev, "cuda", PATHS)               # warm-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_paths(host, nrx, dev, "cuda", PATHS)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = prof.key_averages()
-        dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
-        host_ms = sum(e.self_cpu_time_total for e in rows
-                      if e.device_type == DeviceType.CPU) / 1e3
+        w = device_window(lambda: run_paths(  # noqa: B023
+            host, nrx, dev, "cuda", PATHS), 1, f"profile nrx {nrx}")
+        wall_ms, dev_rows = w.wall_ms, w.device
+        host_ms = sum(e.self_cpu_time_total for e in w.host) / 1e3
         out = dict(phase="profile", nrx=nrx, paths=PATHS, wall_ms=wall_ms,
                    host_self_ms=host_ms, gpu=smi())
         if dev_rows:
-            busy = sum(_device_ms(e) for e in dev_rows)
+            busy = sum(event_ms(e) for e in dev_rows)
             nh = [e for e in dev_rows if "nearest_hit_kernel" in e.key]
-            nh_ms = sum(_device_ms(e) for e in nh)
-            top = sorted(dev_rows, key=_device_ms, reverse=True)[:5]
+            nh_ms = sum(event_ms(e) for e in nh)
+            top = sorted(dev_rows, key=event_ms, reverse=True)[:5]
             out.update(device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
                        nearest_hit_ms=nh_ms,
                        nearest_hit_launches=sum(e.count for e in nh),
                        nearest_hit_share=nh_ms / busy,
                        device_ops=sum(e.count for e in dev_rows),
-                       top_device=[[e.key[:60], _device_ms(e), e.count]
+                       top_device=[[e.key[:60], event_ms(e), e.count]
                                    for e in top])
         else:
             out.update(device_busy_ms=None,
@@ -662,20 +635,6 @@ def phase_grad(host, dev):
         gmax[f] = float(g.abs().max())
     check(any(v > 0 for v in gmax.values()), "all material gradients zero")
     emit(phase="grad", ok=True, loss=float(loss.detach()), grad_abs_max=gmax)
-
-
-def nbytes(*xs):
-    """Bytes of the tensors among ``xs``, each counted once."""
-    return sum(x.numel() * x.element_size() for x in xs
-               if isinstance(x, torch.Tensor))
-
-
-def bound(n_bytes, n_ops):
-    """(least time in ms on an H100 SXM, "bytes" or "operations")."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 def calib_config(paths, nrx, fused):
@@ -868,9 +827,6 @@ def phase_profile_step(tris, dev):
     """One profiler window over a warm forward+backward step at nrx = 1, of
     the fused path and of the op path: device busy, the four kernels' times
     and launches, device operations and the idle share of the step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     mats = default_materials(dev)
     for shade in ("fused", "xla"):
         cfg = calib_config(PATHS, 1, shade == "fused")
@@ -878,31 +834,26 @@ def phase_profile_step(tris, dev):
         t0 = time.perf_counter()
         calib_step(tris, 1, mats, cfg)
         unprofiled_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            calib_step(tris, 1, mats, cfg)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = prof.key_averages()
-        dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
-        host_ms = sum(e.self_cpu_time_total for e in rows
-                      if e.device_type == DeviceType.CPU) / 1e3
+        w = device_window(lambda: calib_step(  # noqa: B023
+            tris, 1, mats, cfg), 1, f"profile_step {shade}")
+        wall_ms, dev_rows = w.wall_ms, w.device
+        host_ms = sum(e.self_cpu_time_total for e in w.host) / 1e3
         out = dict(phase="profile_step", shade=shade, nrx=1, paths=PATHS,
                    wall_ms=wall_ms, unprofiled_wall_ms=unprofiled_ms,
                    host_self_ms=host_ms, gpu=smi())
         if dev_rows:
-            busy = sum(_device_ms(e) for e in dev_rows)
+            busy = sum(event_ms(e) for e in dev_rows)
             per = {}
             for name in KERNELS:
                 ev = [e for e in dev_rows if f"{name}_kernel" in e.key]
-                per[name] = dict(ms=sum(_device_ms(e) for e in ev),
+                per[name] = dict(ms=sum(event_ms(e) for e in ev),
                                  launches=sum(e.count for e in ev))
-            top = sorted(dev_rows, key=_device_ms, reverse=True)[:8]
+            top = sorted(dev_rows, key=event_ms, reverse=True)[:8]
             out.update(device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
                        idle_share_unprofiled=1.0 - busy / unprofiled_ms,
                        kernels=per, device_ops=sum(e.count for e in dev_rows),
                        indexing_backward_ms=indexing_backward_ms(dev_rows),
-                       top_device=[[e.key[:60], _device_ms(e), e.count]
+                       top_device=[[e.key[:60], event_ms(e), e.count]
                                    for e in top])
         else:
             out.update(device_busy_ms=None,
@@ -929,40 +880,32 @@ def read_counts():
 def indexing_backward_ms(dev_rows):
     """Device time of PyTorch's indexing backward (the backward of a
     ``table[idx]`` gather) among profiled device events."""
-    return sum(_device_ms(e) for e in dev_rows
+    return sum(event_ms(e) for e in dev_rows
                if "indexing_backward" in e.key)
 
 
-def profile_window(fn):
-    """One profiler window over ``fn`` (warm): wall, device busy, device
-    operations, idle share and the top device operations."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+def profile_window(fn, label):
+    """One profiler window over a call of ``fn`` (:func:`device_window`):
+    wall, device busy, device operations, idle share and the top device
+    operations."""
+    w = device_window(fn, 1, label)
+    wall_ms, dev_rows = w.wall_ms, w.device
     if not dev_rows:
         return dict(wall_ms=wall_ms, device_busy_ms=None,
                     note="the profiler recorded no device events")
-    busy = sum(_device_ms(e) for e in dev_rows)
+    busy = sum(event_ms(e) for e in dev_rows)
     per = {}
     for name in ("walk_prepass", "walk", "nearest_hit", *FUSED, *STAGE_BWD,
                  "scatter_add", "nearest_hit_culled", "gather", "shade_a"):
         ev = [e for e in dev_rows if f"{name}_kernel" in e.key]
-        per[name] = dict(ms=sum(_device_ms(e) for e in ev),
+        per[name] = dict(ms=sum(event_ms(e) for e in ev),
                          launches=sum(e.count for e in ev))
-    top = sorted(dev_rows, key=_device_ms, reverse=True)[:8]
+    top = sorted(dev_rows, key=event_ms, reverse=True)[:8]
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=1.0 - busy / wall_ms, kernels=per,
                 indexing_backward_ms=indexing_backward_ms(dev_rows),
                 device_ops=sum(e.count for e in dev_rows),
-                top_device=[[e.key[:60], _device_ms(e), e.count]
+                top_device=[[e.key[:60], event_ms(e), e.count]
                             for e in top])
 
 
@@ -1094,24 +1037,6 @@ def walk_work(o, d, scene, lim, visits, t, exclude_given, block_reached):
                 + SLAB_OPS * listed)
 
 
-def kernel_ptxas(name):
-    """Registers, spills and shared memory of the kernel ``name`` from the
-    build's ``-Xptxas -v`` lines (None when this process did not build)."""
-    out, lines = None, LIBRARY.build_log.splitlines()
-    for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and f"{name}E" in ln:
-            out = {}
-            for nxt in lines[i + 1:i + 5]:
-                for key, pat in (("registers", r"Used (\d+) registers"),
-                                 ("spill_stores", r"(\d+) bytes spill stores"),
-                                 ("spill_loads", r"(\d+) bytes spill loads"),
-                                 ("smem_bytes", r"(\d+) bytes smem")):
-                    m = re.search(pat, nxt)
-                    if m:
-                        out[key] = int(m.group(1))
-    return out
-
-
 def phase_walk(tris, dev):
     """B: the walk kernels on the recorded queries of one config-5 forward.
     Returns the launches of that forward and the timing rows."""
@@ -1128,8 +1053,7 @@ def phase_walk(tris, dev):
           f"city forward launches {launches}")
     check(len(rec.queries) == 1 + 2 * BOUNCES, "recorded queries")
     timing = {}
-    totals = dict(brute_flips=0, walk_max_abs_err=0.0,
-                  prepass_key_max_abs_err=0.0)
+    totals = dict(brute_flips=0, walk_max_abs_err=0.0)
     for qi, (o, d, scene, kw, t_k, i_k) in enumerate(rec.queries):
         label = f"walk/q{qi}"
         R = o.shape[0]
@@ -1137,17 +1061,16 @@ def phase_walk(tris, dev):
         any_hit = bool(kw.get("any_hit")) and t_max is not None
         lim = query_limits(R, scene.block_rays, t_max=t_max, live=live,
                            device=dev)
-        reach, key = walk_cuda.walk_prepass(o, d, lim, scene.boxes)
-        r_p, k_p = prepass_plain(o, d, lim, scene.boxes, scene.block_rays)
-        fin = torch.isfinite(k_p)
-        key_err = (float((key[fin] - k_p[fin]).abs().max()) if fin.any()
-                   else 0.0)
-        check(torch.equal(reach, r_p) and torch.equal(key, k_p),
-              f"{label}: prepass reach/key differ from the plain version "
-              f"(key err {key_err})")
-        visits = visit_rows(reach, key)
-        check(torch.equal(visits, visit_rows(r_p, k_p)),
-              f"{label}: visit rows differ")
+        visits = walk_cuda.walk_prepass(o, d, lim, scene.boxes)
+        rows_p = visit_rows(*prepass_plain(o, d, lim, scene.boxes,
+                                           scene.block_rays))
+        check(torch.equal(visits, rows_p),
+              f"{label}: the prepass kernel's visit rows differ from the "
+              f"plain version's in {int((visits != rows_p).any(1).sum())} "
+              f"ray tiles")
+        check(torch.equal(walk_cuda.walk_prepass(o, d, lim, scene.boxes),
+                          visits), f"{label}: the prepass is not "
+              "deterministic")
         t_w, i_w = walk_cuda.walk(o, d, lim, scene, visits, exclude=ex,
                                   any_hit=any_hit)
         check(torch.equal(t_w.view(torch.int32), t_k.view(torch.int32))
@@ -1168,8 +1091,6 @@ def phase_walk(tris, dev):
         walk_err = (float((t_p[fin] - t_k[fin]).abs().max())
                     if fin.any() else 0.0)
         totals["walk_max_abs_err"] = max(totals["walk_max_abs_err"], walk_err)
-        totals["prepass_key_max_abs_err"] = max(
-            totals["prepass_key_max_abs_err"], key_err)
         check(plain_flips == 0 and torch.equal(t_p.view(torch.int32),
                                                t_k.view(torch.int32)),
               f"{label}: {plain_flips} flips against the plain walk")
@@ -1222,38 +1143,56 @@ def phase_walk(tris, dev):
                    contract_bound=bound(work["bytes"], work["contract_ops"]),
                    walk_bytes=work["bytes"], walk_ops=work["ops"],
                    walk_plain_ms=walk_plain_ms)
-        # every query's prepass and walk device time: later bounces start
-        # from scattered hit points, so their ray tiles are less coherent
-        row["prepass_ms"] = device_ms(
-            lambda: walk_cuda.walk_prepass(o, d, lim, scene.boxes), 5,
-            "walk_prepass")
+        # every query's prepass (its visit rows included) and walk device
+        # time: later bounces start from scattered hit points, so their ray
+        # tiles are less coherent.  The prepass's bound is over the work it
+        # does: 28 operations a (live ray, box) pair its per-tile prune keeps
+        # and the prune's per (ray tile with a live ray, box), the rays and
+        # boxes read once and the rows written once; beside it the bound
+        # over every (live ray, box) pair at the f32 rate and at the half
+        # rate that operations without FMA reach
+        run_pre = lambda: walk_cuda.walk_prepass(  # noqa: E731
+            o, d, lim, scene.boxes)
+        # the boxes the prune keeps must hold every box the tile reaches
+        kept = prepass_kept_plain(o, d, lim, scene.boxes, scene.block_rays)
+        n_reach = visits[:, 0].long()
+        reached = (torch.arange(scene.n_boxes, device=dev)[None, :]
+                   < n_reach[:, None])
+        check(bool(kept.gather(1, visits[:, 1:].long())[reached].all()),
+              f"{label}: the prune dropped a reached box")
+        pre = prepass_bounds(nbytes(o, d, lim, scene.boxes, visits),
+                             (lim >= 0).reshape(-1, scene.block_rays).sum(1),
+                             scene.n_boxes, kept)
+        row.update(prepass_ms=device_ms(run_pre, 5, "walk_prepass"),
+                   prepass_bound=pre["kept"],
+                   prepass_kept_pairs=pre["kept_pairs"],
+                   prepass_pairs=pre["pairs"],
+                   prepass_all_pairs_bound=pre["all_pairs"],
+                   prepass_all_pairs_bound_half_rate=pre[
+                       "all_pairs_half_rate"],
+                   live_ray_tiles=pre["live_tiles"])
+        row["prepass_share"] = row["prepass_bound"][0] / row["prepass_ms"]
         row["walk_ms"] = device_ms(
             lambda: walk_cuda.walk(o, d, lim, scene, visits, exclude=ex,
                                    any_hit=any_hit), 5, "walk")
         if qi in (1, 2):     # the first bounce query and its shadow query
             name = "bounce" if qi == 1 else "shadow"
-            run_pre = lambda: walk_cuda.walk_prepass(  # noqa: E731
-                o, d, lim, scene.boxes)
-            run_sort = lambda: visit_rows(reach, key)  # noqa: E731
             run_walk = lambda: walk_cuda.walk(  # noqa: E731
                 o, d, lim, scene, visits, exclude=ex, any_hit=any_hit)
-            pre_bytes = nbytes(o, d, lim, scene.boxes, reach, key)
-            pre_ops = PREPASS_OPS_PER_PAIR * n_live * scene.n_boxes
             row.update(
                 prepass_ms=device_ms(run_pre, 20, "walk_prepass"),
                 prepass_plain_ms=device_ms(
-                    lambda: prepass_plain(o, d, lim, scene.boxes,
-                                          scene.block_rays), 2),
-                sort_ms=device_ms(run_sort, 20),
+                    lambda: visit_rows(*prepass_plain(
+                        o, d, lim, scene.boxes, scene.block_rays)), 2),
                 walk_ms=device_ms(run_walk, 20, "walk"),
                 # the whole call: the kernel and the sort of its block order
                 walk_call_ms=device_ms(run_walk, 20),
                 # CUDA events: the profiler reported no device time for
                 # these 0.1-1 s launches
                 brute_ms=cuda_ms(lambda: nearest_hit(
-                    o, d, tris, exclude=ex, t_max=t_max, live=live), 1),
-                prepass_bound=bound(pre_bytes, pre_ops),
-                prepass_bytes=pre_bytes, prepass_ops=pre_ops)
+                    o, d, tris, exclude=ex, t_max=t_max, live=live), 1))
+            row["prepass_share"] = (row["prepass_bound"][0]
+                                    / row["prepass_ms"])
             if any_hit:     # what the early exit saves on this query
                 row["walk_nearest_mode_ms"] = device_ms(
                     lambda: walk_cuda.walk(o, d, lim, scene, visits,
@@ -1263,10 +1202,17 @@ def phase_walk(tris, dev):
         timing.setdefault("queries", []).append({k: row[k] for k in (
             "rays", "live", "any_hit", "walk_ms", "walk_bound",
             "contract_bound", "listed_tiles", "block_reached_tiles",
-            "ray_reached_pairs", "contract_pairs")})
-    timing["ptxas"] = kernel_ptxas("walk_kernel")
+            "ray_reached_pairs", "contract_pairs", "prepass_ms",
+            "prepass_bound", "prepass_kept_pairs", "prepass_pairs",
+            "prepass_all_pairs_bound", "prepass_all_pairs_bound_half_rate",
+            "live_ray_tiles")})
+    timing["ptxas"] = kernel_ptxas(LIBRARY.build_log, "walk_kernel")
+    timing["prepass_ptxas"] = kernel_ptxas(LIBRARY.build_log,
+                                           "walk_prepass_kernel")
     emit(phase="walk_summary", launches_per_forward=launches, **totals,
-         walk_kernel_ptxas=timing["ptxas"])
+         prepass_ms_seven=sum(q["prepass_ms"] for q in timing["queries"]),
+         walk_kernel_ptxas=timing["ptxas"],
+         prepass_kernel_ptxas=timing["prepass_ptxas"])
     timing["errors"] = totals
     return launches, timing
 
@@ -1375,7 +1321,7 @@ def phase_city_forward(tris):
     for _ in range(3):
         city_paths(tris, nrx, PATHS)
     s = (time.perf_counter() - t0) / 3
-    prof = profile_window(lambda: city_paths(tris, nrx, PATHS))
+    prof = profile_window(lambda: city_paths(tris, nrx, PATHS), "D")
     # the brute-force control, once, as benchmarks/config5_e2e.py runs one
     t0 = time.perf_counter()
     _, sc_b = city_paths(tris, nrx, PATHS, walk=False)
@@ -1425,7 +1371,7 @@ def phase_city_train(tris, dev):
             for _ in range(3):
                 step(cfgs[True], bwd)
             times["fwd_bwd" if bwd else "fwd"] = (time.perf_counter() - t0) / 3
-        prof = profile_window(lambda: step(cfgs[True]))
+        prof = profile_window(lambda: step(cfgs[True]), "E")
 
         grads, scat = {}, {}
         for fused in (False, True):
@@ -1479,7 +1425,7 @@ def phase_city_loss(tris, dev):
     check(bool(torch.isfinite(leaves).all()) and bool((leaves != 0).any())
           and bool((g_tx != 0).any()) and math.isfinite(float(loss.detach())),
           "config5 loss: gradients not finite or zero")
-    prof = profile_window(run)
+    prof = profile_window(run, "F")
     emit(phase="city_loss", paths=PATHS, bounces=BOUNCES,
          loss=float(loss.detach()),
          tx_grad=g_tx.cpu().tolist()[0], wall_s=wall,
@@ -1583,7 +1529,7 @@ def phase_grad_step(tris, dev):
         loss_value, maxima = float(loss.detach()), grad_maxima(grads)
         del res, loss, grads
         step_s = mean_s(lambda: step())
-        prof = profile_window(lambda: step())
+        prof = profile_window(lambda: step(), f"G nrx {nrx}")
         # at 2^16 paths: every gradient against the op path's autograd
         small = {fused: grad_step(tris, rx_positions(nrx), TX, FREQ_GHZ,
                                   grad_config(SMALL_PATHS, fused))[2]
@@ -1596,41 +1542,6 @@ def phase_grad_step(tris, dev):
              queries_per_s=BOUNCES * PATHS * (1 + nrx) / step_s,
              grad_vs_op_path_max_leaf_share=share, profile=prof, gpu=smi())
     return counts, recorded
-
-
-def bwd_work(name, spec, args, outs):
-    """(bytes, f32 operations) that one call of backward kernel ``name``
-    must move and do on this run's data: each input it needs read once
-    (the payload table once), each output written once."""
-    nrx = spec.nrx
-    if name == "bounce_pre_bwd":
-        R = args[0].shape[0]
-        return (nbytes(*args, *outs),
-                R * (PRE_BWD_OPS_PER_RAY + PRE_BWD_OPS_PER_RX * nrx))
-    if name == "bounce_post_bwd":
-        R = args[0].shape[0]
-        ex = args[2]
-        unused = 0 if spec.parity == "physical" else nbytes(ex[2])
-        return (nbytes(*args, *(x for x in outs if x is not None)) - unused,
-                R * nrx * POST_BWD_OPS_PER_RX)
-    if name == "bounce_pre_bwd_slim":
-        # every ray: act, idx, its state cotangent in and out, its eta rows
-        # out; a live ray: state rows 0-3 and the residuals; the eta columns
-        # of the table once
-        st, act, idx, table, _, d_st2 = args
-        n_live = int((act & (idx >= 0)).sum())
-        return (nbytes(act, idx, d_st2, *outs) + n_live * (16 + 12)
-                + table.shape[0] * 48, n_live * BWD_PRE_OPS)
-    # bounce_post_bwd_slim: every ray its id, the freq cotangents and the
-    # write scales per RX, its outputs; a written (ray, RX) the residual and
-    # cotangent rows 0-4, a ray written anywhere its state rows 0-3; the
-    # table's (s, s1_alpha) once
-    st2, excl, table, res, d_out = args
-    written = res[:, 5] > 0                                   # [nrx, R]
-    n_write = int(written.sum())
-    return (nbytes(excl, *outs) + 8 * excl.numel() * nrx + 40 * n_write
-            + 16 * int(written.any(dim=0).sum()) + table.shape[0] * 8,
-            n_write * BWD_POST_OPS)
 
 
 def scatter_work(idx, g, T):
@@ -1692,6 +1603,8 @@ def hold_recorded(calls, names, label):
             name, lambda: KERNELS[name](*args),  # noqa: B023
             lambda: PLAIN[name](*args),          # noqa: B023
             *bwd_work(name, spec, rest, list(out)))
+        timing.update(share=timing["bound_ms"] / timing["ms"],
+                      ptxas=kernel_ptxas(LIBRARY.build_log, f"{name}_kernel"))
         emit(phase="bwd_kernel_time", run=label, kernel=name, **timing,
              gpu=smi())
         summary[name] = dict(max_abs_err=worst, timing=timing)
@@ -1831,7 +1744,8 @@ def phase_city_grad(city, dev, f_grads):
     loss_value, maxima = float(loss.detach()), grad_maxima(grads)
     del grads
     wall_s = mean_s(step)
-    prof = profile_window(step)
+    prof = profile_window(step, "J")
+    pre_bwd = city_pre_bwd(step)
     emit(phase="city_grad", paths=PATHS, bounces=BOUNCES, nrx=1,
          launches=launches, loss=loss_value, grad_abs_max=maxima,
          grad_vs_op_path_max_leaf_share=share, fwd_bwd_s=wall_s,
@@ -1839,8 +1753,34 @@ def phase_city_grad(city, dev, f_grads):
          device_busy_ms=prof["device_busy_ms"],
          idle_share=prof.get("idle_share"), device_ops=prof.get("device_ops"),
          kernels=prof.get("kernels"), top_device=prof.get("top_device"),
-         gpu=smi())
+         pre_bwd=pre_bwd, gpu=smi())
     return launches
+
+
+def city_pre_bwd(step):
+    """J's full pre backward calls: one step recorded, each call held
+    against its plain version in float64 and timed against its bound, with
+    the kernel's registers and spills."""
+    with recording_fused() as calls:
+        step()
+    rows = []
+    for i, (args, out) in enumerate(calls["bounce_pre_bwd"]):
+        spec, rest = args[0], args[1:]
+        label = f"J bounce_pre_bwd{i}"
+        try:
+            err, _, far = hold_pre_bwd(spec, rest, out, label)
+        except CheckFailure as e:
+            FAILURES.append(str(e))
+            err, far = None, None
+        bound_ms, bound_by = bound(*bwd_work("bounce_pre_bwd", spec, rest,
+                                             list(out)))
+        ms = device_ms(lambda: KERNELS["bounce_pre_bwd"](*args),  # noqa: B023
+                       20, "bounce_pre_bwd")
+        rows.append(dict(call=i, R=rest[0].shape[0], max_abs_err=err,
+                         rays_f32_cannot_reach=far, ms=ms, bound_ms=bound_ms,
+                         bound_by=bound_by, share=bound_ms / ms))
+    return dict(calls=rows, ms_step=sum(r["ms"] for r in rows),
+                ptxas=kernel_ptxas(LIBRARY.build_log, "bounce_pre_bwd_kernel"))
 
 
 
@@ -1920,7 +1860,8 @@ def phase_pallas_step(tris, dev):
             times["pallas" if p else "xla"].append(mean_s(
                 lambda p=p: step(p)))
         prof = {("pallas" if p else "xla"): profile_window(
-            lambda p=p: step(p)) for p in (True, False)}
+            lambda p=p: step(p), f"N {parity} nrx {nrx} pallas {p}")
+            for p in (True, False)}
         emit(phase="pallas_step", parity=parity, nrx=nrx, paths=PATHS,
              bounces=BOUNCES, launches=counts[key],
              op_path_launches=counts_x, loss=loss_value, grad_abs_max=maxima,
@@ -2215,19 +2156,29 @@ def main():
             "launches_per_step": {"city_fwd": fwd_launches[name],
                                   **{f"city_step_nrx{n}": c[name]
                                      for n, c in city_counts.items()}},
-            "max_abs_err": walk_timing["errors"][
-                "prepass_key_max_abs_err" if name == "walk_prepass"
-                else "walk_max_abs_err"],
+            "max_abs_err": (0.0 if name == "walk_prepass" else
+                            walk_timing["errors"]["walk_max_abs_err"]),
             "ms": b[f"{key}_ms"], "plain_ms": b[f"{key}_plain_ms"],
             "bound_ms": b[f"{key}_bound"][0],
             "bound_by": b[f"{key}_bound"][1], "library_ms": None,
             "shadow_ms": sh[f"{key}_ms"],
             "shadow_plain_ms": sh[f"{key}_plain_ms"],
             "shadow_bound_ms": sh[f"{key}_bound"][0],
-            "sort_ms": b["sort_ms"], "brute_ms": b["brute_ms"],
+            "brute_ms": b["brute_ms"],
             "brute_flips": b["brute_flips"] + sh["brute_flips"],
             "triangles": city.num_triangles,
-            **({} if name == "walk_prepass" else {
+            **({"share": b["prepass_share"],
+                "all_pairs_bound_ms": b["prepass_all_pairs_bound"][0],
+                "all_pairs_bound_half_rate_ms":
+                    b["prepass_all_pairs_bound_half_rate"][0],
+                "queries": [{k: q[k] for k in (
+                    "rays", "live", "live_ray_tiles", "prepass_ms",
+                    "prepass_bound", "prepass_pairs", "prepass_kept_pairs",
+                    "prepass_all_pairs_bound",
+                    "prepass_all_pairs_bound_half_rate")}
+                    for q in walk_timing["queries"]],
+                "ptxas": walk_timing["prepass_ptxas"]}
+               if name == "walk_prepass" else {
                 "call_ms": b["walk_call_ms"],
                 "contract_bound_ms": b["contract_bound"][0],
                 "queries": walk_timing["queries"],
@@ -2300,6 +2251,7 @@ def main():
                 + culled["city"]["brute_flips"]}
                if name == "nearest_hit_culled" else {}),
             **({"city": gather["city"]} if name == "gather" else {})})
+    emit(phase="profiler", **PROFILER)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

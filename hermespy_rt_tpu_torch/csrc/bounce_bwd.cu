@@ -32,8 +32,9 @@
 // table scatter-add (scatter_add.cu), the TPU kernels' in-kernel one-hot
 // MXU scatter being a TPU device.  Sums across rays (the RX positions' and
 // carrier scalars' cotangents) are per-block partials in a fixed order
-// (bounce.cuh: block_sum), summed by the wrapper in a fixed order, so the
-// result is the same from run to run.
+// (bounce.cuh: block_sum; kernel 12 reduces all of its sums with one barrier,
+// see there), summed by the wrapper in a fixed order, so the result is the
+// same from run to run.
 
 #include "bounce.cuh"
 
@@ -41,6 +42,24 @@ namespace {
 
 // ---------------------------------------------------------------------------
 // kernel 12: the full pre-stage backward
+//
+// Blocks of 128 rays.  The per-ray arithmetic is the same device functions
+// in the same order as before, so every per-ray output keeps its bits; what
+// changed is how the block moves its rows and sums:
+// - the block's [R, 3] rows (o, d and the cotangents of o2 and d2 in; d_o
+//   and d_d out) and its d_pay rows (one contiguous run of 128 pc floats)
+//   go through shared memory and are read and written as 16-byte vectors
+//   (copy_rows), where a thread's own 3 or pc scalars at a 12- or 108-byte
+//   stride touched a sector a lane;
+// - the 3 nrx + 2 sums across rays: each warp reduces its lanes' terms by
+//   the butterfly of block_sum as the RX loop goes, lane 0 keeps them in
+//   shared memory [part][warp], and after the one barrier of the block one
+//   thread a part adds the warps in order into the block's partial.  The
+//   same adds in the same order every run, and no float atomics.
+
+constexpr int kPreBwdRays = 128;
+constexpr int kPreBwdWarps = kPreBwdRays / 32;
+constexpr int kPreBwdMaxParts = 1024;  // 3 nrx + 2: nrx <= 340
 
 struct PreBwdArgs {
   const float *o, *d, *st;
@@ -53,15 +72,52 @@ struct PreBwdArgs {
   float* part;               // [gridDim.x, 3 nrx + 2]
 };
 
-__global__ void __launch_bounds__(kThreads)
+// the sum of v over the warp's lanes, in every lane: block_sum's butterfly
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// n floats from src to dst by the block's threads, as 16-byte vectors where
+// both ends are 16-byte aligned
+__device__ __forceinline__ void copy_rows(float* __restrict__ dst,
+                                          const float* __restrict__ src,
+                                          int n) {
+  int done = 0;
+  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) &
+       15) == 0) {
+    done = n & ~3;
+    for (int i = threadIdx.x; i < done / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] =
+          reinterpret_cast<const float4*>(src)[i];
+  }
+  for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kPreBwdRays)
     bounce_pre_bwd_kernel(PreBwdArgs a) {
-  __shared__ float smem[kThreads / 32];
-  const int r0 = blockIdx.x * kThreads + threadIdx.x;
-  const bool in = r0 < a.R;
-  const int r = in ? r0 : a.R - 1;  // every thread joins the block sums
+  // the block's rows: o and d (then d_o and d_d), the cotangents of o2 and
+  // d2, the payload cotangent rows; then the warps' sums [part][warp]
+  __shared__ __align__(16) float s_o[3 * kPreBwdRays], s_d[3 * kPreBwdRays],
+      s_go2[3 * kPreBwdRays], s_gd2[3 * kPreBwdRays];
+  __shared__ __align__(16) float s_pay[kPreBwdRays * kCols];
+  extern __shared__ float s_part[];
+  const int base = blockIdx.x * kPreBwdRays;
+  const int n_in = min(kPreBwdRays, a.R - base);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  copy_rows(s_o, a.o + 3 * static_cast<size_t>(base), 3 * n_in);
+  copy_rows(s_d, a.d + 3 * static_cast<size_t>(base), 3 * n_in);
+  copy_rows(s_go2, a.g_o2 + 3 * static_cast<size_t>(base), 3 * n_in);
+  copy_rows(s_gd2, a.g_d2 + 3 * static_cast<size_t>(base), 3 * n_in);
+  __syncthreads();
+  const bool in = static_cast<int>(threadIdx.x) < n_in;
+  // every thread joins the warps' sums: one past the rays takes the last
+  // ray's operands and adds 0
+  const int ts = in ? static_cast<int>(threadIdx.x) : n_in - 1;
+  const int r = base + ts;
   const size_t R = a.R;
   const int nparts = 3 * a.nrx + 2;
-  float* part = a.part + static_cast<size_t>(blockIdx.x) * nparts;
 
   const int idx = a.idx[r];
   const bool live = a.act[r] != 0 && idx >= 0;
@@ -70,8 +126,8 @@ __global__ void __launch_bounds__(kThreads)
   const float fslm = __ldg(a.sc), k_dop = __ldg(a.sc + 1);
   float o[3], d[3], st[6];
   for (int c = 0; c < 3; ++c) {
-    o[c] = a.o[3 * r + c];
-    d[c] = a.d[3 * r + c];
+    o[c] = s_o[3 * ts + c];
+    d[c] = s_d[3 * ts + c];
   }
   for (int j = 0; j < 6; ++j) st[j] = a.st[j * R + r];
   const PreFwd f = pre_forward(o, d, st, p, fslm, k_dop, live);
@@ -84,8 +140,8 @@ __global__ void __launch_bounds__(kThreads)
   float g_fslm = 0.0f, g_kdop = 0.0f, g_t = 0.0f;
   float g_o2[3], g_d2[3];
   for (int c = 0; c < 3; ++c) {
-    g_o2[c] = a.g_o2[3 * r + c];
-    g_d2[c] = a.g_d2[3 * r + c];
+    g_o2[c] = s_go2[3 * ts + c];
+    g_d2[c] = s_gd2[3 * ts + c];
   }
 
   // per RX: ds = (rx - o2) / |rx - o2| and d2rx = |rx - o2| (the shadow
@@ -110,7 +166,8 @@ __global__ void __launch_bounds__(kThreads)
       const float g_sq = g_n2 * s.ds_un[c];
       const float gdu = gds[c] / s.den + g_sq + g_sq;
       g_so[c] += -gdu;
-      block_sum(in ? gdu : 0.0f, part + 3 * k + c, smem);
+      const float sum = warp_sum(in ? gdu : 0.0f);
+      if (lane == 0) s_part[(3 * k + c) * kPreBwdWarps + warp] = sum;
     }
   }
   for (int c = 0; c < 3; ++c) g_o2[c] += g_so[c];
@@ -207,26 +264,42 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 3; ++c) g_e2[c] += tmp[c];
   }
 
-  block_sum(in ? g_fslm : 0.0f, part + 3 * a.nrx, smem);
-  block_sum(in ? g_kdop : 0.0f, part + 3 * a.nrx + 1, smem);
-  if (!in) return;
-  for (int c = 0; c < 3; ++c) {
-    a.d_o[3 * r + c] = g_o[c];
-    a.d_d[3 * r + c] = g_d[c];
-  }
-  for (int j = 0; j < 6; ++j) a.d_st[j * R + r] = g_st[j];
-  float* pay = a.d_pay + static_cast<size_t>(r) * a.pc;
-  if (a.pc == kCols) {
-    for (int c = 0; c < 3; ++c) {
-      pay[c] = g_v0[c];
-      pay[3 + c] = g_e1[c];
-      pay[6 + c] = g_e2[c];
-      pay[9 + c] = g_n[c];
-      pay[12 + c] = g_vel[c];
+  {
+    const float s_fslm = warp_sum(in ? g_fslm : 0.0f);
+    const float s_kdop = warp_sum(in ? g_kdop : 0.0f);
+    if (lane == 0) {
+      s_part[(nparts - 2) * kPreBwdWarps + warp] = s_fslm;
+      s_part[(nparts - 1) * kPreBwdWarps + warp] = s_kdop;
     }
-    pay += kGeom;
   }
-  for (int j = 0; j < kEta; ++j) pay[j] = g_eta[j];
+  if (in) {
+    for (int c = 0; c < 3; ++c) {
+      s_o[3 * ts + c] = g_o[c];
+      s_d[3 * ts + c] = g_d[c];
+    }
+    for (int j = 0; j < 6; ++j) a.d_st[j * R + r] = g_st[j];
+    float* pay = s_pay + ts * a.pc;
+    if (a.pc == kCols) {
+      for (int c = 0; c < 3; ++c) {
+        pay[c] = g_v0[c];
+        pay[3 + c] = g_e1[c];
+        pay[6 + c] = g_e2[c];
+        pay[9 + c] = g_n[c];
+        pay[12 + c] = g_vel[c];
+      }
+      pay += kGeom;
+    }
+    for (int j = 0; j < kEta; ++j) pay[j] = g_eta[j];
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < nparts; q += blockDim.x) {
+    float sum = 0.0f;
+    for (int w = 0; w < kPreBwdWarps; ++w) sum += s_part[q * kPreBwdWarps + w];
+    a.part[static_cast<size_t>(blockIdx.x) * nparts + q] = sum;
+  }
+  copy_rows(a.d_o + 3 * static_cast<size_t>(base), s_o, 3 * n_in);
+  copy_rows(a.d_d + 3 * static_cast<size_t>(base), s_d, 3 * n_in);
+  copy_rows(a.d_pay + static_cast<size_t>(base) * a.pc, s_pay, n_in * a.pc);
 }
 
 // ---------------------------------------------------------------------------
@@ -510,12 +583,14 @@ extern "C" int hrt_bounce_pre_bwd(
     int nrx, int pc, float* d_o, float* d_d, float* d_st, float* d_pay,
     float* part, void* stream) {
   if (R <= 0) return 0;
-  if (pc != kCols && pc != kEta)
+  const int nparts = 3 * nrx + 2;
+  if ((pc != kCols && pc != kEta) || nrx < 0 || nparts > kPreBwdMaxParts)
     return static_cast<int>(cudaErrorInvalidValue);
   const PreBwdArgs a{o,    d,    st,    act,  idx,    table,  rx,  sc,
                      g_o2, g_d2, g_st2, g_ex, g_sh_d, g_d2rx, R,   nrx,
                      pc,   d_o,  d_d,   d_st, d_pay,  part};
-  bounce_pre_bwd_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
+  bounce_pre_bwd_kernel<<<(R + kPreBwdRays - 1) / kPreBwdRays, kPreBwdRays,
+                          nparts * kPreBwdWarps * sizeof(float),
                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

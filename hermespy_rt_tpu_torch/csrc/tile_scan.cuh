@@ -51,9 +51,11 @@ __device__ __forceinline__ float hit_t(unsigned long long key) {
   return __uint_as_float(static_cast<unsigned>(key >> 32));
 }
 
-// First half of the packing: each warp counts its live rays.  A barrier
-// must follow before pack_slot.
-__device__ __forceinline__ unsigned pack_count(LiveRays& s, bool live) {
+// First half of the packing: each warp counts its live rays into s.count
+// (LiveRays, or any block's record of rays with an int count[kWarps]).  A
+// barrier must follow before pack_slot.
+template <class Rays>
+__device__ __forceinline__ unsigned pack_count(Rays& s, bool live) {
   const unsigned ballot = __ballot_sync(0xffffffffu, live);
   if ((threadIdx.x & 31) == 0) s.count[threadIdx.x >> 5] = __popc(ballot);
   return ballot;
@@ -61,7 +63,8 @@ __device__ __forceinline__ unsigned pack_count(LiveRays& s, bool live) {
 
 // Second half: this thread's slot among the live rays (meaningful where
 // live) and their number L.
-__device__ __forceinline__ int pack_slot(const LiveRays& s, unsigned ballot,
+template <class Rays>
+__device__ __forceinline__ int pack_slot(const Rays& s, unsigned ballot,
                                          int& L) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int pos = __popc(ballot & ((1u << lane) - 1u));

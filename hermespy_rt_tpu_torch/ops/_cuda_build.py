@@ -5,7 +5,8 @@ started together, with ``-fmad=false`` and without fast math (every
 product, sum, square root and division rounded on its own, as the plain
 torch versions round them); one more call links the objects into one shared
 library with a plain C interface under the git-ignored
-``hermespy_rt_tpu_torch/_build/``, bound with ``ctypes``.  The library's
+``hermespy_rt_tpu_torch/_build/``, bound with ``ctypes``, its compiler
+output (``-Xptxas -v``: registers and spills) beside it.  The library's
 name carries a hash of every source, of the headers they share
 (``csrc/*.cuh``) and of the flags, so an edited source is rebuilt.  Nothing
 is built at import: the first launch, or :meth:`build`, builds.
@@ -88,8 +89,11 @@ class KernelLibrary:
                     raise RuntimeError(
                         f"nvcc link failed ({proc.returncode}):\n"
                         f"{self.build_log}")
+                lib_path.with_suffix(".log").write_text(self.build_log)
                 os.replace(out, lib_path)
             self.build_seconds = time.perf_counter() - t0
+        elif not self.build_log and lib_path.with_suffix(".log").exists():
+            self.build_log = lib_path.with_suffix(".log").read_text()
         if self._lib is None:
             self._lib = ctypes.CDLL(str(lib_path))
         return lib_path

@@ -51,6 +51,8 @@ __all__ = ["bounce_pre", "bounce_post", "loop_bwd_slim", "bounce_pre_bwd",
 SOURCE = CSRC / "bounce_fused.cu"
 BWD_SOURCE = CSRC / "bounce_bwd.cu"
 _THREADS = 256                      # rays per block of the stage kernels
+_PRE_BWD_RAYS = 128                 # ... but the full pre backward's
+_PRE_BWD_MAX_RX = 340               # its 3 nrx + 2 sums in shared memory
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 # the loop backward keeps one [M, 12] f32 table per warp in a block's shared
@@ -241,6 +243,9 @@ class BouncePreBwdKernel:
         dev = cuda_device("bounce_pre_bwd", o)
         chk = OperandChecker("bounce_pre_bwd", dev)
         R, nrx, T = o.shape[0], spec.nrx, table.shape[0]
+        if nrx > _PRE_BWD_MAX_RX:
+            raise ValueError(f"bounce_pre_bwd: the kernel takes at most "
+                             f"{_PRE_BWD_MAX_RX} RX, not {nrx}")
         ptrs = [chk("o", o, _F32, (R, 3)), chk("d", d, _F32, (R, 3)),
                 chk("st", st, _F32, (6, R)), chk("act", act, _BOOL, (R,)),
                 chk("idx", idx, _I32, (R,)),
@@ -255,10 +260,11 @@ class BouncePreBwdKernel:
                 chk("d_d2rx", d_d2rx, _F32, (nrx, R))]
         pc = payload_cols(spec, "pre")
         f32 = dict(dtype=_F32, device=dev)
-        n_blocks = max(1, -(-R // _THREADS))
+        n_blocks = max(1, -(-R // _PRE_BWD_RAYS))
         outs = (torch.empty((R, 3), **f32), torch.empty((R, 3), **f32),
                 torch.empty((6, R), **f32), torch.empty((R, pc), **f32),
-                torch.zeros((n_blocks, 3 * nrx + 2), **f32))
+                (torch.empty if R > 0 else torch.zeros)(
+                    (n_blocks, 3 * nrx + 2), **f32))
         if R > 0:
             if self._fn is None:
                 self._fn = LIBRARY.function("hrt_bounce_pre_bwd",

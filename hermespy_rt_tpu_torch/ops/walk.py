@@ -31,8 +31,9 @@ holding only padding triangles gets the inverted box (+inf, -inf), which the
 slab test's infinities make reach every live ray at key 0; evaluating it
 finds nothing (padding triangles have a zero determinant).
 
-:func:`prepass_plain` and :func:`walk_plain` are the plain versions of the
-CUDA kernels of ``csrc/walk.cu``; they run for CPU tensors and in the checks
+:func:`visit_rows` of :func:`prepass_plain`, and :func:`walk_plain`, are the
+plain versions of the CUDA kernels of ``csrc/walk.cu`` (the prepass kernel
+writes the visit rows itself); they run for CPU tensors and in the checks
 (``ops/walk_cuda.py`` launches the kernels).  No running-best pruning beyond
 the kernel's own reach test is added: pruning never changes ``(t, idx)``.
 
@@ -54,7 +55,8 @@ __all__ = ["WALK_BLOCK_RAYS", "WALK_BLOCK_TRIS", "MAX_BOXES",
            "CULL_BLOCK_RAYS", "CULL_BLOCK_TRIS", "SceneWalk", "prepare_walk",
            "walk_group", "tile_aabbs", "coarse_boxes", "cull_boxes",
            "triangle_records",
-           "query_limits", "prepass_plain", "visit_rows", "walk_plain",
+           "query_limits", "prepass_plain", "prepass_kept_plain",
+           "visit_rows", "walk_plain",
            "culled_reach_plain"]
 
 # Hopper tile sizes: 256 rays a block (one thread per ray, the prepass's
@@ -252,10 +254,52 @@ def prepass_plain(o: torch.Tensor, d: torch.Tensor, lim: torch.Tensor,
         b = min(a + step, n_rt)
         t_near, t_far = _slab(o[a:b], inv[a:b], lo, hi)   # [n, br, C]
         r = _reach(t_near, t_far, lim[a:b])
-        k = torch.where(r, torch.clamp_min(t_near, 0.0), torch.inf)
+        # max(t_near, 0) as +0.0 where t_near <= 0 (never -0.0), as the
+        # kernel packs it
+        k = torch.where(r, torch.where(t_near > 0, t_near, 0.0), torch.inf)
         reach.append(r.any(dim=1))
         key.append(k.amin(dim=1))
     return torch.cat(reach), torch.cat(key)
+
+
+def prepass_kept_plain(o: torch.Tensor, d: torch.Tensor, lim: torch.Tensor,
+                       boxes: torch.Tensor, block_rays: int) -> torch.Tensor:
+    """The prepass kernel's prune (``csrc/walk.cu::box_pruned``) as torch
+    ops: ``bool[nRT, C]``, the boxes each ray tile keeps for exact tests.
+    From the least and greatest ``o`` and ``inv`` of the tile's live rays,
+    the rounded corner products bound every ray's ``(plane - o) inv``, so a
+    tile's ``t_near`` from below (``NL``) and ``t_far`` from above
+    (``FU``); a box is pruned where ``FU < 0``, ``NL > FU`` or ``NL`` is
+    above the tile's greatest limit (NaN bounds keep it), and a tile without
+    live rays keeps none.  Every box a ray of the tile reaches is kept."""
+    n_pad = lim.shape[0]
+    n_rt = n_pad // block_rays
+    o = _pad_rays(o.detach().float(), n_pad).reshape(n_rt, block_rays, 3)
+    inv = _inverse(_pad_rays(d.detach().float(), n_pad)).reshape(
+        n_rt, block_rays, 3)
+    lim = lim.reshape(n_rt, block_rays)
+    live = (lim >= 0)[..., None]
+    o_lo = torch.where(live, o, torch.inf).amin(dim=1)[:, None, :]
+    o_hi = torch.where(live, o, -torch.inf).amax(dim=1)[:, None, :]
+    i_lo = torch.where(live, inv, torch.inf).amin(dim=1)[:, None, :]
+    i_hi = torch.where(live, inv, -torch.inf).amax(dim=1)[:, None, :]
+    lim_max = torch.where(live[..., 0], lim, -1.0).amax(dim=1)[:, None]
+    nl = fu = None
+    for a in range(3):
+        lb, ub = [], []
+        for plane in (boxes[None, :, a], boxes[None, :, 3 + a]):
+            d_lo, d_hi = plane - o_hi[..., a], plane - o_lo[..., a]
+            c = (d_lo * i_lo[..., a], d_lo * i_hi[..., a],
+                 d_hi * i_lo[..., a], d_hi * i_hi[..., a])
+            lb.append(torch.minimum(torch.minimum(c[0], c[1]),
+                                    torch.minimum(c[2], c[3])))
+            ub.append(torch.maximum(torch.maximum(c[0], c[1]),
+                                    torch.maximum(c[2], c[3])))
+        n_a, f_a = torch.minimum(*lb), torch.maximum(*ub)
+        nl = n_a if a == 0 else torch.maximum(nl, n_a)
+        fu = f_a if a == 0 else torch.minimum(fu, f_a)
+    pruned = (fu < 0) | (nl > fu) | (nl > lim_max)
+    return ~pruned & live.any(dim=1)
 
 
 def visit_rows(reach: torch.Tensor, key: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,18 @@
 """The hand-written CUDA walk kernels and their launch wrappers.
 
 ``csrc/walk.cu`` holds ``walk_prepass_kernel``, which replaces the TPU
-kernel ``hermespy_rt_tpu/ops/intersect_pallas.py::_prepass_kernel``, and
-``walk_kernel``, which replaces ``::_kernel_walk_res`` and ``::_kernel_walk``
-(see the note at the top of that file and ``ops/walk.py``).  They are built
-with the package's other kernels by :mod:`._cuda_build` at first use.
+kernel ``hermespy_rt_tpu/ops/intersect_pallas.py::_prepass_kernel`` and the
+count and stable sort after it, and ``walk_kernel``, which replaces
+``::_kernel_walk_res`` and ``::_kernel_walk`` (see the note at the top of
+that file and ``ops/walk.py``).  They are built with the package's other
+kernels by :mod:`._cuda_build` at first use.
 
 :data:`walk_prepass` and :data:`walk` are the wrappers.  Given CPU tensors
-they run the plain versions :func:`~.walk.prepass_plain` and
-:func:`~.walk.walk_plain`; given CUDA tensors they launch the kernel on the
-current stream or raise.  Each counts its launches in ``launches``.
-:func:`walk_query` composes a nearest-hit (or any-hit) query: the limits,
-the prepass, the visit rows (a count and a stable sort, torch ops) and the
-walk.
+they run the plain versions (:func:`~.walk.visit_rows` of
+:func:`~.walk.prepass_plain`, and :func:`~.walk.walk_plain`); given CUDA
+tensors they launch the kernel on the current stream or raise.  Each counts
+its launches in ``launches``.  :func:`walk_query` composes a nearest-hit (or
+any-hit) query: the limits, the prepass into visit rows, and the walk.
 """
 from __future__ import annotations
 
@@ -23,8 +23,8 @@ import torch
 
 from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
                           raise_on)
-from .walk import (WALK_BLOCK_RAYS, SceneWalk, prepass_plain, query_limits,
-                   visit_rows, walk_plain)
+from .walk import (MAX_BOXES, WALK_BLOCK_RAYS, SceneWalk, prepass_plain,
+                   query_limits, visit_rows, walk_plain)
 
 __all__ = ["walk_prepass", "walk", "walk_query", "WalkPrepassKernel",
            "WalkKernel", "SOURCE"]
@@ -32,7 +32,7 @@ __all__ = ["walk_prepass", "walk", "walk_query", "WalkPrepassKernel",
 SOURCE = CSRC / "walk.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_PREPASS_ARGTYPES = (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P)
+_PREPASS_ARGTYPES = (_P, _P, _P, _I, _I, _P, _I, _P, _P)
 _WALK_ARGTYPES = (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                   _P, _P)
 _KERNEL_RAYS = 256    # rays per tile of both kernels (csrc/walk.cu kRays)
@@ -57,16 +57,21 @@ class WalkPrepassKernel:
 
     def __call__(self, o: torch.Tensor, d: torch.Tensor, lim: torch.Tensor,
                  boxes: torch.Tensor, block_rays: int = WALK_BLOCK_RAYS
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(reach bool[nRT, C], key f32[nRT, C])`` of rays ``o``, ``d``
+                 ) -> torch.Tensor:
+        """The packed visit rows ``int32[nRT, 1 + C]`` of rays ``o``, ``d``
         ``f32[R, 3]`` with padded limits ``lim`` against ``boxes``
-        ``f32[C, 6]``; the semantics of :func:`~.walk.prepass_plain`."""
+        ``f32[C, 6]``, ``C <= MAX_BOXES``: the rows of
+        ``visit_rows(*prepass_plain(...))``."""
+        C = boxes.shape[0]
+        if C > MAX_BOXES:
+            raise ValueError(f"walk_prepass: {C} coarse boxes, the prepass "
+                             f"takes at most MAX_BOXES = {MAX_BOXES}")
         if not _on_card("walk_prepass", o):
-            return prepass_plain(o, d, lim, boxes, block_rays)
+            return visit_rows(*prepass_plain(o, d, lim, boxes, block_rays))
         if block_rays != _KERNEL_RAYS:
             raise ValueError(f"walk_prepass: the kernel takes ray tiles of "
                              f"{_KERNEL_RAYS}, not {block_rays}")
-        dev, R, C = o.device, o.shape[0], boxes.shape[0]
+        dev, R = o.device, o.shape[0]
         n_rt = lim.shape[0] // _KERNEL_RAYS
         check = OperandChecker("walk_prepass", dev)
         check("o", o, torch.float32, (R, 3))
@@ -75,20 +80,18 @@ class WalkPrepassKernel:
         check("boxes", boxes, torch.float32, (C, 6))
         if n_rt * _KERNEL_RAYS < R:
             raise ValueError("walk_prepass: lim is shorter than the rays")
+        if C == 0 or n_rt == 0:
+            return torch.zeros((n_rt, 1 + C), dtype=torch.int32, device=dev)
         if self._fn is None:
             self._fn = LIBRARY.function("hrt_walk_prepass", _PREPASS_ARGTYPES)
-        reach = torch.empty((n_rt, C), dtype=torch.bool, device=dev)
-        key = torch.empty((n_rt, C), dtype=torch.float32, device=dev)
-        if n_rt == 0 or C == 0:
-            return reach, key
+        visits = torch.empty((n_rt, 1 + C), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = self._fn(o.data_ptr(), d.data_ptr(), lim.data_ptr(), R, n_rt,
-                           boxes.data_ptr(), C, reach.data_ptr(),
-                           key.data_ptr(), stream)
+                           boxes.data_ptr(), C, visits.data_ptr(), stream)
         raise_on("walk_prepass", err)
         self.launches += 1
-        return reach, key
+        return visits
 
 
 class WalkKernel:
@@ -103,7 +106,7 @@ class WalkKernel:
                  exclude: Optional[torch.Tensor] = None,
                  any_hit: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(t f32[R], idx i32[R])`` of the walk over ``visits``
-        (:func:`~.walk.visit_rows`); the semantics of
+        (:data:`walk_prepass`); the semantics of
         :func:`~.walk.walk_plain`."""
         if not _on_card("walk", o):
             return walk_plain(o, d, scene, visits, lim, exclude=exclude,
@@ -173,7 +176,6 @@ def walk_query(o: torch.Tensor, d: torch.Tensor, scene: SceneWalk,
     answer, but ``(t, idx)`` may name another hit than the nearest."""
     lim = query_limits(o.shape[0], scene.block_rays, t_max=t_max, live=live,
                        device=o.device)
-    reach, key = walk_prepass(o, d, lim, scene.boxes, scene.block_rays)
-    visits = visit_rows(reach, key)
+    visits = walk_prepass(o, d, lim, scene.boxes, scene.block_rays)
     return walk(o, d, lim, scene, visits, exclude=exclude,
                 any_hit=any_hit and t_max is not None)

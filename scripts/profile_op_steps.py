@@ -5,6 +5,8 @@ checkouts of the repo in turns.
     python3 scripts/profile_op_steps.py --tree OLD --tree . --order 0110
     python3 scripts/profile_op_steps.py --tree OLD --tree . --order 0110 \
         --steps city
+    python3 scripts/profile_op_steps.py --tree OLD --tree . --order 0110 \
+        --steps bwd
 
 Each entry of ``--order`` (an index into the ``--tree`` list) runs in a
 process of its own that imports ``hermespy_rt_tpu_torch`` from that tree
@@ -50,15 +52,48 @@ the visit-list walk), nrx = 1:
 
 - ``D``: the op-path forward (``chip_smoke.py`` phase D);
 - ``E``: the fused material-calibration step (phase E);
+- ``J``: ``config5_e2e.py``'s loss through the full-gradient fused path
+  (phase J: gradients to the materials, the RX and TX positions and the
+  frequency);
 - ``walk``: the seven walk queries of one D forward, recorded: each
-  query's walk kernel and prepass kernel device time (profiler, 5 calls
-  after a warm-up), its rays and live rays, and the device-to-host copies
-  and synchronisations in one profiler window over one ``walk_query``
-  (the window's own closing synchronise included).
+  query's rays, live rays, ray tiles and those with a live ray, the walk
+  kernel's and the prepass kernel's device time (profiler, 5 calls after a
+  warm-up), and the whole making of its visit rows (the prepass and, in a
+  tree whose prepass returns reach and key, ``visit_rows``' torch sort): its
+  device time and operations; the prepass again with the 50 MB L2 emptied
+  before each call (``prepass_cold_ms``); the prepass's bounds
+  (``measure.prepass_bounds``: over the (live ray, box) pairs a per-tile
+  prune keeps, ``ops/walk.py::prepass_kept_plain``, where the tree has it,
+  and the prune's tests; and over all (live ray, box) pairs at the f32 rate
+  and at half of it), its (live ray, box) pairs and the kept ones; and
+  the device operations, device-to-host copies and
+  synchronisations in one profiler window over one ``walk_query`` (the
+  window's own closing synchronise included).  The summary sets the seven
+  standalone prepass times beside the prepass time inside D's step.
+
+and the stage backwards (``bwd``): kernel 12, the full pre backward, its
+calls recorded in one step of G, of G at nrx = 4 and of J (after a
+warm-up), each with its rays, RX and payload columns, its device time
+(profiler, 20 calls after a warm-up), its bound (``measure.bwd_work``), the
+share, and the SHA-1 of each output (``d_o``, ``d_d``, ``d_st``, ``d_pay``
+per ray, the sums ``d_rxp`` and ``d_sc``) with whether a second run gave
+the same bits; kernels 13-16 (the full post backward, the slim pre and
+post backwards and the whole-loop backward), their calls recorded in those
+steps, in phase 7's step and in the slim per-stage step (``I``:
+``unroll_bounces=False``), each with the SHA-1 of its operands and of its
+outputs and whether a second run gave the same bits.  The summary says,
+per call, whether kernel 12's per-ray outputs and kernels 13-16's operands
+and outputs are the same bits in every turn of every tree.
 
 ``--steps`` picks ``canyon`` (phase9, N, 7, G, the single calls and the
-queries), ``queries`` (the queries alone), ``city`` (D, E and the walk
-queries) or ``all`` (the default).
+queries), ``queries`` (the queries alone), ``city`` (D, E, J and the walk
+queries), ``bwd`` (the stage backwards) or ``all`` (all but ``bwd``, the
+default).  Every child also reports the registers and spills of the
+prepass and the full pre backward from its tree's build, and its profiler
+windows with the launches they missed (``measure.profiled``: every window
+opens on a warm-up cycle; a device time is a window's sum over its
+calls).  The yardstick is this checkout's ``hermespy_rt_tpu_torch/
+measure.py`` whichever tree is measured.
 
 Per step: the host-clock wall of 3 steps after two warm-ups, then one
 torch.profiler window over one step: wall, device busy, device operations,
@@ -77,6 +112,8 @@ without a CUDA device.
 """
 import argparse
 import dataclasses
+import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -91,8 +128,28 @@ FREQ_GHZ = 3.0
 CITY_TX = [[-120.0, 80.0, 45.0]]
 CITY_RX = [[30.0, -40.0, 1.5]]
 NAMED = ("gather", "scatter_add", "sort", "walk_kernel", "walk_prepass",
-         "nearest_hit_kernel", "nearest_hit_culled_kernel")
+         "nearest_hit_kernel", "nearest_hit_culled_kernel",
+         "bounce_pre_bwd_kernel")
 BLOCK_RAYS = 256       # rays per block of the nearest-hit kernels
+L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2
+OTHER_BWD = ("bounce_post_bwd", "bounce_pre_bwd_slim", "bounce_post_bwd_slim",
+             "loop_bwd_slim")   # kernels 13-16
+
+
+def _measure():
+    """``hermespy_rt_tpu_torch/measure.py`` of this script's checkout: the
+    same yardstick (peaks, operation counts, bounds, profiler window)
+    whichever tree a child measures."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "hermespy_rt_tpu_torch", "measure.py")
+    spec = importlib.util.spec_from_file_location("_measure", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+M = _measure()
+PROFILER = dict(windows=0, taken_again=0, missed=0)   # a child's windows
 
 
 def rx_positions(nrx):
@@ -108,60 +165,47 @@ def smi():
         timeout=60).stdout.strip()
 
 
-def _ms(e):
-    """A profiler row's own device time in ms."""
-    us = getattr(e, "self_device_time_total", None)
-    return (e.self_cuda_time_total if us is None else us) / 1e3
+def launch_counts():
+    """Every kernel wrapper's launch count in the measured tree."""
+    from hermespy_rt_tpu_torch.ops import walk_cuda
+    from hermespy_rt_tpu_torch.testing import KERNELS
+
+    return {n: k.launches for n, k in {
+        **KERNELS, "walk_prepass": walk_cuda.walk_prepass,
+        "walk": walk_cuda.walk}.items()}
 
 
-def window(torch, fn):
-    """One profiler window over ``fn`` (warm): wall, busy, operations,
-    idle share, and the named device operations' time and count."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profiled(fn, reps):
+    """``measure.profiled`` over ``reps`` calls of ``fn``, its windows and
+    misses counted in :data:`PROFILER`."""
+    w = M.profiled(fn, reps, launch_counts)
+    PROFILER["windows"] += 1
+    PROFILER["taken_again"] += w.tries > 1
+    PROFILER["missed"] += w.missed
+    return w
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(_ms(e) for e in rows)
+
+def window(fn):
+    """One profiler window over a call of ``fn`` (warm): wall, busy,
+    operations, idle share, and the named device operations' time and
+    count."""
+    w = profiled(fn, 1)
+    busy = sum(M.event_ms(e) for e in w.device)
     named = {}
     for name in NAMED:
-        ev = [e for e in rows if name in e.key.lower()]
-        named[name] = dict(ms=sum(_ms(e) for e in ev),
+        ev = [e for e in w.device if name in e.key.lower()]
+        named[name] = dict(ms=sum(M.event_ms(e) for e in ev),
                            ops=sum(e.count for e in ev))
-    return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                device_ops=sum(e.count for e in rows),
-                idle_share=1.0 - busy / wall_ms if rows else None,
+    return dict(wall_ms=w.wall_ms, device_busy_ms=busy,
+                device_ops=sum(e.count for e in w.device),
+                idle_share=1.0 - busy / w.wall_ms if w.device else None,
                 named=named)
 
 
-def device_rows(torch, fn, reps):
-    """The profiler's events of ``reps`` calls of ``fn`` after a warm-up:
-    ``(device rows, host rows)``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = prof.key_averages()
-    return ([e for e in rows if e.device_type == DeviceType.CUDA],
-            [e for e in rows if e.device_type != DeviceType.CUDA])
-
-
-def kernel_ms(torch, fn, name, reps=5):
+def kernel_ms(fn, name, reps=5):
     """Device time in ms per call of the kernels named ``name``."""
-    dev_rows, _ = device_rows(torch, fn, reps)
-    return sum(_ms(e) for e in dev_rows if name in e.key) / reps
+    return sum(M.event_ms(e) for e in profiled(fn, reps).device
+               if name in e.key) / reps
 
 
 def walk_queries(torch, tracer, walk_cuda, walk_ops, city_paths):
@@ -180,28 +224,127 @@ def walk_queries(torch, tracer, walk_cuda, walk_ops, city_paths):
     finally:
         tracer.walk_query = real
     out = []
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for o, d, scene, kw in recorded:
         t_max, live = kw.get("t_max"), kw.get("live")
         any_hit = bool(kw.get("any_hit")) and t_max is not None
         lim = walk_ops.query_limits(o.shape[0], scene.block_rays, t_max=t_max,
                                     live=live, device=o.device)
-        reach, key = walk_cuda.walk_prepass(o, d, lim, scene.boxes)
-        visits = walk_ops.visit_rows(reach, key)
+        # a tree whose prepass returns (reach, key) sorts them into visit
+        # rows with torch ops (visit_rows); a later one writes the rows
+        in_kernel = not isinstance(
+            walk_cuda.walk_prepass(o, d, lim, scene.boxes), tuple)
+
+        def rows():
+            out = walk_cuda.walk_prepass(o, d, lim, scene.boxes)
+            return out if in_kernel else walk_ops.visit_rows(*out)
+
+        def cold_rows():
+            flush.zero_()      # the 50 MB L2 emptied of the rays and boxes
+            return rows()
+
+        visits = rows()
 
         def run_walk():
             walk_cuda.walk(o, d, lim, scene, visits,
                            exclude=kw.get("exclude"), any_hit=any_hit)
 
-        dev_rows, host = device_rows(torch, lambda: real(o, d, scene, **kw), 1)
+        query = profiled(lambda: real(o, d, scene, **kw), 1)
+        rows_dev = profiled(rows, 5).device
+        cold_dev = profiled(cold_rows, 5).device
+        live_per_tile = (lim >= 0).reshape(-1, scene.block_rays).sum(1)
+        # the prepass's bounds (measure.prepass_bounds): over the pairs its
+        # per-tile prune keeps, where the tree has one, and over all pairs
+        kept_plain = getattr(walk_ops, "prepass_kept_plain", None)
+        pre = M.prepass_bounds(
+            M.nbytes(o, d, lim, scene.boxes, visits), live_per_tile,
+            scene.boxes.shape[0], None if kept_plain is None else kept_plain(
+                o, d, lim, scene.boxes, scene.block_rays))
+        prepass_ms = sum(M.event_ms(e) for e in rows_dev
+                         if "walk_prepass" in e.key) / 5
+        rows_ms = sum(M.event_ms(e) for e in rows_dev) / 5
         out.append(dict(
-            rays=o.shape[0], live=int((lim >= 0).sum()), any_hit=any_hit,
-            walk_ms=kernel_ms(torch, run_walk, "walk_kernel"),
-            prepass_ms=kernel_ms(
-                torch, lambda: walk_cuda.walk_prepass(o, d, lim, scene.boxes),
-                "walk_prepass"),
-            query_dtoh=sum(e.count for e in dev_rows if "DtoH" in e.key),
-            query_syncs=sum(e.count for e in host
+            rays=o.shape[0], live=int(live_per_tile.sum()), any_hit=any_hit,
+            ray_tiles=live_per_tile.numel(), live_tiles=pre["live_tiles"],
+            boxes=scene.boxes.shape[0],
+            visit_mean=float(visits[:, 0].float().mean()),
+            rows_in_kernel=in_kernel,
+            walk_ms=kernel_ms(run_walk, "walk_kernel"),
+            prepass_ms=prepass_ms,
+            # the visit rows from the rays: the prepass and, in a tree that
+            # sorts outside it, visit_rows' torch ops
+            rows_ms=rows_ms, sort_ms=rows_ms - prepass_ms,
+            rows_ops=sum(e.count for e in rows_dev) / 5,
+            prepass_cold_ms=sum(M.event_ms(e) for e in cold_dev
+                                if "walk_prepass" in e.key) / 5,
+            prepass_bound_ms=pre["kept"][0] if "kept" in pre else None,
+            prepass_all_pairs_bound_ms=pre["all_pairs"][0],
+            prepass_all_pairs_bound_half_rate_ms=pre[
+                "all_pairs_half_rate"][0],
+            pairs=pre["pairs"], kept_pairs=pre.get("kept_pairs"),
+            query_ops=sum(e.count for e in query.device),
+            query_dtoh=sum(e.count for e in query.device if "DtoH" in e.key),
+            query_syncs=sum(e.count for e in query.host
                             if "Synchronize" in e.key)))
+    return out
+
+
+def digest(torch, x):
+    """SHA-1 of a tensor's shape, type and bytes, or of another operand's
+    repr."""
+    h = hashlib.sha1()
+    if isinstance(x, torch.Tensor):
+        x = x.detach().contiguous().cpu()
+        h.update(f"{tuple(x.shape)}{x.dtype}".encode())
+        h.update(x.reshape(-1).view(torch.uint8).numpy().tobytes())
+    else:
+        h.update(repr(x).encode())
+    return h.hexdigest()
+
+
+def pre_bwd_calls(torch, recording_fused, kernel, step):
+    """Kernel 12's recorded calls in one ``step`` (after a warm-up): per
+    call its rays, RX, payload columns, device time (profiler, 20 calls
+    after a warm-up), bound, share, and the SHA-1 of each per-ray output
+    and of the sums, with whether a second run gave the same bits."""
+    step()
+    with recording_fused() as calls:
+        step()
+    out = []
+    for i, (args, k) in enumerate(calls["bounce_pre_bwd"]):
+        spec, R = args[0], args[1].shape[0]
+        again = kernel(*args)
+        ms = kernel_ms(lambda: kernel(*args), "bounce_pre_bwd_kernel",
+                       reps=20)
+        n_bytes, n_ops = M.bwd_work("bounce_pre_bwd", spec, args[1:], k)
+        bound_ms = M.bound(n_bytes, n_ops)[0]
+        out.append(dict(
+            call=i, R=R, nrx=spec.nrx, pc=k[3].shape[1], ms=ms,
+            bound_ms=bound_ms, share=bound_ms / ms, bytes=n_bytes,
+            digests={n: digest(torch, x) for n, x in zip(
+                ("d_o", "d_d", "d_st", "d_pay", "d_rxp", "d_sc"), k)},
+            same_bits_twice=all(torch.equal(a, b) for a, b in zip(k, again))))
+    return out
+
+
+def other_bwd_calls(torch, recording_fused, kernels, steps):
+    """Kernels 13-16's recorded calls in each of ``steps`` (after a
+    warm-up): per call the SHA-1 of its operands and of its outputs, and
+    whether a second run gave the same bits."""
+    out = {}
+    for step_name, step in steps:
+        step()
+        with recording_fused() as calls:
+            step()
+        for name in OTHER_BWD:
+            for i, (args, k) in enumerate(calls[name]):
+                again = kernels[name](*args)
+                out[f"{step_name} {name} {i}"] = dict(
+                    operands=[digest(torch, x) for x in args],
+                    outputs=[digest(torch, x) for x in k],
+                    same_bits_twice=all(
+                        a is None or torch.equal(a, b)
+                        for a, b in zip(k, again)))
     return out
 
 
@@ -253,18 +396,19 @@ def query_row(torch, walk_ops, kernels, o, d, tris, kw, culled):
     run_c = lambda: cull(o, d, tris, **cull_kw)            # noqa: E731
     cull(o, d, tris, skipped=skipped, **cull_kw)
     run = run_c if culled else run_b
-    dev_rows, host = device_rows(torch, run, 1)
+    query = profiled(run, 1)
     return dict(
         rays=R, live=int(per_block.sum()), T=tris.pad_triangles,
         operands=sorted(k for k in kw if kw[k] is not None),
         blocks_by_live=dict(zip(("0", "1-31", "32-255", "256"), bins)),
-        brute_ms=kernel_ms(torch, run_b, "nearest_hit_kernel"),
-        culled_ms=kernel_ms(torch, run_c, "nearest_hit_culled_kernel"),
+        brute_ms=kernel_ms(run_b, "nearest_hit_kernel"),
+        culled_ms=kernel_ms(run_c, "nearest_hit_culled_kernel"),
         culled_skipped=int(skipped), culled_pairs=int(
             per_block.numel() * cull_kw["aabbs"].shape[0]),
-        query_dtoh=sum(e.count for e in dev_rows if "DtoH" in e.key),
-        query_syncs=sum(e.count for e in host if "Synchronize" in e.key),
-        query_ops=sum(e.count for e in dev_rows))
+        query_dtoh=sum(e.count for e in query.device if "DtoH" in e.key),
+        query_syncs=sum(e.count for e in query.host
+                        if "Synchronize" in e.key),
+        query_ops=sum(e.count for e in query.device))
 
 
 def queries(torch, dev, tris, paths_of, n_step):
@@ -318,8 +462,8 @@ def calls(torch, fetch_cuda, dev):
     }
     out = {}
     for name, fn in cases.items():
-        rows, _ = device_rows(torch, fn, 20)
-        out[name] = dict(call_ms=sum(_ms(e) for e in rows) / 20,
+        rows = profiled(fn, 20).device
+        out[name] = dict(call_ms=sum(M.event_ms(e) for e in rows) / 20,
                          call_ops=sum(e.count for e in rows) / 20)
     return out
 
@@ -331,7 +475,8 @@ def child(tree, steps):
     import numpy as np
 
     import hermespy_rt_tpu_torch as pkg
-    from hermespy_rt_tpu_torch import compute_paths, default_materials, trace
+    from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
+                                       default_materials, trace)
     from hermespy_rt_tpu_torch.ops import fetch_cuda
     from hermespy_rt_tpu_torch.scene import (flatten_scene, load_hrt,
                                              random_soup_scene)
@@ -388,15 +533,30 @@ def child(tree, steps):
                   ("7_nrx4", lambda: fused_step(rx4)),
                   ("G", lambda: grad_step(g_cfg)),
                   ("G_nrx4", lambda: grad_step(g_cfg, rx4))]
-    if steps in ("city", "all"):
+    if steps in ("city", "all", "bwd"):
         city, city_paths = city_scene(dev)
         e_cfg = calibration_config(PATHS, BOUNCES, True, parity="physical")
+        j_cfg = TracerConfig(num_paths=PATHS, num_bounces=BOUNCES,
+                             parity="physical", launch_order="coherent",
+                             keep_rays=False, shade="fused")
 
         def e_step():
             calibration_step(city, CITY_RX, CITY_TX, FREQ_GHZ,
                              default_materials(dev), e_cfg)
 
-        timed += [("D", city_paths), ("E", e_step)]
+        def j_step():
+            mats = default_materials(dev)
+            leaves = [torch.tensor(x, device=dev, requires_grad=True)
+                      for x in (CITY_RX, CITY_TX, FREQ_GHZ)]
+            res = trace(city, leaves[0], leaves[1],
+                        carrier_frequency=leaves[2], config=j_cfg,
+                        materials=mats)
+            ((res.scatter.a_te.abs().square().sum()
+              + res.scatter.a_tm.abs().square().sum()) * 1e9).backward()
+            torch.cuda.synchronize()
+
+    if steps in ("city", "all"):
+        timed += [("D", city_paths), ("E", e_step), ("J", j_step)]
     for name, step in timed:
         step()
         step()                                                  # warm-ups
@@ -404,7 +564,7 @@ def child(tree, steps):
         for _ in range(3):
             step()
         out[name] = dict(wall_mean_ms=(time.perf_counter() - t0) / 3 * 1e3,
-                         profile=window(torch, step))
+                         profile=window(step))
     if steps in ("canyon", "all"):
         out["calls"] = calls(torch, fetch_cuda, dev)
     if steps in ("canyon", "queries", "all"):
@@ -416,6 +576,28 @@ def child(tree, steps):
         from hermespy_rt_tpu_torch.ops import walk_cuda
         out["walk"] = walk_queries(torch, tracer, walk_cuda, walk_ops,
                                    city_paths)
+    if steps == "bwd":
+        from hermespy_rt_tpu_torch.testing import KERNELS, recording_fused
+
+        i_cfg = calibration_config(PATHS, BOUNCES, True,
+                                   unroll_bounces=False)
+        g_steps = (("G", lambda: grad_step(g_cfg)),
+                   ("G_nrx4", lambda: grad_step(g_cfg, rx_positions(4))),
+                   ("J", j_step))
+        out["bwd"] = {
+            name: pre_bwd_calls(torch, recording_fused,
+                                KERNELS["bounce_pre_bwd"], step)
+            for name, step in g_steps}
+        out["other_bwd"] = other_bwd_calls(
+            torch, recording_fused, KERNELS,
+            (*g_steps, ("7", lambda: fused_step(RX)),
+             ("I", lambda: calibration_step(
+                 tris, RX, TX, FREQ_GHZ, default_materials(dev), i_cfg))))
+    from hermespy_rt_tpu_torch.ops._cuda_build import LIBRARY
+    out["ptxas"] = {name: M.kernel_ptxas(LIBRARY.build_log, name)
+                    for name in ("walk_prepass_kernel",
+                                 "bounce_pre_bwd_kernel")}
+    out["profiler"] = PROFILER
     print(json.dumps(out), flush=True)
 
 
@@ -452,7 +634,7 @@ def main():
     ap.add_argument("--tree", action="append", default=None)
     ap.add_argument("--order", default=None)
     ap.add_argument("--steps", default="all",
-                    choices=("all", "canyon", "city", "queries"))
+                    choices=("all", "canyon", "city", "queries", "bwd"))
     ap.add_argument("--out", default=None,
                     help="also write every JSON line to this file")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
@@ -491,14 +673,14 @@ def main():
 
         summary[tree] = {"turns": len(mine), "spread": {}}
         steps = [k for k in ("phase9", "N", "7", "7_nrx4", "G", "G_nrx4",
-                             "D", "E") if k in mine[0]]
+                             "D", "E", "J") if k in mine[0]]
         for step in steps:
             keys = {k: (lambda r, k=k: r[step]["profile"][k])
                     for k in ("wall_ms", "device_busy_ms", "device_ops",
                               "idle_share")}
             keys["wall_mean_ms"] = lambda r: r[step]["wall_mean_ms"]
             for name in ("walk_kernel", "walk_prepass", "nearest_hit_kernel",
-                         "nearest_hit_culled_kernel"):
+                         "nearest_hit_culled_kernel", "bounce_pre_bwd_kernel"):
                 keys[f"{name}_ms"] = (
                     lambda r, n=name: r[step]["profile"]["named"][n]["ms"])
             summary[tree][step], summary[tree]["spread"][step] = {}, {}
@@ -514,10 +696,37 @@ def main():
             summary[tree]["walk"], summary[tree]["spread"]["walk"] = [], []
             for q in range(len(mine[0]["walk"])):
                 row, spread = dict(mine[0]["walk"][q]), {}
-                for k in ("walk_ms", "prepass_ms"):
+                for k in ("walk_ms", "prepass_ms", "rows_ms", "sort_ms",
+                          "prepass_cold_ms"):
                     row[k], spread[k] = stat(lambda r: r["walk"][q][k])
                 summary[tree]["walk"].append(row)
                 summary[tree]["spread"]["walk"].append(spread)
+            # the prepass inside D's step against the seven standalone
+            summary[tree]["prepass_settle"] = {
+                k: sum(q[k] for q in summary[tree]["walk"])
+                for k in ("prepass_ms", "rows_ms", "prepass_cold_ms",
+                          "rows_ops")}
+            if "D" in summary[tree]:
+                summary[tree]["prepass_settle"]["in_step_D_ms"] = (
+                    summary[tree]["D"]["walk_prepass_ms"])
+        if "bwd" in mine[0]:
+            summary[tree]["bwd"] = {}
+            for step, calls in mine[0]["bwd"].items():
+                summary[tree]["bwd"][step] = []
+                for c in range(len(calls)):
+                    row = dict(calls[c])
+                    row["ms"], spread = stat(
+                        lambda r: r["bwd"][step][c]["ms"])
+                    row["ms_spread"] = spread
+                    row["share"] = row["bound_ms"] / row["ms"]
+                    row["digests_every_turn"] = all(
+                        r["bwd"][step][c]["digests"] == calls[c]["digests"]
+                        for r in mine)
+                    summary[tree]["bwd"][step].append(row)
+        summary[tree]["ptxas"] = mine[0]["ptxas"]
+        summary[tree]["profiler"] = {
+            k: sum(r.get("profiler", {}).get(k, 0) for r in mine)
+            for k in ("windows", "taken_again", "missed")}
         if "queries" in mine[0]:
             summary[tree]["queries"], summary[tree]["spread"]["queries"] = (
                 {}, {})
@@ -531,6 +740,27 @@ def main():
                             lambda r: r["queries"][label][q][k])
                     summary[tree]["queries"][label].append(row)
                     summary[tree]["spread"]["queries"][label].append(spread)
+    with_bwd = [t for t in summary if "bwd" in summary[t]]
+    if len(with_bwd) > 1:
+        # kernel 12's per-ray outputs, and kernels 13-16's operands and
+        # outputs: the same bits in every turn of every tree
+        t0 = with_bwd[0]
+        summary["bwd_per_ray_equal_across_trees"] = {
+            step: [all(summary[t]["bwd"][step][c]["digests"][n]
+                       == summary[t0]["bwd"][step][c]["digests"][n]
+                       for t in with_bwd
+                       for n in ("d_o", "d_d", "d_st", "d_pay"))
+                   for c in range(len(calls))]
+            for step, calls in summary[t0]["bwd"].items()}
+        first = next(r for r in runs if r["tree"] == t0)["other_bwd"]
+        summary["other_bwd_equal_across_trees"] = {
+            call: {k: all(r["other_bwd"].get(call, {}).get(k) == d[k]
+                          for r in runs)
+                   for k in ("operands", "outputs")}
+            for call, d in first.items()}
+        summary["other_bwd_same_bits_twice"] = all(
+            d["same_bits_twice"] for r in runs
+            for d in r["other_bwd"].values())
     emit(json.dumps({"summary": summary}))
     emit(smi())
 

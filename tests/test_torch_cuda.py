@@ -27,11 +27,16 @@ its plain version on a trace's recorded calls (a dead ray's state bit for
 bit, the rest within its tier); the culled query the brute twin's decisions
 and its skip count the plain version's; the op path with every kernel
 (``shade="pallas", cull=True``) the op path's gradients.
-The walk's prepass kernel must give the reach and key of its plain version
-bit for bit, and the walk kernel the (t, idx) of its plain version and of
-the brute kernel (in any-hit mode the same `blocked`, each reported hit a
-valid one); traces through the walk equal traces through the brute kernel
-bit for bit."""
+The walk's prepass kernel must give the visit rows of its plain version
+(``visit_rows`` of ``prepass_plain``) bit for bit, at every box count up to
+``MAX_BOXES``, ray count, live share and tie the tests plant, and refuse
+more boxes; the full pre backward its plain version's values within their
+tier at every RX count, parity, payload width and ray count, the same bits
+in two runs; kernels 13-16 the same bits in two runs on a recorded call,
+within their tiers.  The walk kernel must give the (t, idx) of its plain
+version and of the brute kernel (in any-hit mode the same `blocked`, each
+reported hit a valid one); traces through the walk equal traces through
+the brute kernel bit for bit."""
 import dataclasses
 
 import numpy as np
@@ -261,12 +266,106 @@ def test_walk_prepass_kernel_equals_plain(dev, opt):
     lim = query_limits(R, scene.block_rays, t_max=kw.get("t_max"),
                        live=kw.get("live"), device=dev)
     before = walk_prepass.launches
-    reach, key = walk_prepass(o, d, lim, scene.boxes)
+    visits = walk_prepass(o, d, lim, scene.boxes)
     torch.cuda.synchronize()
     assert walk_prepass.launches == before + 1
     r_p, k_p = prepass_plain(o, d, lim, scene.boxes, scene.block_rays)
-    assert torch.equal(reach, r_p) and torch.equal(key, k_p)
-    assert torch.equal(visit_rows(reach, key), visit_rows(r_p, k_p))
+    assert torch.equal(visits, visit_rows(r_p, k_p))
+
+
+def _prepass_case(rng, R, C, share, dev, ties=False, inside=False):
+    """Rays, padded limits and C boxes for the prepass: boxes of 1-30 m in
+    a 100 m cube (with ``ties`` the second half a copy of the first, so
+    equal keys tie across boxes), the last box the inverted padding box
+    (+inf, -inf), which every live ray reaches at key 0; rays from a 120 m
+    cube, every 9th along an axis (a zero direction component); with
+    ``inside`` every origin inside box 0, so it and the padding box key
+    +0.0.  ``share``: a live fraction, "one_a_tile" (one live ray in every
+    tile of 256) or "banded" (the rays of every other run of 64); per-ray
+    limits 5-200 m."""
+    lo = rng.uniform(-50, 50, (C, 3)).astype(np.float32)
+    boxes = np.concatenate([lo, lo + rng.uniform(1, 30, (C, 3))
+                            .astype(np.float32)], axis=1)
+    if ties and C > 1:
+        boxes[C - C // 2:] = boxes[:C // 2]
+    if C > 2:
+        boxes[-1] = [np.inf] * 3 + [-np.inf] * 3
+    o = rng.uniform(-60, 60, (R, 3)).astype(np.float32)
+    if inside:
+        o = boxes[0, :3] + rng.uniform(0.1, 0.9, (R, 3)).astype(
+            np.float32) * (boxes[0, 3:] - boxes[0, :3])
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    d[::9, rng.integers(0, 3)] = 0.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    r = np.arange(R)
+    if share == "one_a_tile":
+        live = r % 256 == 37 % min(R, 256)
+    elif share == "banded":
+        live = (r // 64) % 2 == 0
+    else:
+        live = rng.uniform(size=R) < share
+    t_max = rng.uniform(5, 200, R).astype(np.float32)
+    lim = query_limits(R, 256, t_max=torch.as_tensor(t_max, device=dev),
+                       live=torch.as_tensor(live, device=dev), device=dev)
+    return (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
+            lim, torch.as_tensor(boxes, device=dev))
+
+
+@pytest.mark.parametrize("share", [0.0, "one_a_tile", 0.17, "banded", 1.0])
+@pytest.mark.parametrize("R", [1, 255, 257, (1 << 16) + 37])
+@pytest.mark.parametrize("C", [1, 7, 56, 256, 512])
+def test_walk_prepass_rows_equal_plain(dev, C, R, share):
+    """The prepass kernel's visit rows equal ``visit_rows(*prepass_plain)``
+    bit for bit, the same in two runs; with ties across boxes and with
+    +0.0 keys from rays that start inside a box."""
+    rng = np.random.default_rng(C * 1000 + R % 1000)
+    for ties, inside in ((False, False), (True, False), (True, True)):
+        o, d, lim, boxes = _prepass_case(rng, R, C, share, dev, ties, inside)
+        before = walk_prepass.launches
+        v1 = walk_prepass(o, d, lim, boxes)
+        v2 = walk_prepass(o, d, lim, boxes)
+        torch.cuda.synchronize()
+        assert walk_prepass.launches == before + 2
+        assert torch.equal(v1, v2)
+        ref = visit_rows(*prepass_plain(o, d, lim, boxes, 256))
+        assert v1.shape == ref.shape == (lim.shape[0] // 256, 1 + C)
+        assert torch.equal(v1, ref), (ties, inside)
+        if share == 0.0:
+            assert not bool(v1.any())
+        elif C > 2 and share == 1.0:
+            assert bool((v1[:, 0] > 0).all())   # the padding box at least
+
+
+def test_walk_prepass_infinite_key(dev):
+    """Under an infinite limit a box can be reached at key +inf, where it
+    ties with the boxes no ray reaches: the rows still equal the plain
+    version's stable sort.  Rays along x (inv y, z = 1e30) reach box 5,
+    which is open to +inf in x and lies 1e9 away in y and z, at t_near =
+    t_far = +inf; boxes 0-4 lie behind the rays, 6-9 ahead of them."""
+    boxes = np.zeros((10, 6), np.float32)
+    boxes[:5] = [-20, -1, -1, -10, 1, 1]
+    boxes[5] = [1, 1e9, 1e9, np.inf, 2e9, 2e9]
+    boxes[6:] = [[5 + 3 * i, -1, -1, 6 + 3 * i, 1, 1] for i in range(4)]
+    R = 300
+    o = np.zeros((R, 3), np.float32)
+    d = np.tile(np.float32([1, 0, 0]), (R, 1))
+    lim = query_limits(R, 256, t_max=float("inf"), device=dev)
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    boxes = torch.as_tensor(boxes, device=dev)
+    rows = walk_prepass(o, d, lim, boxes)
+    reach, key = prepass_plain(o, d, lim, boxes, 256)
+    assert bool(reach[:, 5].all()) and bool(torch.isinf(key[:, 5]).all())
+    assert torch.equal(rows, visit_rows(reach, key))
+    assert rows[0, 0] == 5     # 6-9 and 5
+
+
+def test_walk_prepass_rejects_too_many_boxes(dev):
+    rng = np.random.default_rng(3)
+    o, d, lim, boxes = _prepass_case(rng, 300, 513, 1.0, dev)
+    with pytest.raises(ValueError, match="MAX_BOXES = 512"):
+        walk_prepass(o, d, lim, boxes)
+    with pytest.raises(ValueError, match="MAX_BOXES = 512"):
+        walk_prepass(o.cpu(), d.cpu(), lim.cpu(), boxes.cpu())
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -279,7 +378,7 @@ def test_walk_kernel_equals_plain_and_brute(dev, ties, any_hit):
     o, d, kw = _inputs(rng, "all", R, tris.pad_triangles, dev)
     lim = query_limits(R, scene.block_rays, t_max=kw["t_max"],
                        live=kw["live"], device=dev)
-    visits = visit_rows(*walk_prepass(o, d, lim, scene.boxes))
+    visits = walk_prepass(o, d, lim, scene.boxes)
     before = walk.launches
     t, i = walk(o, d, lim, scene, visits, exclude=kw["exclude"],
                 any_hit=any_hit)
@@ -368,7 +467,7 @@ def _hold_walk(scene, o, d, lim, exclude, any_hit):
     """The walk kernel twice and its plain version once on every ray: the
     same bits in both runs and the plain version's bits.  Returns
     ``(t, idx)``."""
-    visits = visit_rows(*walk_prepass(o, d, lim, scene.boxes))
+    visits = walk_prepass(o, d, lim, scene.boxes)
     before = walk.launches
     t1, i1 = walk(o, d, lim, scene, visits, exclude=exclude, any_hit=any_hit)
     t2, i2 = walk(o, d, lim, scene, visits, exclude=exclude, any_hit=any_hit)
@@ -446,7 +545,7 @@ def test_walk_rejects_bad_operands(dev):
     o = torch.zeros((8, 3), device=dev)
     d = torch.ones((8, 3), device=dev)
     lim = query_limits(8, scene.block_rays, device=dev)
-    visits = visit_rows(*walk_prepass(o, d, lim, scene.boxes))
+    visits = walk_prepass(o, d, lim, scene.boxes)
     with pytest.raises(ValueError):
         walk_prepass(o.double(), d, lim, scene.boxes)
     with pytest.raises(ValueError):
@@ -535,6 +634,83 @@ def test_stage_backward_kernels_equal_plain(dev, parity, nrx, grad_geometry):
     assert len(calls["scatter_add"]) == n_scatter
     for i, (args, _) in enumerate(calls["scatter_add"]):
         checks.hold_scatter_add(*args, f"scatter_add{i}")
+
+
+def _rx(nrx):
+    """nrx receivers: (10, 5, 2) + k (1.5, -2, 0.25)."""
+    return RX[:1] + np.arange(nrx, dtype=np.float32)[:, None] * np.float32(
+        [[1.5, -2.0, 0.25]])
+
+
+def _first_rays(args, R):
+    """A recorded full pre backward call's operands cut to its first R
+    rays (contiguous copies)."""
+    (spec, o, d, st, act, idx, table, rx_pos, sc, d_o2, d_d2, d_st2, d_ex,
+     d_sh_d, d_d2rx) = args
+    rows = [x[:R].contiguous() for x in (o, d, act, idx, d_o2, d_d2)]
+    cols = [x[:, :R].contiguous() for x in (st, d_st2, d_ex, d_sh_d, d_d2rx)]
+    return (spec, rows[0], rows[1], cols[0], rows[2], rows[3], table, rx_pos,
+            sc, rows[4], rows[5], cols[1], cols[2], cols[3], cols[4])
+
+
+@pytest.mark.parametrize("grad_geometry", [True, False])
+@pytest.mark.parametrize("parity", ["reference", "physical"])
+@pytest.mark.parametrize("nrx", [1, 2, 4, 8, 16])
+def test_pre_bwd_kernel_shapes(dev, nrx, parity, grad_geometry):
+    """The full pre backward on a full-gradient step's recorded operands
+    (the 300-row material table, ids over all of it), cut to R = 1, 257 and
+    2^16 + 37 rays and whole: within ``hold_pre_bwd``'s tiers, the same bits
+    in two runs; pc 27 with ``grad_geometry``, else 12."""
+    tris, mats = _soup(dev, 300)
+    v0 = tris.v0.clone().requires_grad_()
+    rx = torch.tensor(_rx(nrx), device=dev, requires_grad=True)
+    f = torch.tensor(FREQ, device=dev, requires_grad=True)
+    cfg = TracerConfig(num_paths=1 << 17, num_bounces=3, parity=parity,
+                       keep_rays=False, compact_rays=True, shade="fused",
+                       grad_geometry=grad_geometry)
+    with checks.recording_fused() as calls:
+        res = trace_paths(dataclasses.replace(tris, v0=v0), mats, rx, TX,
+                          np.zeros((nrx, 3), np.float32),
+                          np.zeros((1, 3), np.float32), f, cfg)
+        checks.grad_loss(res).backward()
+        torch.cuda.synchronize()
+    assert len(calls["bounce_pre_bwd"]) == 3
+    args, out = max(calls["bounce_pre_bwd"], key=lambda c: c[0][1].shape[0])
+    assert out[3].shape[1] == (27 if grad_geometry else 12)
+    assert args[1].shape[0] >= (1 << 16) + 37
+    for R in (1, 257, (1 << 16) + 37, args[1].shape[0]):
+        a = _first_rays(args, R)
+        k1 = fused_ops.bounce_pre_bwd(*a)
+        k2 = fused_ops.bounce_pre_bwd(*a)
+        assert all(torch.equal(x, y) for x, y in zip(k1, k2)), R
+        checks.hold_pre_bwd(a[0], a[1:], k1, f"pre_bwd nrx {nrx} R {R}")
+
+
+def test_other_bwd_kernels_same_bits_twice(dev):
+    """Kernels 13-16 on their first recorded call in small seeded steps
+    (the full post backward in a full-gradient step, the slim ones with
+    ``unroll_bounces=False``, the whole-loop one in the calibration step):
+    a second run gives the same bits, and each is held against its plain
+    version.  That they keep their bits across a change of the other
+    kernels is ``scripts/profile_op_steps.py --steps bwd``'s comparison of
+    two trees."""
+    tris = _moving_soup(dev)
+    mats = {u: default_materials(dev) for u in (False, True)}
+    with checks.recording_fused() as calls:
+        _grad_step(dev, tris, 2, 1 << 12, "reference", shade="fused")
+        _step(tris, 2, mats[False], 1 << 12, True, unroll_bounces=False)
+        _step(tris, 2, mats[True], 1 << 12, True)
+    holds = {"bounce_post_bwd": checks.hold_post_bwd,
+             "bounce_pre_bwd_slim": checks.hold_pre_bwd_slim,
+             "bounce_post_bwd_slim": checks.hold_post_bwd_slim,
+             "loop_bwd_slim": lambda spec, rest, out, label: checks.hold_bwd(
+                 spec, rest, out, mats[True], FREQ, label)}
+    for name, hold in holds.items():
+        args, out = calls[name][0]
+        again = checks.KERNELS[name](*args)
+        assert all(a is None or torch.equal(a, b)
+                   for a, b in zip(out, again)), name
+        hold(args[0], args[1:], out, name)
 
 
 def test_slim_stage_kernels_equal_plain(dev):
@@ -673,6 +849,8 @@ def test_stage_backward_kernels_reject_bad_operands(dev):
         fused_ops.bounce_pre_bwd(FusedSpec(nrx=1, grad_positions=False,
                                            grad_geometry=False),
                                  *ok.values())
+    with pytest.raises(ValueError, match="at most 340 RX"):
+        fused_ops.bounce_pre_bwd(FusedSpec(nrx=341), *ok.values())
     with pytest.raises(ValueError):
         scatter_add(i32(R).long(), f(R, 3), T)
     with pytest.raises(ValueError):

@@ -44,7 +44,8 @@ from hermespy_rt_tpu_torch.convert import materials_from_jax, soa_from_jax
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS
 from hermespy_rt_tpu_torch.testing import OUTPUT_FIELDS, slots_agree
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch, mt_hit
-from hermespy_rt_tpu_torch.ops.walk import (prepare_walk, prepass_plain,
+from hermespy_rt_tpu_torch.ops.walk import (MAX_BOXES, prepare_walk,
+                                            prepass_kept_plain, prepass_plain,
                                             query_limits, tile_aabbs,
                                             visit_rows, walk_group)
 from hermespy_rt_tpu_torch.ops.walk_cuda import (WalkKernel,
@@ -132,6 +133,101 @@ def test_visit_rows_equal_jax_prepass(rng, group):
     assert rows.shape == (3, 1 + scene.n_boxes)
     np.testing.assert_array_equal(rows, rows_j[:, :1 + scene.n_boxes])
     assert (rows[:, 0] > 0).all()
+
+
+def _box_soup(boxes, ties):
+    """A soup with one fine tile of 32 triangles per coarse box (group 1):
+    each tile's first two triangles span its box's corners (the rest
+    copies of the first), so the tile boxes are ``boxes`` exactly; with
+    ``ties`` the second half of the tiles repeats the first."""
+    C = boxes.shape[0]
+    if ties:
+        boxes = np.concatenate([boxes[:C - C // 2], boxes[:C // 2]])
+    lo, hi = boxes[:, None, :3], boxes[:, None, 3:]
+    a = np.concatenate([lo, hi, lo * [[1, 1, 0]] + hi * [[0, 0, 1]]], 1)
+    b = np.concatenate([hi, lo, hi * [[1, 1, 0]] + lo * [[0, 0, 1]]], 1)
+    tri = np.concatenate([a[:, None], b[:, None],
+                          np.repeat(a[:, None], 30, 1)], 1)   # [C, 32, 3, 3]
+    verts = tri.reshape(-1, 3).astype(np.float32)
+    idx = np.arange(verts.shape[0]).reshape(-1, 3)
+    return js.flatten_scene(js.HostScene([js.HostMesh(
+        verts, idx, material_index=1, name="boxes")]))
+
+
+@pytest.mark.parametrize("C,ties,inside", [
+    (7, True, False), (56, True, True), (512, False, False),
+    (512, True, True)])
+def test_prepass_rows_equal_jax_prepass(rng, C, ties, inside):
+    """The prepass wrapper's CPU route (the plain prepass and visit rows)
+    against JAX's ``_walk_prepass`` on one fine tile a box: equal keys
+    across boxes (``ties``), +0.0 keys from rays that start inside a box
+    (``inside``: half the rays start in box 0), and C = MAX_BOXES."""
+    lo = rng.uniform(-50, 50, (C, 3)).astype(np.float32)
+    boxes = np.concatenate([lo, lo + rng.uniform(1, 30, (C, 3)).astype(
+        np.float32)], axis=1)
+    soa = _box_soup(boxes, ties)
+    tris = soa_from_jax(vars(soa))
+    R = 700
+    o, d = _rays(R, rng, 60.0)
+    if inside:
+        o[::2] = boxes[0, :3] + rng.uniform(0.2, 0.8, (R // 2, 3)).astype(
+            np.float32) * (boxes[0, 3:] - boxes[0, :3])
+    t_max = rng.uniform(5, 200, R).astype(np.float32)
+    t_max[::7] = -1.0
+    lim = query_limits(R, 256, t_max=torch.as_tensor(t_max))
+    _, rows_j = _jax_visit_rows(soa, o, d, lim.numpy(), 256, 32, 1)
+    scene = prepare_walk(tris, block_rays=256, block_tris=32, group=1)
+    n = scene.n_boxes          # C, and a padding tile's box past 7
+    assert n == max(C, 8)
+    pre = WalkPrepassKernel()
+    rows = pre(torch.as_tensor(o), torch.as_tensor(d), lim, scene.boxes)
+    assert rows.shape == (3, 1 + n) and pre.launches == 0
+    np.testing.assert_array_equal(rows.numpy(), rows_j[:, :1 + n])
+    if ties:     # equal keys: a box and its copy, the lower one first
+        assert (rows[:, 0] > 1).all()
+    if inside:   # box 0 keyed +0.0, first in every row
+        assert (rows[:, 1] == 0).all()
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+def test_prepass_prune_keeps_every_reached_box(rng, coherent):
+    """The prepass kernel's prune (``prepass_kept_plain``) keeps every box
+    a ray of the tile reaches (the padding tile's inverted box, every ray's
+    at key 0, among them), and prunes part of the rest when a tile's rays
+    are coherent."""
+    soa = _soup(3000, 5, 60.0)
+    tris = soa_from_jax(vars(soa))
+    scene = prepare_walk(tris, block_tris=32)
+    R = 1500
+    if coherent:     # one origin, directions sorted
+        o = np.broadcast_to(np.float32([3.0, -2.0, 9.0]), (R, 3)).copy()
+        d = rng.normal(size=(R, 3)).astype(np.float32)
+        d = d[np.lexsort((d[:, 1], d[:, 0], np.sign(d[:, 2])))]
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    else:
+        o, d = _rays(R, rng, 70.0)
+    d[::11, 1] = 0.0
+    t_max = rng.uniform(1, 90, R).astype(np.float32)
+    t_max[::5] = -1.0
+    lim = query_limits(R, 256, t_max=torch.as_tensor(t_max))
+    o, d = torch.as_tensor(o), torch.as_tensor(d)
+    reach, _ = prepass_plain(o, d, lim, scene.boxes, 256)
+    kept = prepass_kept_plain(o, d, lim, scene.boxes, 256)
+    assert kept.shape == reach.shape
+    assert bool((kept | ~reach).all())            # kept covers reached
+    assert bool(reach.any())
+    if coherent:
+        assert float(kept.float().mean()) < 0.7
+
+
+def test_prepass_takes_at_most_max_boxes(rng):
+    o, d = (torch.as_tensor(x) for x in _rays(10, rng, 5.0))
+    lim = query_limits(10, 256)
+    boxes = torch.zeros((MAX_BOXES + 1, 6))
+    with pytest.raises(ValueError, match=f"MAX_BOXES = {MAX_BOXES}"):
+        WalkPrepassKernel()(o, d, lim, boxes)
+    assert WalkPrepassKernel()(o, d, lim, boxes[:MAX_BOXES]).shape == (
+        1, 1 + MAX_BOXES)
 
 
 def test_triangle_records_equal_triangles():
@@ -447,10 +543,10 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     o, d = (torch.as_tensor(x) for x in _rays(300, rng, 50.0))
     lim = query_limits(300, scene.block_rays)
     pre, wk = WalkPrepassKernel(), WalkKernel()
-    reach, key = pre(o, d, lim, scene.boxes)
-    r2, k2 = prepass_plain(o, d, lim, scene.boxes, scene.block_rays)
-    assert torch.equal(reach, r2) and torch.equal(key, k2)
-    t, i = wk(o, d, lim, scene, visit_rows(reach, key))
+    visits = pre(o, d, lim, scene.boxes)
+    assert torch.equal(visits, visit_rows(*prepass_plain(
+        o, d, lim, scene.boxes, scene.block_rays)))
+    t, i = wk(o, d, lim, scene, visits)
     t_b, i_b = intersect_torch(o, d, tris)
     assert torch.equal(i, i_b) and torch.equal(t, t_b)
     assert pre.launches == 0 and wk.launches == 0
