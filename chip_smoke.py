@@ -192,9 +192,9 @@ from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS, MATERIAL_NAMES
 from hermespy_rt_tpu_torch.measure import (
-    BWD_POST_OPS, BWD_PRE_OPS, F32_OPS_PER_S, NEAREST_HIT_OPS_PER_PAIR,
-    POST_OPS_PER_RX, PRE_OPS_PER_RAY, PRE_OPS_PER_RX, SLAB_OPS, bound,
-    bwd_work, event_ms, kernel_ptxas, nbytes, prepass_bounds, profiled)
+    F32_OPS_PER_S, NEAREST_HIT_OPS_PER_PAIR, POST_OPS_PER_RX, PRE_OPS_PER_RAY,
+    PRE_OPS_PER_RX, SLAB_OPS, bound, bwd_work, event_ms, kernel_ptxas, nbytes,
+    prepass_bounds, profiled)
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops import fetch_cuda, shade_cuda, walk_cuda
 from hermespy_rt_tpu_torch.ops._cuda_build import BUILD_DIR, LIBRARY
@@ -723,7 +723,7 @@ def phase_train(tris, dev):
 def fused_work(name, spec, rest, outs):
     """(bytes, f32 operations) that one call of fused kernel ``name`` must
     move and do on this run's data: each input it needs read once, each
-    output written once."""
+    output written once (the backward's: ``measure.bwd_work``)."""
     nrx = spec.nrx
     if name == "bounce_pre":
         R = rest[0].shape[0]
@@ -735,21 +735,7 @@ def fused_work(name, spec, rest, outs):
         unused = 0 if spec.parity == "physical" else nbytes(ex[2])
         return (nbytes(*rest, *outs) - unused,
                 rest[0].shape[0] * nrx * POST_OPS_PER_RX)
-    # the backward: a (ray, RX) is written only where the ray is live, so a
-    # dead ray needs its freq cotangents (d_out row 5) only; a live ray its
-    # material, state rows 0-3, the 3 res_pre rows and res_post row 5 (wf)
-    # per RX; a live ray written at that bounce its next state rows 0-3
-    # once, and res_post and d_out rows 0-4 per written RX
-    eta_tab, _, live_all, _, _, res_post, d_out = rest
-    written = res_post[:, :, 5] > 0                     # [B, nrx, R]
-    n_live = int(live_all.sum())
-    n_write = int(written.sum())
-    n_written_rays = int(written.any(dim=1).sum())
-    n_bytes = (nbytes(eta_tab, live_all, *outs)
-               + nbytes(d_out[:, :, 5])
-               + n_live * (4 + 16 + 12 + 4 * nrx)
-               + 16 * n_written_rays + 40 * n_write)
-    return n_bytes, n_live * BWD_PRE_OPS + n_write * BWD_POST_OPS
+    return bwd_work(name, spec, rest, outs)
 
 
 def phase_fused_kernel(recorded, dev):
@@ -817,6 +803,9 @@ def phase_fused_kernel(recorded, dev):
                           plain_wall_ms=plain_wall_ms, bound_ms=bound_ms,
                           bound_by=bound_by, bytes=n_bytes,
                           ops=n_ops)
+            timing.update(share=bound_ms / timing["ms"],
+                          ptxas=kernel_ptxas(LIBRARY.build_log,
+                                             f"{name}_kernel"))
             summary[name].setdefault("timing", {})[nrx] = timing
             emit(phase="fused_kernel_time", kernel=name, nrx=nrx, **timing,
                  gpu=smi())

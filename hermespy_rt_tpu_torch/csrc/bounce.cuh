@@ -552,20 +552,124 @@ __device__ __forceinline__ void pre_vjp(const float* eta, float cos_t1,
   }
 }
 
-// the sum of v over the block's threads (a multiple of 32, at most kThreads)
-// into *dst, in a fixed order: a butterfly in each warp, then the warps in
-// order.  Every thread of the block calls it.
-__device__ __forceinline__ void block_sum(float v, float* dst, float* smem) {
+// ---------------------------------------------------------------------------
+// moving rows and summing across rays, in the full backwards
+
+// the sum of v over the warp's lanes, in every lane, by a butterfly
+__device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) smem[threadIdx.x / 32] = v;
+  return v;
+}
+
+// n floats from src to dst by the block's threads, as 16-byte vectors where
+// both ends are 16-byte aligned
+__device__ __forceinline__ void copy_rows(float* __restrict__ dst,
+                                          const float* __restrict__ src,
+                                          int n) {
+  int done = 0;
+  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) &
+       15) == 0) {
+    done = n & ~3;
+    for (int i = threadIdx.x; i < done / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] =
+          reinterpret_cast<const float4*>(src)[i];
+  }
+  for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// A warp's span of n floats at g in device memory moved to (kLoad) or from
+// shared memory at s + m, where m = the float offset of g in its 16 bytes:
+// both sides then sit alike in their 16 bytes, so the span moves as 16-byte
+// vectors with at most 3 scalars at each end.  s must be 16-byte aligned
+// with room for n + 3 floats.  Every lane of the warp calls it; returns m
+// (span_offset).
+__device__ __forceinline__ int span_offset(const float* g) {
+  return static_cast<int>((reinterpret_cast<size_t>(g) >> 2) & 3);
+}
+
+template <bool kLoad>
+__device__ __forceinline__ int warp_span(float* g, float* s, int n) {
+  const int lane = threadIdx.x & 31;
+  const int m = span_offset(g);
+  const int head = min((4 - m) & 3, n);
+  const int n_vec = (n - head) >> 2;
+  float* sm = s + m;
+  if (lane < head) {
+    if (kLoad) sm[lane] = g[lane];
+    else g[lane] = sm[lane];
+  }
+  for (int v = lane; v < n_vec; v += 32) {
+    float4* gv = reinterpret_cast<float4*>(g + head) + v;
+    float4* sv = reinterpret_cast<float4*>(sm + head) + v;
+    if (kLoad) *sv = *gv;
+    else *gv = *sv;
+  }
+  const int tail = head + 4 * n_vec + lane;
+  if (tail < n) {
+    if (kLoad) sm[tail] = g[tail];
+    else g[tail] = sm[tail];
+  }
+  return m;
+}
+
+__device__ __forceinline__ void vadd(float2& a, float2 b) {
+  a.x += b.x;
+  a.y += b.y;
+}
+__device__ __forceinline__ float2 vshfl(float2 a, int off) {
+  return make_float2(__shfl_xor_sync(0xffffffffu, a.x, off),
+                     __shfl_xor_sync(0xffffffffu, a.y, off));
+}
+
+// Whether this block is the last of the grid to finish: every thread calls
+// it after writing its share of the block's partial sums to device memory.
+// The count (one per kernel) goes back to 0 in the last block, so the next
+// launch on the stream finds it at 0.
+__device__ __forceinline__ bool last_block(unsigned int* count, bool* flag) {
+  __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) s += smem[w];
-    *dst = s;
+    *flag = atomicAdd(count, 1u) == gridDim.x - 1;
+    if (*flag) *count = 0u;
   }
   __syncthreads();
+  if (*flag) __threadfence();
+  return *flag;
+}
+
+// The last block's sum of the grid's n partial pairs (part[j] = the j-th
+// block's two sums) into out[0] and out[1], in a fixed grouping: thread t
+// adds pairs t, t + nt, t + 2 nt, ... in order (16 loads in flight: one at
+// a time, the sum took a round trip to L2 a pair), and the threads' sums
+// are joined by warp butterflies and then the warps in order (smem: 2 *
+// blockDim.x / 32 floats).  The same adds in the same order every run, and
+// no float atomics.  Every thread calls it.
+__device__ __forceinline__ void sum_pairs(const float2* part, int n,
+                                          float* out, float* smem) {
+  constexpr int kBatch = 16;
+  const int t = threadIdx.x, nt = blockDim.x, nw = nt / 32;
+  float2 acc = make_float2(0.0f, 0.0f);
+  for (int j0 = t; j0 < n; j0 += kBatch * nt) {
+    float2 row[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j0 + u * nt < n) row[u] = __ldcg(part + j0 + u * nt);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j0 + u * nt < n) vadd(acc, row[u]);
+  }
+  for (int off = 16; off > 0; off >>= 1) vadd(acc, vshfl(acc, off));
+  if ((t & 31) == 0) {
+    smem[t / 32] = acc.x;
+    smem[nw + t / 32] = acc.y;
+  }
+  __syncthreads();
+  if (t < 2) {
+    float sum = 0.0f;
+    for (int w = 0; w < nw; ++w) sum += smem[t * nw + w];
+    out[t] = sum;
+  }
 }
 
 }  // namespace

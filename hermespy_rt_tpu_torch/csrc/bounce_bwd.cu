@@ -32,9 +32,10 @@
 // table scatter-add (scatter_add.cu), the TPU kernels' in-kernel one-hot
 // MXU scatter being a TPU device.  Sums across rays (the RX positions' and
 // carrier scalars' cotangents) are per-block partials in a fixed order
-// (bounce.cuh: block_sum; kernel 12 reduces all of its sums with one barrier,
-// see there), summed by the wrapper in a fixed order, so the result is the
-// same from run to run.
+// (warp butterflies, then the warps in order, with one barrier), summed in
+// a fixed order by the wrapper (kernel 12) or by the kernel's last block
+// (kernel 13, bounce.cuh: sum_pairs), so the result is the same from run
+// to run.
 
 #include "bounce.cuh"
 
@@ -52,7 +53,7 @@ namespace {
 //   (copy_rows), where a thread's own 3 or pc scalars at a 12- or 108-byte
 //   stride touched a sector a lane;
 // - the 3 nrx + 2 sums across rays: each warp reduces its lanes' terms by
-//   the butterfly of block_sum as the RX loop goes, lane 0 keeps them in
+//   a butterfly (warp_sum) as the RX loop goes, lane 0 keeps them in
 //   shared memory [part][warp], and after the one barrier of the block one
 //   thread a part adds the warps in order into the block's partial.  The
 //   same adds in the same order every run, and no float atomics.
@@ -71,29 +72,6 @@ struct PreBwdArgs {
   float *d_o, *d_d, *d_st, *d_pay;
   float* part;               // [gridDim.x, 3 nrx + 2]
 };
-
-// the sum of v over the warp's lanes, in every lane: block_sum's butterfly
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// n floats from src to dst by the block's threads, as 16-byte vectors where
-// both ends are 16-byte aligned
-__device__ __forceinline__ void copy_rows(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          int n) {
-  int done = 0;
-  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) &
-       15) == 0) {
-    done = n & ~3;
-    for (int i = threadIdx.x; i < done / 4; i += blockDim.x)
-      reinterpret_cast<float4*>(dst)[i] =
-          reinterpret_cast<const float4*>(src)[i];
-  }
-  for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
 
 __global__ void __launch_bounds__(kPreBwdRays)
     bounce_pre_bwd_kernel(PreBwdArgs a) {
@@ -304,6 +282,32 @@ __global__ void __launch_bounds__(kPreBwdRays)
 
 // ---------------------------------------------------------------------------
 // kernel 13: the full post-stage backward
+//
+// Blocks of 128 rays, as kernel 12.  The per-ray arithmetic is the same
+// device functions in the same order as before, so every per-ray output
+// keeps its bits; what changed is how the block moves its rows and sums:
+// - d2 in, d_d2 out and the d_pay rows (one contiguous run of 128 pc
+//   floats, the zero columns included) go through shared memory and are
+//   read and written as 16-byte vectors (copy_rows), where a thread's own 3
+//   or 27 scalars at a 12- or 108-byte stride touched a sector a lane;
+// - the per-RX [nrx, R, 3] rows (sh_d in, d_sh_d and d_no out) go through a
+//   buffer of each warp (warp_span): a warp's 32 rays are 96 contiguous
+//   floats of an RX's row, moved with a __syncwarp and no block barrier, so
+//   shared memory does not grow with nrx.  Under reference parity an
+//   occluded RX's d_sh_d and d_no are known only when the next occluded RX
+//   comes or the sweep ends: its lane leaves a placeholder in that RX's
+//   flush and writes its own six floats when it finishes the RX, after a
+//   __syncwarp that orders the two stores;
+// - the two sums across rays (d_sc): warp butterflies into [part][warp], one
+//   barrier, the warps in order into the block's partial; the last block to
+//   finish adds the blocks' partials in a fixed grouping (sum_pairs) into
+//   d_sc, so the call is one device operation.
+
+constexpr int kPostBwdRays = 128;
+constexpr int kPostBwdWarps = kPostBwdRays / 32;
+constexpr int kSpan = 3 * 32 + 4;  // a warp's 3-vector rows, and room to align
+
+__device__ unsigned int g_post_bwd_done = 0u;  // blocks done (last_block)
 
 struct PostBwdArgs {
   const float *d2, *st2, *ex, *sh_d, *d2rx, *t_self;
@@ -320,16 +324,18 @@ struct PostBwdArgs {
   float* d_no;               // [nrx, R, 3] or null (reference + geometry)
   int* occ;                  // [nrx, R] or null
   float* part;               // [gridDim.x, 2]
+  float* d_sc;               // [2]
 };
 
 // the cotangents that belong to an occluded RX's clobber: its incidence
 // angle's cotangent (g_th, g_cos) goes through cos_o = clamp(|n_o . ds|) to
-// the occluder normal and the RX's shadow direction; writes both
+// the occluder normal and the RX's shadow direction; writes both rows of
+// ray-RX i
 __device__ __forceinline__ void finish_occluder(const PostBwdArgs& a,
-                                                size_t i, int idx_m,
-                                                const float* n_o, float dno,
-                                                const float* ds, float* g_ds,
-                                                float g_th, float g_cos) {
+                                                size_t i, const float* n_o,
+                                                float dno, const float* ds,
+                                                float* g_ds, float g_th,
+                                                float g_cos) {
   const float cos_o = clampf(fabsf(dno), 0.0f, kClip);
   g_cos += g_th * fast_acos_grad(cos_o);
   const float g_dno = (fabsf(dno) <= kClip ? g_cos : 0.0f) * signf(dno);
@@ -337,19 +343,37 @@ __device__ __forceinline__ void finish_occluder(const PostBwdArgs& a,
     g_ds[c] += g_dno * n_o[c];
     a.d_sh_d[3 * i + c] = g_ds[c];
   }
-  if (a.d_no != nullptr) {
+  if (a.d_no != nullptr)
     for (int c = 0; c < 3; ++c) a.d_no[3 * i + c] = g_dno * ds[c];
-    a.occ[i] = idx_m;
-  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPostBwdRays)
     bounce_post_bwd_kernel(PostBwdArgs a) {
-  __shared__ float smem[kThreads / 32];
-  const int r0 = blockIdx.x * kThreads + threadIdx.x;
-  const bool in = r0 < a.R;
-  const int r = in ? r0 : a.R - 1;
+  // the block's d2 and d_d2 rows and payload cotangent rows; each warp's
+  // RX rows (sh_d in, d_sh_d and d_no out); the warps' sums [part][warp]
+  __shared__ __align__(16) float s_d2[3 * kPostBwdRays],
+      s_gd2[3 * kPostBwdRays];
+  __shared__ __align__(16) float s_pay[kPostBwdRays * kCols];
+  __shared__ __align__(16) float s_rx[kPostBwdWarps][3][kSpan];
+  __shared__ float s_part[2 * kPostBwdWarps];
+  __shared__ bool s_last;
+  const int base = blockIdx.x * kPostBwdRays;
+  const int n_in = min(kPostBwdRays, a.R - base);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  copy_rows(s_d2, a.d2 + 3 * static_cast<size_t>(base), 3 * n_in);
+  __syncthreads();
+  const bool in = static_cast<int>(threadIdx.x) < n_in;
+  // every thread joins the warps' sums and moves: one past the rays takes
+  // the last ray's operands, adds 0 and writes nothing
+  const int ts = in ? static_cast<int>(threadIdx.x) : n_in - 1;
+  const int r = base + ts;
   const size_t R = a.R;
+  // the warp's rays (fewer than 32 in the grid's last warp that has any; a
+  // warp past them moves no RX rows) and this lane's ray among them
+  const int w0 = base + 32 * warp;
+  const int n_w = min(32, a.R - w0);
+  const int lt = ts - 32 * warp;
+
   const bool live = a.live[r] != 0;
   const int excl = a.excl[r];
   const float* row =
@@ -358,7 +382,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < 3; ++c) {
     n[c] = __ldg(row + 9 + c);
     vel[c] = __ldg(row + 12 + c);
-    d2[c] = a.d2[3 * r + c];
+    d2[c] = s_d2[3 * ts + c];
   }
   const float s = __ldg(row + kGeom + kEtaS);
   const float s1a = __ldg(row + kGeom + kEtaS1Alpha);
@@ -373,18 +397,25 @@ __global__ void __launch_bounds__(kThreads)
   float g_n[3] = {0.0f, 0.0f, 0.0f}, g_vel[3] = {0.0f, 0.0f, 0.0f};
   float g_s = 0.0f, g_s1a = 0.0f, g_fslm = 0.0f, g_kdop = 0.0f;
   float g_theta = 0.0f, g_cos_t1 = 0.0f;
-  // the last occluded RX so far (reference parity): its index, merged
-  // occluder, normal, n_o . ds, ds, its ds cotangent so far, and the
-  // incidence-angle cotangents that belong to it
-  int own = -1, own_idx = -1;
+  // the last occluded RX so far (reference parity): its index, occluder
+  // normal, n_o . ds, ds, its ds cotangent so far, and the incidence-angle
+  // cotangents that belong to it
+  int own = -1;
   float own_no[3], own_dno = 0.0f, own_ds[3], own_gds[3];
   float own_gth = 0.0f, own_gcos = 0.0f;
 
   float th_c = theta, cos_c = cos_t1;
-  for (int k = 0; k < a.nrx && in; ++k) {
+  float* s_ds = s_rx[warp][0];
+  float* s_gds = s_rx[warp][1];
+  float* s_gno = s_rx[warp][2];
+  for (int k = 0; k < a.nrx && n_w > 0; ++k) {
     const size_t i = k * R + r;
+    const size_t span = 3 * (k * R + w0);
+    const int m_in = warp_span<true>(const_cast<float*>(a.sh_d) + span, s_ds,
+                                     3 * n_w);
+    __syncwarp();
     float ds[3];
-    for (int c = 0; c < 3; ++c) ds[c] = a.sh_d[3 * i + c];
+    for (int c = 0; c < 3; ++c) ds[c] = s_ds[m_in + 3 * lt + c];
     const float d2rx = a.d2rx[i];
     const PostRx q = post_rx(a.physical, a.eps_o, a.table, ds, d2rx,
                              a.t_self[i], a.crossing[i] != 0, a.t_o[i],
@@ -435,17 +466,17 @@ __global__ void __launch_bounds__(kThreads)
         g_n[c] += g_dsn * ds[c];
       }
     }
-    a.d_d2rx[i] = g_dr;
+    if (in) a.d_d2rx[i] = g_dr;
+    // this RX's d_sh_d and d_no rows (an occluded RX's: a placeholder)
+    float out_ds[3] = {g_ds[0], g_ds[1], g_ds[2]};
     if (a.physical) {
       g_theta += g_thi;
       g_cos_t1 += g_cti;
-      for (int c = 0; c < 3; ++c) a.d_sh_d[3 * i + c] = g_ds[c];
     } else if (q.occ) {
-      if (own >= 0)
-        finish_occluder(a, own * R + r, own_idx, own_no, own_dno, own_ds,
-                        own_gds, own_gth, own_gcos);
+      if (in && own >= 0)
+        finish_occluder(a, own * R + r, own_no, own_dno, own_ds, own_gds,
+                        own_gth, own_gcos);
       own = k;
-      own_idx = q.idx_m;
       own_dno = q.dno;
       for (int c = 0; c < 3; ++c) {
         own_no[c] = q.n_o[c];
@@ -454,6 +485,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       own_gth = g_thi;
       own_gcos = g_cti;
+      if (in && a.occ != nullptr) a.occ[i] = q.idx_m;
     } else {
       if (own >= 0) {
         own_gth += g_thi;
@@ -462,36 +494,63 @@ __global__ void __launch_bounds__(kThreads)
         g_theta += g_thi;
         g_cos_t1 += g_cti;
       }
-      for (int c = 0; c < 3; ++c) a.d_sh_d[3 * i + c] = g_ds[c];
+      if (in && a.occ != nullptr) a.occ[i] = -1;
+    }
+    if (in) {
+      const int m_ds = span_offset(a.d_sh_d + span);
+      for (int c = 0; c < 3; ++c) s_gds[m_ds + 3 * lt + c] = out_ds[c];
       if (a.d_no != nullptr) {
-        for (int c = 0; c < 3; ++c) a.d_no[3 * i + c] = 0.0f;
-        a.occ[i] = -1;
+        const int m_no = span_offset(a.d_no + span);
+        for (int c = 0; c < 3; ++c) s_gno[m_no + 3 * lt + c] = 0.0f;
       }
     }
+    __syncwarp();
+    warp_span<false>(a.d_sh_d + span, s_gds, 3 * n_w);
+    if (a.d_no != nullptr) warp_span<false>(a.d_no + span, s_gno, 3 * n_w);
   }
+  __syncwarp();  // the last flush before the finishing stores
   if (in && own >= 0)
-    finish_occluder(a, own * R + r, own_idx, own_no, own_dno, own_ds,
-                    own_gds, own_gth, own_gcos);
+    finish_occluder(a, own * R + r, own_no, own_dno, own_ds, own_gds,
+                    own_gth, own_gcos);
 
-  block_sum(in ? g_fslm : 0.0f, a.part + 2 * blockIdx.x, smem);
-  block_sum(in ? g_kdop : 0.0f, a.part + 2 * blockIdx.x + 1, smem);
-  if (!in) return;
-  for (int c = 0; c < 3; ++c) a.d_d2[3 * r + c] = g_d2[c];
-  for (int j = 0; j < 6; ++j) a.d_st2[j * R + r] = g_st2[j];
-  a.d_ex[r] = g_theta;
-  a.d_ex[R + r] = g_cos_t1;
-  a.d_ex[2 * R + r] = 0.0f;  // ndot enters only the hemisphere decision
-  float* pay = a.d_pay + static_cast<size_t>(r) * a.pc;
-  if (a.pc == kCols) {
-    for (int j = 0; j < kCols; ++j) pay[j] = 0.0f;
-    for (int c = 0; c < 3; ++c) {
-      pay[9 + c] = g_n[c];
-      pay[12 + c] = g_vel[c];
+  {
+    const float s_fslm = warp_sum(in ? g_fslm : 0.0f);
+    const float s_kdop = warp_sum(in ? g_kdop : 0.0f);
+    if (lane == 0) {
+      s_part[warp] = s_fslm;
+      s_part[kPostBwdWarps + warp] = s_kdop;
     }
-    pay += kCols - 2;
   }
-  pay[0] = g_s;
-  pay[1] = g_s1a;
+  if (in) {
+    for (int c = 0; c < 3; ++c) s_gd2[3 * ts + c] = g_d2[c];
+    for (int j = 0; j < 6; ++j) a.d_st2[j * R + r] = g_st2[j];
+    a.d_ex[r] = g_theta;
+    a.d_ex[R + r] = g_cos_t1;
+    a.d_ex[2 * R + r] = 0.0f;  // ndot enters only the hemisphere decision
+    float* pay = s_pay + ts * a.pc;
+    if (a.pc == kCols) {
+      for (int j = 0; j < kCols; ++j) pay[j] = 0.0f;
+      for (int c = 0; c < 3; ++c) {
+        pay[9 + c] = g_n[c];
+        pay[12 + c] = g_vel[c];
+      }
+      pay += kCols - 2;
+    }
+    pay[0] = g_s;
+    pay[1] = g_s1a;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    float sum = 0.0f;
+    for (int w = 0; w < kPostBwdWarps; ++w)
+      sum += s_part[threadIdx.x * kPostBwdWarps + w];
+    a.part[2 * blockIdx.x + threadIdx.x] = sum;
+  }
+  copy_rows(a.d_d2 + 3 * static_cast<size_t>(base), s_gd2, 3 * n_in);
+  copy_rows(a.d_pay + static_cast<size_t>(base) * a.pc, s_pay, n_in * a.pc);
+  if (last_block(&g_post_bwd_done, &s_last))
+    sum_pairs(reinterpret_cast<const float2*>(a.part), gridDim.x, a.d_sc,
+              s_part);
 }
 
 // ---------------------------------------------------------------------------
@@ -602,15 +661,19 @@ extern "C" int hrt_bounce_post_bwd(
     const int* idx_o, const float* table, const float* sc,
     const float* g_out, int R, int nrx, int physical, float eps_o, int pc,
     float* d_d2, float* d_st2, float* d_ex, float* d_sh_d, float* d_d2rx,
-    float* d_pay, float* d_no, int* occ, float* part, void* stream) {
+    float* d_pay, float* d_no, int* occ, float* part, float* d_sc,
+    void* stream) {
   if (R <= 0) return 0;
-  if ((pc != kCols && pc != 2) || ((d_no == nullptr) != (occ == nullptr)))
+  if ((pc != kCols && pc != 2) || nrx < 0 ||
+      ((d_no == nullptr) != (occ == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const PostBwdArgs a{d2,    st2,   ex,       sh_d,  d2rx,   t_self, crossing,
-                      excl,  live,  t_o,      idx_o, table,  sc,     g_out,
-                      R,     nrx,   physical, eps_o, pc,     d_d2,   d_st2,
-                      d_ex,  d_sh_d, d_d2rx,  d_pay, d_no,   occ,    part};
-  bounce_post_bwd_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
+  const PostBwdArgs a{d2,    st2,    ex,     sh_d,  d2rx,  t_self,   crossing,
+                      excl,  live,   t_o,    idx_o, table, sc,       g_out,
+                      R,     nrx,    physical, eps_o, pc,  d_d2,     d_st2,
+                      d_ex,  d_sh_d, d_d2rx, d_pay, d_no,  occ,      part,
+                      d_sc};
+  bounce_post_bwd_kernel<<<(R + kPostBwdRays - 1) / kPostBwdRays,
+                           kPostBwdRays, 0,
                            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

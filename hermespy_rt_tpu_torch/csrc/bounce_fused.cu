@@ -187,6 +187,17 @@ __global__ void __launch_bounds__(kThreads) bounce_post_kernel(PostArgs a) {
 
 // ---------------------------------------------------------------------------
 // whole-loop materials-only backward
+//
+// What holds it back: few rays are live at a bounce, clustered (on the
+// canyon stand-in 17%, 3% and 1% at bounces 0-2), and a live ray's bounce
+// is a chain of dependent loads and ~1000 instructions (IEEE divisions and
+// roots, expf/sinf/cosf, kept for the bits); the work per block varies, so
+// the grid is a few waves of blocks that the card deals out as they finish.
+// Measured on the H100 and not kept (PERF.md): a grid of one wave
+// sized from the occupancy, loads one bounce ahead, the live rays packed
+// onto a block's or a warp's first lanes at each bounce (each slower), the
+// partials summed in the kernel (no faster, slower on a 300-row table) and
+// a 16-shuffle material sum (no faster).
 
 struct BwdArgs {
   const float* eta_tab;

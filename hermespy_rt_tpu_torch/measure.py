@@ -106,6 +106,21 @@ def bwd_work(name, spec, args, outs):
         unused = 0 if spec.parity == "physical" else nbytes(ex[2])
         return (nbytes(*args, *(x for x in outs if x is not None)) - unused,
                 R * nrx * POST_BWD_OPS_PER_RX)
+    if name == "loop_bwd_slim":
+        # a (ray, RX) is written only where the ray is live, so a dead ray
+        # needs its freq cotangents (d_out row 5) only; a live ray its
+        # material, state rows 0-3, the 3 res_pre rows and res_post row 5
+        # (wf) per RX; a live ray written at that bounce its next state rows
+        # 0-3 once, and res_post and d_out rows 0-4 per written RX
+        eta_tab, _, live_all, _, _, res_post, d_out = args
+        written = res_post[:, :, 5] > 0                     # [B, nrx, R]
+        n_live = int(live_all.sum())
+        n_write = int(written.sum())
+        n_written_rays = int(written.any(dim=1).sum())
+        return (nbytes(eta_tab, live_all, *outs) + nbytes(d_out[:, :, 5])
+                + n_live * (4 + 16 + 12 + 4 * nrx)
+                + 16 * n_written_rays + 40 * n_write,
+                n_live * BWD_PRE_OPS + n_write * BWD_POST_OPS)
     if name == "bounce_pre_bwd_slim":
         # every ray: act, idx, its state cotangent in and out, its eta rows
         # out; a live ray: state rows 0-3 and the residuals; the eta columns

@@ -22,9 +22,10 @@ kernel on the current stream and raises on a nonzero ``cudaError``.  Its
 (``spec.grad_positions``) or the slim ones, whose per-ray payload rows the
 table scatter-add (:data:`.fetch_cuda.scatter_add`) sums into the table's
 cotangent.  Sums across rays come out the same in every run: the backwards
-leave per-block partials of the RX-position and carrier-scalar cotangents,
-summed here over the block axis in a fixed order, and the scatter-add sums
-in ray order.
+leave per-block partials of the RX-position and carrier-scalar cotangents
+and of the material table, summed in a fixed order here (the full pre and
+the whole-loop backwards) or by the kernel's last block (the full post
+backward), and the scatter-add sums in ray order.
 """
 from __future__ import annotations
 
@@ -50,8 +51,8 @@ __all__ = ["bounce_pre", "bounce_post", "loop_bwd_slim", "bounce_pre_bwd",
 
 SOURCE = CSRC / "bounce_fused.cu"
 BWD_SOURCE = CSRC / "bounce_bwd.cu"
-_THREADS = 256                      # rays per block of the stage kernels
-_PRE_BWD_RAYS = 128                 # ... but the full pre backward's
+_PRE_BWD_RAYS = 128                 # rays a block of the full backwards
+_POST_BWD_RAYS = 128
 _PRE_BWD_MAX_RX = 340               # its 3 nrx + 2 sums in shared memory
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
@@ -160,6 +161,20 @@ class BouncePostKernel:
         return out
 
 
+def loop_bwd_threads(M: int) -> int:
+    """Threads a block of the whole-loop backward: 8 warps, fewer where
+    their ``[M, 12]`` tables do not fit a block's shared memory."""
+    return 32 * min(8, _SMEM_BYTES // (max(M, 1) * _TABLE_BYTES_PER_MATERIAL))
+
+
+def loop_bwd_blocks(R: int, threads: int, sms: int) -> int:
+    """Blocks of the whole-loop backward: a few waves of blocks (8 an SM),
+    each walking its share of the rays; the card deals them out as they
+    finish (the work per ray varies: one wave was slower), and their
+    partial tables stay few.  Fewer where the rays do not fill them."""
+    return max(1, min(-(-R // threads), 8 * sms))
+
+
 class LoopBwdSlimKernel:
     """Wrapper of ``loop_bwd_slim_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.loop_bwd_slim_plain`.
@@ -194,12 +209,10 @@ class LoopBwdSlimKernel:
                 chk("res_post", res_post, _F32, (B, nrx, 6, R)),
                 chk("d_out", d_out, _F32, (B, nrx, 6, R))]
         d_st0 = torch.empty((6, R), dtype=_F32, device=dev)
-        # a grid of a few waves of blocks, each walking its share of the
-        # rays, keeps the partial tables few
-        threads = 32 * min(8, _SMEM_BYTES // (max(M, 1)
-                                              * _TABLE_BYTES_PER_MATERIAL))
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_blocks = max(1, min(-(-R // threads), 8 * sms))
+        threads = loop_bwd_threads(M)
+        n_blocks = loop_bwd_blocks(
+            R, threads,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
         part = torch.empty((n_blocks, M, len(ETA_FIELDS)), dtype=_F32,
                            device=dev)
         if R == 0 or B == 0:
@@ -283,10 +296,10 @@ class BouncePreBwdKernel:
 class BouncePostBwdKernel:
     """Wrapper of ``bounce_post_bwd_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.bounce_post_bwd_plain`.
-    The kernel leaves per-block partials of ``d_sc``, summed here over the
-    block axis in a fixed order."""
+    The kernel leaves per-block partials of ``d_sc`` in scratch, and its
+    last block sums them in a fixed order."""
 
-    _ARGTYPES = (_P,) * 14 + (_I, _I, _I, _F, _I) + (_P,) * 9 + (_P,)
+    _ARGTYPES = (_P,) * 14 + (_I, _I, _I, _F, _I) + (_P,) * 10 + (_P,)
 
     def __init__(self):
         self.launches = 0
@@ -319,15 +332,15 @@ class BouncePostBwdKernel:
         pc = payload_cols(spec, "post")
         normals = spec.grad_geometry and spec.parity == "reference"
         f32 = dict(dtype=_F32, device=dev)
-        n_blocks = max(1, -(-R // _THREADS))
         outs = [torch.empty((R, 3), **f32), torch.empty((6, R), **f32),
                 torch.empty((3, R), **f32), torch.empty((nrx, R, 3), **f32),
                 torch.empty((nrx, R), **f32), torch.empty((R, pc), **f32),
                 torch.empty((nrx, R, 3), **f32) if normals else None,
                 (torch.empty((nrx, R), dtype=_I32, device=dev) if normals
                  else None),
-                torch.zeros((n_blocks, 2), **f32)]
+                (torch.empty if R > 0 else torch.zeros)(2, **f32)]
         if R > 0:
+            part = torch.empty((-(-R // _POST_BWD_RAYS), 2), **f32)
             if self._fn is None:
                 self._fn = LIBRARY.function("hrt_bounce_post_bwd",
                                             self._ARGTYPES)
@@ -335,10 +348,11 @@ class BouncePostBwdKernel:
                 err = self._fn(*ptrs, R, nrx, int(spec.parity == "physical"),
                                spec.eps_o, pc,
                                *(None if x is None else x.data_ptr()
-                                 for x in outs), _stream(dev))
+                                 for x in outs[:-1]), part.data_ptr(),
+                               outs[-1].data_ptr(), _stream(dev))
             raise_on("bounce_post_bwd", err)
             self.launches += 1
-        return (*outs[:-1], outs[-1].sum(dim=0))
+        return tuple(outs)
 
 
 class BouncePreBwdSlimKernel:

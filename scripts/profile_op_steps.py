@@ -71,25 +71,34 @@ the visit-list walk), nrx = 1:
   window's own closing synchronise included).  The summary sets the seven
   standalone prepass times beside the prepass time inside D's step.
 
-and the stage backwards (``bwd``): kernel 12, the full pre backward, its
-calls recorded in one step of G, of G at nrx = 4 and of J (after a
-warm-up), each with its rays, RX and payload columns, its device time
-(profiler, 20 calls after a warm-up), its bound (``measure.bwd_work``), the
-share, and the SHA-1 of each output (``d_o``, ``d_d``, ``d_st``, ``d_pay``
-per ray, the sums ``d_rxp`` and ``d_sc``) with whether a second run gave
-the same bits; kernels 13-16 (the full post backward, the slim pre and
-post backwards and the whole-loop backward), their calls recorded in those
-steps, in phase 7's step and in the slim per-stage step (``I``:
-``unroll_bounces=False``), each with the SHA-1 of its operands and of its
-outputs and whether a second run gave the same bits.  The summary says,
-per call, whether kernel 12's per-ray outputs and kernels 13-16's operands
-and outputs are the same bits in every turn of every tree.
+and the stage backwards (``bwd``): kernels 12 and 13, the full pre and
+post backwards, their calls recorded in one step of G, of G at nrx = 4 and
+of J, and kernel 16, the whole-loop backward, its call in one step of
+phase 7 at nrx = 1 and 4 (each after a warm-up): per call its rays, RX,
+device time and its whole call's (profiler, 20 calls after a warm-up;
+the call: the kernel and any device operation its wrapper adds), bound
+(``measure.bwd_work``), share, and for kernel 16 both times again on a
+300-row material table with ids drawn over all of it (``chip_smoke.py``
+phase 8's case) and its live rays per bounce, with the share of live
+lanes in the warps that hold one; the SHA-1 of each operand, of each
+per-ray output (12: ``d_o``, ``d_d``, ``d_st``, ``d_pay``; 13: ``d_d2``,
+``d_st2``, ``d_ex``, ``d_sh_d``, ``d_d2rx``, ``d_pay``, ``d_no``, ``occ``;
+16: ``d_st0``) and of each sum across rays (12: ``d_rxp``, ``d_sc``; 13:
+``d_sc``; 16: the ``[M, 12]`` table), whether a second run gave the same
+bits, and whether the outputs are within their tiers of the float64 plain
+version (the tree's ``testing.hold_*``); and kernels 14 and 15 (the slim
+backwards), their calls in the slim per-stage step (``I``:
+``unroll_bounces=False``), with the SHA-1 of their operands and outputs
+and whether a second run gave the same bits.  The summary says, per call,
+whether the operands and per-ray outputs (14 and 15: every output) are
+the same bits in every turn of every tree.
 
 ``--steps`` picks ``canyon`` (phase9, N, 7, G, the single calls and the
 queries), ``queries`` (the queries alone), ``city`` (D, E, J and the walk
 queries), ``bwd`` (the stage backwards) or ``all`` (all but ``bwd``, the
 default).  Every child also reports the registers and spills of the
-prepass and the full pre backward from its tree's build, and its profiler
+prepass and the full pre, full post and whole-loop backwards from its
+tree's build, and its profiler
 windows with the launches they missed (``measure.profiled``: every window
 opens on a warm-up cycle; a device time is a window's sum over its
 calls).  The yardstick is this checkout's ``hermespy_rt_tpu_torch/
@@ -129,11 +138,18 @@ CITY_TX = [[-120.0, 80.0, 45.0]]
 CITY_RX = [[30.0, -40.0, 1.5]]
 NAMED = ("gather", "scatter_add", "sort", "walk_kernel", "walk_prepass",
          "nearest_hit_kernel", "nearest_hit_culled_kernel",
-         "bounce_pre_bwd_kernel")
+         "bounce_pre_bwd_kernel", "bounce_post_bwd_kernel",
+         "loop_bwd_slim_kernel")
 BLOCK_RAYS = 256       # rays per block of the nearest-hit kernels
 L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2
-OTHER_BWD = ("bounce_post_bwd", "bounce_pre_bwd_slim", "bounce_post_bwd_slim",
-             "loop_bwd_slim")   # kernels 13-16
+# the timed backwards: kernels 12, 13 and 16, their per-ray outputs (the
+# same bits in every tree) and their sums across rays (within their tiers)
+BWD_TIMED = {
+    "bounce_pre_bwd": (("d_o", "d_d", "d_st", "d_pay"), ("d_rxp", "d_sc")),
+    "bounce_post_bwd": (("d_d2", "d_st2", "d_ex", "d_sh_d", "d_d2rx", "d_pay",
+                         "d_no", "occ"), ("d_sc",)),
+    "loop_bwd_slim": (("d_st0",), ("d_tab",))}
+OTHER_BWD = ("bounce_pre_bwd_slim", "bounce_post_bwd_slim")   # kernels 14, 15
 
 
 def _measure():
@@ -302,33 +318,87 @@ def digest(torch, x):
     return h.hexdigest()
 
 
-def pre_bwd_calls(torch, recording_fused, kernel, step):
-    """Kernel 12's recorded calls in one ``step`` (after a warm-up): per
-    call its rays, RX, payload columns, device time (profiler, 20 calls
-    after a warm-up), bound, share, and the SHA-1 of each per-ray output
-    and of the sums, with whether a second run gave the same bits."""
+def bwd_calls(torch, testing, step, names, mats):
+    """The recorded calls of the timed backward kernels ``names`` in one
+    ``step`` (after a warm-up): per call its rays, RX, device time
+    (profiler, 20 calls after a warm-up), bound, share, the SHA-1 of each
+    operand, of each per-ray output and of each sum, whether a second run
+    gave the same bits, and whether the outputs are within their tiers of
+    the float64 plain version (the tree's ``testing.hold_*``; else the
+    failure)."""
+    holds = {"bounce_pre_bwd": testing.hold_pre_bwd,
+             "bounce_post_bwd": testing.hold_post_bwd,
+             "loop_bwd_slim": lambda spec, rest, k, label: testing.hold_bwd(
+                 spec, rest, k, mats, FREQ_GHZ, label)}
     step()
-    with recording_fused() as calls:
+    with testing.recording_fused() as calls:
         step()
-    out = []
-    for i, (args, k) in enumerate(calls["bounce_pre_bwd"]):
-        spec, R = args[0], args[1].shape[0]
-        again = kernel(*args)
-        ms = kernel_ms(lambda: kernel(*args), "bounce_pre_bwd_kernel",
-                       reps=20)
-        n_bytes, n_ops = M.bwd_work("bounce_pre_bwd", spec, args[1:], k)
-        bound_ms = M.bound(n_bytes, n_ops)[0]
-        out.append(dict(
-            call=i, R=R, nrx=spec.nrx, pc=k[3].shape[1], ms=ms,
-            bound_ms=bound_ms, share=bound_ms / ms, bytes=n_bytes,
-            digests={n: digest(torch, x) for n, x in zip(
-                ("d_o", "d_d", "d_st", "d_pay", "d_rxp", "d_sc"), k)},
-            same_bits_twice=all(torch.equal(a, b) for a, b in zip(k, again))))
+    out = {}
+    for name in names:
+        kernel, (per_ray, sums) = testing.KERNELS[name], BWD_TIMED[name]
+        out[name] = []
+        for i, (args, k) in enumerate(calls[name]):
+            spec = args[0]
+            again = kernel(*args)
+            rows = profiled(lambda: kernel(*args), 20).device
+            ms = sum(M.event_ms(e) for e in rows
+                     if f"{name}_kernel" in e.key) / 20
+            n_bytes, n_ops = M.bwd_work(name, spec, args[1:], k)
+            bound_ms = M.bound(n_bytes, n_ops)[0]
+            try:
+                holds[name](spec, args[1:], k, f"{name} {i}")
+                tier = True
+            except AssertionError as e:
+                tier = str(e)[:300]
+            out[name].append(dict(
+                call=i, R=(args[2].shape[-1] if name == "loop_bwd_slim"
+                           else args[1].shape[0]), nrx=spec.nrx, ms=ms,
+                call_ms=sum(M.event_ms(e) for e in rows) / 20,
+                **(materials_300(torch, testing, args, kernel)
+                   if name == "loop_bwd_slim" else {}),
+                bound_ms=bound_ms, share=bound_ms / ms, bytes=n_bytes,
+                operands=[digest(torch, x) for x in args],
+                digests={n: digest(torch, x)
+                         for n, x in zip(per_ray + sums, k)},
+                same_bits_twice=all(a is None or torch.equal(a, b)
+                                    for a, b in zip(k, again)),
+                within_tier=tier))
     return out
 
 
+def materials_300(torch, testing, args, kernel):
+    """The whole-loop backward on a recorded call's operands with a
+    300-row material table and ids drawn over all of it (``chip_smoke.py``
+    phase 8's case): its kernel's and its whole call's device time; and of
+    the recorded call, the share of live rays at each bounce and the share
+    of live lanes in the warps (32 consecutive rays) that hold one."""
+    import numpy as np
+
+    from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
+
+    rng = np.random.default_rng(args[0].nrx)
+    eta = precompute_eta(testing.material_table(300, rng, args[1].device),
+                         FREQ_GHZ)
+    rest = list(args)
+    rest[1] = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
+                          dim=-1).detach()
+    rest[4] = torch.as_tensor(rng.integers(0, 300, rest[4].shape),
+                              dtype=torch.int32, device=rest[4].device)
+    rows = profiled(lambda: kernel(*rest), 20).device
+    live = args[3][:, :args[3].shape[1] // 32 * 32].reshape(
+        args[3].shape[0], -1, 32)
+    warps = live.any(-1)
+    return dict(ms_300=sum(M.event_ms(e) for e in rows
+                           if "loop_bwd_slim_kernel" in e.key) / 20,
+                call_ms_300=sum(M.event_ms(e) for e in rows) / 20,
+                live_share=(live.float().mean((1, 2))).tolist(),
+                live_lanes_in_live_warps=[
+                    float(live[b][warps[b]].float().mean())
+                    for b in range(live.shape[0])])
+
+
 def other_bwd_calls(torch, recording_fused, kernels, steps):
-    """Kernels 13-16's recorded calls in each of ``steps`` (after a
+    """Kernels 14 and 15's recorded calls in each of ``steps`` (after a
     warm-up): per call the SHA-1 of its operands and of its outputs, and
     whether a second run gave the same bits."""
     out = {}
@@ -577,26 +647,32 @@ def child(tree, steps):
         out["walk"] = walk_queries(torch, tracer, walk_cuda, walk_ops,
                                    city_paths)
     if steps == "bwd":
-        from hermespy_rt_tpu_torch.testing import KERNELS, recording_fused
+        from hermespy_rt_tpu_torch import testing
 
         i_cfg = calibration_config(PATHS, BOUNCES, True,
                                    unroll_bounces=False)
-        g_steps = (("G", lambda: grad_step(g_cfg)),
-                   ("G_nrx4", lambda: grad_step(g_cfg, rx_positions(4))),
-                   ("J", j_step))
+        mats = default_materials(dev)
         out["bwd"] = {
-            name: pre_bwd_calls(torch, recording_fused,
-                                KERNELS["bounce_pre_bwd"], step)
-            for name, step in g_steps}
+            name: bwd_calls(torch, testing, step, names, mats)
+            for name, step, names in (
+                ("G", lambda: grad_step(g_cfg),
+                 ("bounce_pre_bwd", "bounce_post_bwd")),
+                ("G_nrx4", lambda: grad_step(g_cfg, rx_positions(4)),
+                 ("bounce_pre_bwd", "bounce_post_bwd")),
+                ("J", j_step, ("bounce_pre_bwd", "bounce_post_bwd")),
+                ("7", lambda: fused_step(RX), ("loop_bwd_slim",)),
+                ("7_nrx4", lambda: fused_step(rx_positions(4)),
+                 ("loop_bwd_slim",)))}
         out["other_bwd"] = other_bwd_calls(
-            torch, recording_fused, KERNELS,
-            (*g_steps, ("7", lambda: fused_step(RX)),
-             ("I", lambda: calibration_step(
-                 tris, RX, TX, FREQ_GHZ, default_materials(dev), i_cfg))))
+            torch, testing.recording_fused, testing.KERNELS,
+            (("I", lambda: calibration_step(
+                tris, RX, TX, FREQ_GHZ, default_materials(dev), i_cfg)),))
     from hermespy_rt_tpu_torch.ops._cuda_build import LIBRARY
     out["ptxas"] = {name: M.kernel_ptxas(LIBRARY.build_log, name)
                     for name in ("walk_prepass_kernel",
-                                 "bounce_pre_bwd_kernel")}
+                                 "bounce_pre_bwd_kernel",
+                                 "bounce_post_bwd_kernel",
+                                 "loop_bwd_slim_kernel")}
     out["profiler"] = PROFILER
     print(json.dumps(out), flush=True)
 
@@ -680,7 +756,8 @@ def main():
                               "idle_share")}
             keys["wall_mean_ms"] = lambda r: r[step]["wall_mean_ms"]
             for name in ("walk_kernel", "walk_prepass", "nearest_hit_kernel",
-                         "nearest_hit_culled_kernel", "bounce_pre_bwd_kernel"):
+                         "nearest_hit_culled_kernel", "bounce_pre_bwd_kernel",
+                         "bounce_post_bwd_kernel", "loop_bwd_slim_kernel"):
                 keys[f"{name}_ms"] = (
                     lambda r, n=name: r[step]["profile"]["named"][n]["ms"])
             summary[tree][step], summary[tree]["spread"][step] = {}, {}
@@ -711,18 +788,30 @@ def main():
                     summary[tree]["D"]["walk_prepass_ms"])
         if "bwd" in mine[0]:
             summary[tree]["bwd"] = {}
-            for step, calls in mine[0]["bwd"].items():
-                summary[tree]["bwd"][step] = []
-                for c in range(len(calls)):
-                    row = dict(calls[c])
-                    row["ms"], spread = stat(
-                        lambda r: r["bwd"][step][c]["ms"])
-                    row["ms_spread"] = spread
-                    row["share"] = row["bound_ms"] / row["ms"]
-                    row["digests_every_turn"] = all(
-                        r["bwd"][step][c]["digests"] == calls[c]["digests"]
-                        for r in mine)
-                    summary[tree]["bwd"][step].append(row)
+            for step, kernels in mine[0]["bwd"].items():
+                summary[tree]["bwd"][step] = {}
+                for name, calls in kernels.items():
+                    rows = summary[tree]["bwd"][step][name] = []
+                    per_ray = BWD_TIMED[name][0]
+                    for c in range(len(calls)):
+                        row = {k: v for k, v in calls[c].items()
+                               if k != "operands"}
+                        for key in ("ms", "call_ms", "ms_300",
+                                    "call_ms_300"):
+                            if key in calls[c]:
+                                row[key], row[f"{key}_spread"] = stat(
+                                    lambda r, key=key:
+                                    r["bwd"][step][name][c][key])
+                        row["share"] = row["bound_ms"] / row["ms"]
+                        turns = [r["bwd"][step][name][c] for r in mine]
+                        row["per_ray_every_turn"] = all(
+                            t["digests"][n] == calls[c]["digests"][n]
+                            for t in turns for n in per_ray)
+                        row["same_bits_twice"] = all(
+                            t["same_bits_twice"] for t in turns)
+                        row["within_tier"] = all(
+                            t["within_tier"] is True for t in turns)
+                        rows.append(row)
         summary[tree]["ptxas"] = mine[0]["ptxas"]
         summary[tree]["profiler"] = {
             k: sum(r.get("profiler", {}).get(k, 0) for r in mine)
@@ -742,24 +831,28 @@ def main():
                     summary[tree]["spread"]["queries"][label].append(spread)
     with_bwd = [t for t in summary if "bwd" in summary[t]]
     if len(with_bwd) > 1:
-        # kernel 12's per-ray outputs, and kernels 13-16's operands and
-        # outputs: the same bits in every turn of every tree
-        t0 = with_bwd[0]
-        summary["bwd_per_ray_equal_across_trees"] = {
-            step: [all(summary[t]["bwd"][step][c]["digests"][n]
-                       == summary[t0]["bwd"][step][c]["digests"][n]
-                       for t in with_bwd
-                       for n in ("d_o", "d_d", "d_st", "d_pay"))
-                   for c in range(len(calls))]
-            for step, calls in summary[t0]["bwd"].items()}
-        first = next(r for r in runs if r["tree"] == t0)["other_bwd"]
+        # the timed kernels' operands and per-ray outputs, and kernels 14
+        # and 15's operands and outputs: the same bits in every turn of
+        # every tree (the sums: within their tiers, the same bits twice)
+        bwd_runs = [r for r in runs if "bwd" in r]
+        summary["bwd_equal_across_trees"] = {
+            f"{step} {name} {c}": {
+                "operands": all(r["bwd"][step][name][c]["operands"]
+                                == call["operands"] for r in bwd_runs),
+                "per_ray": all(r["bwd"][step][name][c]["digests"][n]
+                               == call["digests"][n] for r in bwd_runs
+                               for n in BWD_TIMED[name][0])}
+            for step, kernels in bwd_runs[0]["bwd"].items()
+            for name, calls in kernels.items()
+            for c, call in enumerate(calls)}
+        first = bwd_runs[0]["other_bwd"]
         summary["other_bwd_equal_across_trees"] = {
             call: {k: all(r["other_bwd"].get(call, {}).get(k) == d[k]
-                          for r in runs)
+                          for r in bwd_runs)
                    for k in ("operands", "outputs")}
             for call, d in first.items()}
         summary["other_bwd_same_bits_twice"] = all(
-            d["same_bits_twice"] for r in runs
+            d["same_bits_twice"] for r in bwd_runs
             for d in r["other_bwd"].values())
     emit(json.dumps({"summary": summary}))
     emit(smi())

@@ -30,13 +30,16 @@ and its skip count the plain version's; the op path with every kernel
 The walk's prepass kernel must give the visit rows of its plain version
 (``visit_rows`` of ``prepass_plain``) bit for bit, at every box count up to
 ``MAX_BOXES``, ray count, live share and tie the tests plant, and refuse
-more boxes; the full pre backward its plain version's values within their
-tier at every RX count, parity, payload width and ray count, the same bits
-in two runs; kernels 13-16 the same bits in two runs on a recorded call,
-within their tiers.  The walk kernel must give the (t, idx) of its plain
-version and of the brute kernel (in any-hit mode the same `blocked`, each
-reported hit a valid one); traces through the walk equal traces through
-the brute kernel bit for bit."""
+more boxes; the full pre and post backwards their plain versions' values
+within their tiers at every RX count, parity, payload width and ray count,
+the same bits in two runs (the post backward, which sums across rays in its
+last block, in three); the whole-loop backward at 1, 17 and 300 materials,
+1 and 3 bounces and every ray count, the same bits in three runs; kernels
+13-16 the same bits in two runs on a recorded call, within their tiers.
+The walk kernel must give the (t, idx) of its plain version and of the
+brute kernel (in any-hit mode the same `blocked`, each reported hit a
+valid one); traces through the walk equal traces through the brute kernel
+bit for bit."""
 import dataclasses
 
 import numpy as np
@@ -50,6 +53,7 @@ from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
 from hermespy_rt_tpu_torch.ops.fetch import scatter_add_ordered_plain
 from hermespy_rt_tpu_torch.ops.fetch_cuda import gather, scatter_add
+from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
 from hermespy_rt_tpu_torch.ops.intersect import intersect_torch, mt_hit
 from hermespy_rt_tpu_torch.ops.intersect_cuda import (nearest_hit,
                                                       nearest_hit_culled)
@@ -684,6 +688,96 @@ def test_pre_bwd_kernel_shapes(dev, nrx, parity, grad_geometry):
         k2 = fused_ops.bounce_pre_bwd(*a)
         assert all(torch.equal(x, y) for x, y in zip(k1, k2)), R
         checks.hold_pre_bwd(a[0], a[1:], k1, f"pre_bwd nrx {nrx} R {R}")
+
+
+def _first_post_rays(args, R):
+    """A recorded full post backward call's operands cut to its first R
+    rays (contiguous copies)."""
+    (spec, d2, st2, ex, sh_d, d2rx, t_self, crossing, excl, live, t_o, idx_o,
+     table, sc, d_out) = args
+    cut = [x[..., :R].contiguous() for x in (st2, ex, d2rx, t_self, crossing,
+                                             t_o, idx_o, d_out)]
+    st2, ex, d2rx, t_self, crossing, t_o, idx_o, d_out = cut
+    return (spec, d2[:R].contiguous(), st2, ex, sh_d[:, :R].contiguous(),
+            d2rx, t_self, crossing, excl[:R].contiguous(),
+            live[:R].contiguous(), t_o, idx_o, table, sc, d_out)
+
+
+@pytest.mark.parametrize("grad_geometry", [True, False])
+@pytest.mark.parametrize("parity", ["reference", "physical"])
+@pytest.mark.parametrize("nrx", [1, 2, 4, 8, 16])
+def test_post_bwd_kernel_shapes(dev, nrx, parity, grad_geometry):
+    """The full post backward on a full-gradient step's recorded operands
+    (the 300-row material table, ids over all of it), cut to R = 1, 257 and
+    2^16 + 37 rays (RX rows that start off 16 bytes) and whole: within
+    ``hold_post_bwd``'s tiers, the same bits in three runs in a row (the
+    kernel's count of finished blocks goes back to 0); pc 27 and the
+    occluder rows (reference parity) with ``grad_geometry``, else pc 2 and
+    none."""
+    tris, mats = _soup(dev, 300)
+    v0 = tris.v0.clone().requires_grad_()
+    rx = torch.tensor(_rx(nrx), device=dev, requires_grad=True)
+    f = torch.tensor(FREQ, device=dev, requires_grad=True)
+    cfg = TracerConfig(num_paths=1 << 17, num_bounces=3, parity=parity,
+                       keep_rays=False, compact_rays=True, shade="fused",
+                       grad_geometry=grad_geometry)
+    with checks.recording_fused() as calls:
+        res = trace_paths(dataclasses.replace(tris, v0=v0), mats, rx, TX,
+                          np.zeros((nrx, 3), np.float32),
+                          np.zeros((1, 3), np.float32), f, cfg)
+        checks.grad_loss(res).backward()
+        torch.cuda.synchronize()
+    assert len(calls["bounce_post_bwd"]) == 3
+    args, out = max(calls["bounce_post_bwd"], key=lambda c: c[0][1].shape[0])
+    assert out[5].shape[1] == (27 if grad_geometry else 2)
+    assert (out[7] is not None) == (grad_geometry and parity == "reference")
+    assert args[1].shape[0] >= (1 << 16) + 37
+    for R in (1, 257, (1 << 16) + 37, args[1].shape[0]):
+        a = _first_post_rays(args, R)
+        runs = [fused_ops.bounce_post_bwd(*a) for _ in range(3)]
+        for k in runs[1:]:
+            assert all(x is None or torch.equal(x, y)
+                       for x, y in zip(runs[0], k)), R
+        checks.hold_post_bwd(a[0], a[1:], runs[0],
+                             f"post_bwd nrx {nrx} {parity} R {R}")
+
+
+def _first_loop_rays(args, R):
+    """A recorded whole-loop backward call's operands cut to its first R
+    rays (contiguous copies)."""
+    return (args[0], args[1], *(x[..., :R].contiguous() for x in args[2:]))
+
+
+@pytest.mark.parametrize("bounces", [1, 3])
+@pytest.mark.parametrize("M", [1, 17, 300])
+def test_loop_bwd_kernel_shapes(dev, M, bounces):
+    """The whole-loop backward on a calibration step's recorded operands at
+    B bounces, its table replaced by M materials with ids drawn over all of
+    them (warps of up to 32 materials), cut to R = 1, 257 and 2^16 + 37
+    rays and whole: within ``hold_bwd``'s tiers, the same bits in three
+    runs in a row."""
+    tris, mats17 = _soup(dev, 17)
+    cfg = checks.calibration_config(1 << 17, bounces, True)
+    with checks.recording_fused() as calls:
+        checks.calibration_step(tris, RX[:2], TX, FREQ, mats17, cfg)
+    args, _ = calls["loop_bwd_slim"][0]
+    rng = np.random.default_rng(M + bounces)
+    mats = checks.material_table(M, rng, dev)
+    eta = precompute_eta(mats, FREQ)
+    eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
+                          dim=-1).detach()
+    mat_all = torch.as_tensor(rng.integers(0, M, args[4].shape),
+                              dtype=torch.int32, device=dev)
+    args = (args[0], eta_tab, args[2], args[3], mat_all, *args[5:])
+    assert args[2].shape[0] == bounces + 1
+    assert args[2].shape[-1] >= (1 << 16) + 37
+    for R in (1, 257, (1 << 16) + 37, args[2].shape[-1]):
+        a = _first_loop_rays(args, R)
+        runs = [fused_ops.loop_bwd_slim(*a) for _ in range(3)]
+        for k in runs[1:]:
+            assert all(torch.equal(x, y) for x, y in zip(runs[0], k)), R
+        checks.hold_bwd(a[0], a[1:], runs[0], mats, FREQ,
+                        f"loop_bwd M {M} B {bounces} R {R}")
 
 
 def test_other_bwd_kernels_same_bits_twice(dev):

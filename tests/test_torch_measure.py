@@ -1,7 +1,8 @@
 """The port's yardstick (``hermespy_rt_tpu_torch/measure.py``), on the CPU:
 the bound, the walk prepass's bounds against counts made by hand on a
-small query, the prune's operation count against its source, and the
-``ptxas`` parser on a build log's lines."""
+small query, the prune's operation count against its source, the
+whole-loop backward's bytes and operations against a count by hand, and
+the ``ptxas`` parser on a build log's lines."""
 import re
 from pathlib import Path
 
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from hermespy_rt_tpu_torch import measure
+from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
 from hermespy_rt_tpu_torch.ops.walk import prepass_kept_plain, query_limits
 
 WALK_CU = (Path(measure.__file__).parent / "csrc" / "walk.cu").read_text()
@@ -97,3 +99,29 @@ def test_kernel_ptxas_reads_registers_and_spills():
     assert measure.kernel_ptxas(PTXAS, "walk_kernel") == dict(
         registers=96, spill_stores=0, spill_loads=0, smem_bytes=40960)
     assert measure.kernel_ptxas(PTXAS, "nearest_hit_kernel") is None
+
+
+def test_loop_bwd_work_counts_by_hand():
+    """The whole-loop backward's bytes and operations on a small case
+    counted by hand: B = 2 bounces, nrx = 2, R = 5 rays, M = 3 materials;
+    live rays (bounce, ray) (0, 0), (0, 1), (1, 1); written (ray, RX)
+    (0, 0, 0), (0, 0, 1) and (1, 1, 0)."""
+    B, nrx, R, M = 2, 2, 5, 3
+    spec = FusedSpec(nrx=nrx, grad_positions=False, grad_geometry=False)
+    live = torch.zeros((B, R), dtype=torch.bool)
+    live[0, 0] = live[0, 1] = live[1, 1] = True
+    res_post = torch.zeros((B, nrx, 6, R))
+    res_post[0, 0, 5, 0] = res_post[0, 1, 5, 0] = res_post[1, 0, 5, 1] = 0.5
+    args = (torch.zeros((M, 12)), torch.zeros((B + 1, 6, R)), live,
+            torch.zeros((B, R), dtype=torch.int32), torch.zeros((B, 3, R)),
+            res_post, torch.zeros((B, nrx, 6, R)))
+    outs = (torch.zeros((6, R)), torch.zeros((M, 12)))
+    n_bytes, n_ops = measure.bwd_work("loop_bwd_slim", spec, args, outs)
+    # the eta table, the live flags, both outputs and every d_out row 5;
+    # per live ray its material, state rows 0-3, 3 res_pre rows and a wf
+    # per RX; per ray written at a bounce its next state rows 0-3; per
+    # written (ray, RX) res_post and d_out rows 0-4
+    assert n_bytes == (M * 48 + B * R + 6 * R * 4 + M * 48
+                       + B * nrx * R * 4
+                       + 3 * (4 + 16 + 12 + 4 * nrx) + 2 * 16 + 3 * 40)
+    assert n_ops == 3 * measure.BWD_PRE_OPS + 3 * measure.BWD_POST_OPS
