@@ -124,7 +124,13 @@ H. bwd_kernel -- every recorded call of the full backwards and the
 I. slim_stages -- ``unroll_bounces=False`` (the slim per-stage backwards) at
                  2^20 paths, nrx = 1: launches, the two slim kernels and the
                  scatter-add held and timed the same way, the material
-                 gradients against the whole-loop backward's.
+                 gradients against the whole-loop backward's.  Then a turn
+                 with a 5,000-row material table (ids over all of it) under
+                 the default ``unroll_bounces``: past ``MAX_MATERIALS``
+                 (4842) the step takes the per-stage nodes (launches:
+                 loop_bwd_slim 0, the slim backwards 3 each), its calls
+                 held the same way; at 2^16 paths its material gradients
+                 (nonzero past row 4842) against the op path's.
 J. city_grad  -- ``config5_e2e.py``'s loss through the full-gradient fused
                  path on the city at 2^20 paths, nrx = 1: gradients to the
                  materials and the TX position, finite, nonzero and within
@@ -1696,7 +1702,56 @@ def phase_slim_stages(tris, dev):
     emit(phase="slim_stages", nrx=nrx, paths=PATHS, launches=counts,
          grad_vs_whole_loop_max_leaf_share=share, fwd_bwd_s=step_s,
          gpu=smi())
-    return counts, summary
+    return {"slim_step_nrx1": counts,
+            "large_table_step_nrx1": large_table_turn(tris, dev, expected)}, \
+        summary
+
+
+LARGE_MATERIALS = 5000   # past fused_ops.MAX_MATERIALS
+
+
+def large_table_turn(tris, dev, expected):
+    """I's turn with a :data:`LARGE_MATERIALS`-row material table, the
+    triangles' ids drawn over all of it, under the default
+    ``unroll_bounces``: the launches of one step must be ``expected`` (the
+    per-stage nodes; the whole-loop backward holds at most
+    ``MAX_MATERIALS`` rows), its backward calls are held as I's, and at
+    2^16 paths its material gradients hold against the op path's.  Returns
+    the launches."""
+    nrx = 1
+    rng = np.random.default_rng(LARGE_MATERIALS)
+    ids = rng.integers(0, LARGE_MATERIALS, tris.pad_triangles)
+    big = dataclasses.replace(tris, material=torch.as_tensor(ids, device=dev))
+    table = lambda: material_table(  # noqa: E731
+        LARGE_MATERIALS, np.random.default_rng(LARGE_MATERIALS), dev)
+    cfg = calib_config(PATHS, nrx, True)
+    mats = table()
+    calib_step(big, nrx, mats, cfg)                              # warm-up
+    with recording_fused() as calls:
+        zero_counts()
+        calib_step(big, nrx, mats, cfg)
+        counts = {n: kern.launches for n, kern in KERNELS.items()}
+    check(counts == expected, f"I {LARGE_MATERIALS} materials: launches "
+          f"{counts}, expected {expected}")
+    hold_recorded(calls, ("bounce_pre_bwd_slim", "bounce_post_bwd_slim"),
+                  f"I {LARGE_MATERIALS} materials")
+    del calls
+    grads = {}
+    for fused in (False, True):
+        m = table()
+        calib_step(big, nrx, m, calib_config(SMALL_PATHS, nrx, fused))
+        grads[fused] = grads_of(m)
+    past = float(grads[True]["a"][fused_ops.MAX_MATERIALS:].abs().max())
+    check(past > 0, f"I {LARGE_MATERIALS} materials: no gradient past row "
+          f"{fused_ops.MAX_MATERIALS}")
+    share = leaves_close(grads[True], grads[False], PATH_GRAD_RTOL,
+                         LEAF_ATOL, f"I {LARGE_MATERIALS} materials: fused "
+                         "vs op-path gradients")
+    emit(phase="slim_stages_large_table", nrx=nrx, paths=PATHS,
+         materials=LARGE_MATERIALS, materials_hit=int(np.unique(ids).size),
+         launches=counts, grad_past_max_materials_abs_max=past,
+         grad_vs_op_path_max_leaf_share=share, gpu=smi())
+    return counts
 
 
 def city_loss_fn(res):
@@ -2178,12 +2233,13 @@ def main():
                  "bounce_pre_bwd_slim", "bounce_post_bwd_slim"):
         slim_kernel = "slim" in name
         t1 = (slim if slim_kernel else bwd[1])[name]["timing"]
-        steps = ({"slim_step_nrx1": slim_counts[name]} if slim_kernel else
+        slim_steps = {k: c[name] for k, c in slim_counts.items()}
+        steps = (slim_steps if slim_kernel else
                  {**{f"grad_step_nrx{n}": c[name]
                      for n, c in grad_counts.items()},
                   "city_grad": city_grad_counts[name]})
         if name == "scatter_add":
-            steps["slim_step_nrx1"] = slim_counts[name]
+            steps.update(slim_steps)
             steps.update({f"pallas_step_{k}": c[name]
                           for k, c in op_counts.items()})
         rows.append({

@@ -48,9 +48,11 @@ class TracerConfig:
                    (``ops/bounce_fused_cuda.py``), each an autograd node
                    whose backward is a kernel too (with ``grad_positions``
                    the full backward, which gives every gradient the op
-                   path gives), or, with ``grad_positions=False`` and
-                   ``unroll_bounces``, the whole loop as one node whose
-                   material backward is one kernel.
+                   path gives; past 340 RX, which it does not take, the
+                   trace warns and runs the op path), or, with
+                   ``grad_positions=False`` and ``unroll_bounces``, the
+                   whole loop as one node whose material backward is one
+                   kernel.
       grad_positions: False declares positions, launch geometry and the
                    carrier scalars constants of the backward: only the
                    material table (and the launch state) get gradients.
@@ -59,7 +61,9 @@ class TracerConfig:
       unroll_bounces: under ``shade="fused", grad_positions=False``, True
                    runs the whole bounce loop as one autograd node with one
                    backward kernel (``FusedLoopSlim``), False as two nodes
-                   per bounce with the slim per-stage backward kernels.
+                   per bounce with the slim per-stage backward kernels; a
+                   material table of more than 4842 rows, more than that
+                   kernel holds, takes the per-stage nodes either way.
                    That is its only meaning here: the port has no scan to
                    unroll, and the op path and the full-gradient fused
                    path ignore it.

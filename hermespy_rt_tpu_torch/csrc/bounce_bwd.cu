@@ -556,6 +556,26 @@ __global__ void __launch_bounds__(kPostBwdRays)
 // ---------------------------------------------------------------------------
 // kernels 14 and 15: the slim backwards (no geometric recompute: the vjps of
 // _pre_light and _post_light at the saved residuals)
+//
+// Kernel 14 is bound by device memory and, at most bounces, almost pure
+// streaming: few rays are live (17%, 3% and 0.7% at the canyon's bounces),
+// so a ray mostly copies its [6, R] state cotangent and writes a zero d_eta
+// row.  The [6, R] rows are coalesced as they are; the [R, 12] d_eta rows
+// are where a thread's 12 scalars at a 48-byte stride touched a sector a
+// lane.  So, in blocks of 128 rays:
+// - a live ray runs pre_vjp as before (every per-ray output keeps its
+//   bits), then each warp's 32 d_eta rows, one contiguous 16-byte aligned
+//   run of 1,536 bytes (the wrapper allocates d_eta, and a warp starts at a
+//   multiple of 32 rays), go out as 96 float4 stores, 3 a lane, from a
+//   32 x 12 tile of the warp in shared memory (filled by 16-byte stores
+//   that no two lanes of a quarter-warp bank on; __syncwarp, no block
+//   barrier);
+// - a warp with no live lane stores its zeros from registers;
+// - the grid's last warp, when R is not a multiple of 32, stores scalars.
+
+constexpr int kSlimRays = 128;
+constexpr int kSlimWarps = kSlimRays / 32;
+constexpr int kWarpEta4 = 32 * kEta / 4;   // a warp's d_eta rows as float4
 
 struct PreBwdSlimArgs {
   const float* st;
@@ -566,28 +586,53 @@ struct PreBwdSlimArgs {
   float *d_st, *d_eta;       // [6, R], [R, 12]
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSlimRays)
     bounce_pre_bwd_slim_kernel(PreBwdSlimArgs a) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= a.R) return;
+  __shared__ __align__(16) float4 s_eta[kSlimWarps][kWarpEta4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kSlimRays + threadIdx.x;
+  const int w0 = r - lane;
+  if (w0 >= a.R) return;     // the whole warp is past the rays
+  const bool in = r < a.R;
   const size_t R = a.R;
-  const int idx = a.idx[r];
-  const bool live = a.act[r] != 0 && idx >= 0;
-  float g[6], d_st[6], d_eta[kEta];
-  for (int j = 0; j < 6; ++j) d_st[j] = g[j] = a.g_st2[j * R + r];
+  bool live = false;
+  float d_eta[kEta];
   for (int j = 0; j < kEta; ++j) d_eta[j] = 0.0f;
-  if (live) {
-    const float* row =
-        a.table + static_cast<size_t>(idx) * kCols + kGeom;
-    float eta[kEta], st[4];
-    for (int j = 0; j < kEta; ++j) eta[j] = __ldg(row + j);
-    for (int j = 0; j < 4; ++j) st[j] = a.st[j * R + r];
-    pre_vjp(eta, a.res[r], a.res[R + r], a.res[2 * R + r], st, g, d_st,
-            d_eta);
+  if (in) {
+    const int idx = a.idx[r];
+    live = a.act[r] != 0 && idx >= 0;
+    float g[6], d_st[6];
+    for (int j = 0; j < 6; ++j) d_st[j] = g[j] = a.g_st2[j * R + r];
+    if (live) {
+      const float* row =
+          a.table + static_cast<size_t>(idx) * kCols + kGeom;
+      float eta[kEta], st[4];
+      for (int j = 0; j < kEta; ++j) eta[j] = __ldg(row + j);
+      for (int j = 0; j < 4; ++j) st[j] = a.st[j * R + r];
+      pre_vjp(eta, a.res[r], a.res[R + r], a.res[2 * R + r], st, g, d_st,
+              d_eta);
+    }
+    for (int j = 0; j < 6; ++j) a.d_st[j * R + r] = d_st[j];
   }
-  for (int j = 0; j < 6; ++j) a.d_st[j * R + r] = d_st[j];
-  float* out = a.d_eta + static_cast<size_t>(r) * kEta;
-  for (int j = 0; j < kEta; ++j) out[j] = d_eta[j];
+  const bool any_live = __ballot_sync(0xffffffffu, live) != 0u;
+  float* out = a.d_eta + static_cast<size_t>(w0) * kEta;
+  if (a.R - w0 < 32) {       // the grid's last warp: scalars
+    if (in)
+      for (int j = 0; j < kEta; ++j) out[lane * kEta + j] = d_eta[j];
+    return;
+  }
+  float4* out4 = reinterpret_cast<float4*>(out);
+  if (!any_live) {
+    for (int v = lane; v < kWarpEta4; v += 32)
+      out4[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
+  float4* tile = s_eta[warp];
+  for (int q = 0; q < kEta / 4; ++q)
+    tile[lane * (kEta / 4) + q] = make_float4(
+        d_eta[4 * q], d_eta[4 * q + 1], d_eta[4 * q + 2], d_eta[4 * q + 3]);
+  __syncwarp();
+  for (int v = lane; v < kWarpEta4; v += 32) out4[v] = tile[v];
 }
 
 struct PostBwdSlimArgs {
@@ -685,9 +730,11 @@ extern "C" int hrt_bounce_pre_bwd_slim(const float* st,
                                        int R, float* d_st, float* d_eta,
                                        void* stream) {
   if (R <= 0) return 0;
+  if ((reinterpret_cast<size_t>(d_eta) & 15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const PreBwdSlimArgs a{st, act, idx, table, res, g_st2, R, d_st, d_eta};
-  bounce_pre_bwd_slim_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(a);
+  bounce_pre_bwd_slim_kernel<<<(R + kSlimRays - 1) / kSlimRays, kSlimRays,
+                               0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

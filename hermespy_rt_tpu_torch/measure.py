@@ -141,6 +141,52 @@ def bwd_work(name, spec, args, outs):
             n_write * BWD_POST_OPS)
 
 
+SLIM_LIVE = ("all", "clustered", "scattered", "none")
+
+
+def pre_bwd_slim_operands(R, live, table, seed=0):
+    """Seeded operands ``(st, act, idx, table, res, d_st2)`` of the slim pre
+    backward (kernel 14) on ``R`` rays and the payload ``table`` [T, 27],
+    on its device, with the live rays of pattern ``live``: "all"; ~17%
+    "clustered" (28% of the 32-ray groups, 60% of their rays: the canyon's
+    first bounce); ~1% "scattered" (each ray alone); "none".  A dead ray has
+    ``act`` False or ``idx`` -1, half each.  The residuals are a valid
+    incidence (cos_t1 in [0.02, 0.999], sin_t1 from it, fscale in [1e-3,
+    1]) on every ray.  The card tests and ``profile_op_steps.py --steps
+    bwd`` (each tree on the same bits) run the kernel on them."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def uniform(*shape):
+        return torch.rand(*shape, generator=gen)
+
+    if live == "all":
+        is_live = torch.ones(R, dtype=torch.bool)
+    elif live == "clustered":
+        groups = uniform(-(-R // 32)) < 0.28
+        is_live = groups.repeat_interleave(32)[:R] & (uniform(R) < 0.6)
+    elif live == "scattered":
+        is_live = uniform(R) < 0.01
+    elif live == "none":
+        is_live = torch.zeros(R, dtype=torch.bool)
+    else:
+        raise ValueError(f"live must be one of {SLIM_LIVE}, not {live!r}")
+    no_hit = uniform(R) < 0.5
+    idx = torch.randint(0, table.shape[0], (R,), generator=gen,
+                        dtype=torch.int32)
+    idx = torch.where(is_live | ~no_hit, idx, -1)
+    act = is_live | no_hit
+    cos_t1 = 0.02 + 0.979 * uniform(R)
+    res = torch.stack([cos_t1, torch.sqrt(1.0 - cos_t1 * cos_t1),
+                       1e-3 + (1.0 - 1e-3) * uniform(R)])
+    st = torch.randn(6, R, generator=gen)
+    d_st2 = torch.randn(6, R, generator=gen)
+    dev = table.device
+    return (st.to(dev), act.to(dev), idx.to(dev), table, res.to(dev),
+            d_st2.to(dev))
+
+
 def kernel_ptxas(build_log, name):
     """Registers, spills and shared memory of the kernel ``name`` from a
     build's ``-Xptxas -v`` lines (None when it has none)."""

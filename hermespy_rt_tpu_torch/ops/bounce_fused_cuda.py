@@ -47,13 +47,14 @@ from .fresnel import ETA_FIELDS
 __all__ = ["bounce_pre", "bounce_post", "loop_bwd_slim", "bounce_pre_bwd",
            "bounce_post_bwd", "bounce_pre_bwd_slim", "bounce_post_bwd_slim",
            "BouncePreFn", "BouncePostFn", "bounce_pre_stage",
-           "bounce_post_stage", "SOURCE", "BWD_SOURCE", "MAX_MATERIALS"]
+           "bounce_post_stage", "SOURCE", "BWD_SOURCE", "MAX_MATERIALS",
+           "PRE_BWD_MAX_RX"]
 
 SOURCE = CSRC / "bounce_fused.cu"
 BWD_SOURCE = CSRC / "bounce_bwd.cu"
 _PRE_BWD_RAYS = 128                 # rays a block of the full backwards
 _POST_BWD_RAYS = 128
-_PRE_BWD_MAX_RX = 340               # its 3 nrx + 2 sums in shared memory
+PRE_BWD_MAX_RX = 340                # its 3 nrx + 2 sums in shared memory
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 # the loop backward keeps one [M, 12] f32 table per warp in a block's shared
@@ -256,9 +257,9 @@ class BouncePreBwdKernel:
         dev = cuda_device("bounce_pre_bwd", o)
         chk = OperandChecker("bounce_pre_bwd", dev)
         R, nrx, T = o.shape[0], spec.nrx, table.shape[0]
-        if nrx > _PRE_BWD_MAX_RX:
+        if nrx > PRE_BWD_MAX_RX:
             raise ValueError(f"bounce_pre_bwd: the kernel takes at most "
-                             f"{_PRE_BWD_MAX_RX} RX, not {nrx}")
+                             f"{PRE_BWD_MAX_RX} RX, not {nrx}")
         ptrs = [chk("o", o, _F32, (R, 3)), chk("d", d, _F32, (R, 3)),
                 chk("st", st, _F32, (6, R)), chk("act", act, _BOOL, (R,)),
                 chk("idx", idx, _I32, (R,)),

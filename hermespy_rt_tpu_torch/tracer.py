@@ -17,9 +17,11 @@ With ``shade="fused"`` the bounce loop runs per bounce two fused kernels
 around the shadow query (``ops/bounce_fused_cuda.py``).  With
 ``grad_positions=False`` (and ``unroll_bounces``) the loop is one autograd
 node, :class:`FusedLoopSlim`, whose material backward is one kernel, as the
-JAX package's ``fused_loop_slim``; otherwise each stage is an autograd node
-whose backward is a kernel (:func:`run_fused_loop_stages`), as JAX's
-per-stage ``bounce_pre`` / ``bounce_post``.
+JAX package's ``fused_loop_slim``; otherwise, and for material tables larger
+than that kernel holds, each stage is an autograd node whose backward is a
+kernel (:func:`run_fused_loop_stages`), as JAX's per-stage ``bounce_pre`` /
+``bounce_post``.  Past the RX count the full per-stage backward takes, a
+``grad_positions`` trace runs the op path and warns (:func:`fused_loop`).
 
 Scenes of 4096 padded triangles and more (``walk="auto"``) answer every
 query through the visit-list walk (``ops/walk_cuda.py``) instead of the brute
@@ -35,6 +37,7 @@ runs each bounce's reflection half as one kernel (``ops/shade_cuda.py``).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from functools import partial
 from typing import Dict, Optional
 
@@ -596,6 +599,33 @@ def run_fused_loop_stages(access: LocalSceneAccess, rx_pos, state0, fslm,
                 fused_ops.bounce_post_stage)]
 
 
+def fused_loop(cfg: TracerConfig, nrx: int, n_materials: int):
+    """The fused bounce loop that runs a ``shade="fused"`` trace of ``nrx``
+    RX and ``n_materials`` materials, or None for the op path.
+
+    Under ``grad_positions=False`` with ``unroll_bounces``, the whole loop
+    as one node (:func:`run_fused_loop_slim`), unless the material table has
+    more than ``MAX_MATERIALS`` rows, which its backward's per-warp ``[M,
+    12]`` tables in shared memory cannot hold: then the per-stage nodes,
+    whose slim backwards read per-ray rows and sum them into the table with
+    the scatter-add, at any table size.  With ``grad_positions``, the
+    per-stage nodes up to ``PRE_BWD_MAX_RX`` RX (the full pre backward keeps
+    its sums across rays in shared memory); beyond, the op path on the same
+    device, with a warning, as the JAX package falls back past its own
+    limits."""
+    if cfg.grad_positions:
+        if nrx > fused_ops.PRE_BWD_MAX_RX:
+            warnings.warn(
+                "shade='fused' falling back to the op path: "
+                f"nrx={nrx} > {fused_ops.PRE_BWD_MAX_RX}, the most RX the "
+                "full pre-stage backward takes", stacklevel=3)
+            return None
+        return run_fused_loop_stages
+    if cfg.unroll_bounces and n_materials <= fused_ops.MAX_MATERIALS:
+        return run_fused_loop_slim
+    return run_fused_loop_stages
+
+
 def assemble_scatter(ys, d0, o0, nrx, ntx, P, B, keep_rays: bool):
     """Stack the per-bounce outputs into the reference ChannelInfo layout
     ``(rx, tx, bounce*path)`` plus the per-bounce RaysInfo."""
@@ -672,10 +702,9 @@ def trace_paths(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
 
     state = launch_state(tx_pos, tx_vel, launch_dirs, k_dop)
     o0, d0 = state[0], state[1]
-    if cfg.shade == "fused":
-        run = (run_fused_loop_stages
-               if cfg.grad_positions or not cfg.unroll_bounces
-               else run_fused_loop_slim)
+    run = (fused_loop(cfg, nrx, access._eta_tab.shape[0])
+           if cfg.shade == "fused" else None)
+    if run is not None:
         ys = run(access, rx_pos, state, fslm, k_dop, cfg)
     else:
         ys = []

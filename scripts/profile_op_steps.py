@@ -73,8 +73,10 @@ the visit-list walk), nrx = 1:
 
 and the stage backwards (``bwd``): kernels 12 and 13, the full pre and
 post backwards, their calls recorded in one step of G, of G at nrx = 4 and
-of J, and kernel 16, the whole-loop backward, its call in one step of
-phase 7 at nrx = 1 and 4 (each after a warm-up): per call its rays, RX,
+of J, kernel 16, the whole-loop backward, its call in one step of phase 7
+at nrx = 1 and 4, and kernel 14, the slim pre backward, its three calls in
+one step of the slim per-stage form (``I``: ``unroll_bounces=False``; each
+after a warm-up; ``I`` is also timed as a step): per call its rays, RX,
 device time and its whole call's (profiler, 20 calls after a warm-up;
 the call: the kernel and any device operation its wrapper adds), bound
 (``measure.bwd_work``), share, and for kernel 16 both times again on a
@@ -83,22 +85,25 @@ phase 8's case) and its live rays per bounce, with the share of live
 lanes in the warps that hold one; the SHA-1 of each operand, of each
 per-ray output (12: ``d_o``, ``d_d``, ``d_st``, ``d_pay``; 13: ``d_d2``,
 ``d_st2``, ``d_ex``, ``d_sh_d``, ``d_d2rx``, ``d_pay``, ``d_no``, ``occ``;
-16: ``d_st0``) and of each sum across rays (12: ``d_rxp``, ``d_sc``; 13:
-``d_sc``; 16: the ``[M, 12]`` table), whether a second run gave the same
-bits, and whether the outputs are within their tiers of the float64 plain
-version (the tree's ``testing.hold_*``); and kernels 14 and 15 (the slim
-backwards), their calls in the slim per-stage step (``I``:
-``unroll_bounces=False``), with the SHA-1 of their operands and outputs
-and whether a second run gave the same bits.  The summary says, per call,
-whether the operands and per-ray outputs (14 and 15: every output) are
-the same bits in every turn of every tree.
+14: ``d_st``, ``d_eta``; 16: ``d_st0``) and of each sum across rays (12:
+``d_rxp``, ``d_sc``; 13: ``d_sc``; 16: the ``[M, 12]`` table), whether a
+second run gave the same bits, and whether the outputs are within their
+tiers of the float64 plain version (the tree's ``testing.hold_*``); kernel
+14 again on the card tests' seeded operand sets (``slim_cases``:
+``measure.pre_bwd_slim_operands`` at 2^20 and 2^16 + 77 rays, every live
+pattern; the SHA-1 of its outputs, the same bits twice, within its tier,
+and at 2^20 rays its time, bound and share); and kernel 15 (the slim post
+backward), its calls in ``I``, with the SHA-1 of their operands and
+outputs and whether a second run gave the same bits.  The summary says,
+per call and per seeded set, whether the operands and per-ray outputs (15:
+every output) are the same bits in every turn of every tree.
 
 ``--steps`` picks ``canyon`` (phase9, N, 7, G, the single calls and the
 queries), ``queries`` (the queries alone), ``city`` (D, E, J and the walk
 queries), ``bwd`` (the stage backwards) or ``all`` (all but ``bwd``, the
 default).  Every child also reports the registers and spills of the
-prepass and the full pre, full post and whole-loop backwards from its
-tree's build, and its profiler
+prepass, the full pre, full post and whole-loop backwards and the slim pre
+backward from its tree's build, and its profiler
 windows with the launches they missed (``measure.profiled``: every window
 opens on a warm-up cycle; a device time is a window's sum over its
 calls).  The yardstick is this checkout's ``hermespy_rt_tpu_torch/
@@ -139,17 +144,19 @@ CITY_RX = [[30.0, -40.0, 1.5]]
 NAMED = ("gather", "scatter_add", "sort", "walk_kernel", "walk_prepass",
          "nearest_hit_kernel", "nearest_hit_culled_kernel",
          "bounce_pre_bwd_kernel", "bounce_post_bwd_kernel",
-         "loop_bwd_slim_kernel")
+         "loop_bwd_slim_kernel", "bounce_pre_bwd_slim_kernel")
 BLOCK_RAYS = 256       # rays per block of the nearest-hit kernels
 L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2
-# the timed backwards: kernels 12, 13 and 16, their per-ray outputs (the
+# the timed backwards: kernels 12, 13, 14 and 16, their per-ray outputs (the
 # same bits in every tree) and their sums across rays (within their tiers)
 BWD_TIMED = {
     "bounce_pre_bwd": (("d_o", "d_d", "d_st", "d_pay"), ("d_rxp", "d_sc")),
     "bounce_post_bwd": (("d_d2", "d_st2", "d_ex", "d_sh_d", "d_d2rx", "d_pay",
                          "d_no", "occ"), ("d_sc",)),
-    "loop_bwd_slim": (("d_st0",), ("d_tab",))}
-OTHER_BWD = ("bounce_pre_bwd_slim", "bounce_post_bwd_slim")   # kernels 14, 15
+    "loop_bwd_slim": (("d_st0",), ("d_tab",)),
+    "bounce_pre_bwd_slim": (("d_st", "d_eta"), ())}
+OTHER_BWD = ("bounce_post_bwd_slim",)                      # kernel 15
+SLIM_RAYS = (1 << 20, (1 << 16) + 77)   # kernel 14's seeded operand sets
 
 
 def _measure():
@@ -328,6 +335,7 @@ def bwd_calls(torch, testing, step, names, mats):
     failure)."""
     holds = {"bounce_pre_bwd": testing.hold_pre_bwd,
              "bounce_post_bwd": testing.hold_post_bwd,
+             "bounce_pre_bwd_slim": testing.hold_pre_bwd_slim,
              "loop_bwd_slim": lambda spec, rest, k, label: testing.hold_bwd(
                  spec, rest, k, mats, FREQ_GHZ, label)}
     step()
@@ -352,6 +360,7 @@ def bwd_calls(torch, testing, step, names, mats):
                 tier = str(e)[:300]
             out[name].append(dict(
                 call=i, R=(args[2].shape[-1] if name == "loop_bwd_slim"
+                           else args[1].shape[-1] if "slim" in name
                            else args[1].shape[0]), nrx=spec.nrx, ms=ms,
                 call_ms=sum(M.event_ms(e) for e in rows) / 20,
                 **(materials_300(torch, testing, args, kernel)
@@ -397,8 +406,56 @@ def materials_300(torch, testing, args, kernel):
                     for b in range(live.shape[0])])
 
 
+def slim_cases(torch, testing, kernel, dev):
+    """Kernel 14 on the seeded operand sets of the card tests
+    (``measure.pre_bwd_slim_operands`` on a 256-row table with the eta rows
+    of a seeded 300-row material table; :data:`SLIM_RAYS` rays, each live
+    pattern): per set the SHA-1 of each output, whether a second run gave
+    the same bits, whether the outputs are within their tiers (the tree's
+    ``testing.hold_pre_bwd_slim``) and, at 2^20 rays, the device time
+    (profiler, 20 calls after a warm-up), bound and share."""
+    import numpy as np
+
+    from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
+    from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
+
+    rng = np.random.default_rng(0)
+    eta = precompute_eta(testing.material_table(300, rng, dev), FREQ_GHZ)
+    eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
+                          dim=-1).detach()
+    ids = torch.as_tensor(rng.integers(0, 300, 256), device=dev)
+    geo = torch.as_tensor(rng.normal(size=(256, 15)).astype(np.float32),
+                          device=dev)
+    table = torch.cat([geo, eta_tab[ids]], dim=-1).contiguous()
+    spec = FusedSpec(nrx=1, grad_positions=False, grad_geometry=False)
+    out = {}
+    for R in SLIM_RAYS:
+        for live in M.SLIM_LIVE:
+            ops = M.pre_bwd_slim_operands(R, live, table, seed=R)
+            k = kernel(spec, *ops)
+            again = kernel(spec, *ops)
+            try:
+                testing.hold_pre_bwd_slim(spec, ops, k, f"{R} {live}")
+                tier = True
+            except AssertionError as e:
+                tier = str(e)[:300]
+            row = out[f"{R} {live}"] = dict(
+                outputs=[digest(torch, x) for x in k],
+                same_bits_twice=all(torch.equal(a, b)
+                                    for a, b in zip(k, again)),
+                within_tier=tier)
+            if R == SLIM_RAYS[0]:
+                rows = profiled(lambda: kernel(spec, *ops), 20).device
+                row["ms"] = sum(M.event_ms(e) for e in rows
+                                if "bounce_pre_bwd_slim_kernel" in e.key) / 20
+                row["bound_ms"] = M.bound(*M.bwd_work(
+                    "bounce_pre_bwd_slim", spec, ops, list(k)))[0]
+                row["share"] = row["bound_ms"] / row["ms"]
+    return out
+
+
 def other_bwd_calls(torch, recording_fused, kernels, steps):
-    """Kernels 14 and 15's recorded calls in each of ``steps`` (after a
+    """Kernel 15's recorded calls in each of ``steps`` (after a
     warm-up): per call the SHA-1 of its operands and of its outputs, and
     whether a second run gave the same bits."""
     out = {}
@@ -625,8 +682,16 @@ def child(tree, steps):
               + res.scatter.a_tm.abs().square().sum()) * 1e9).backward()
             torch.cuda.synchronize()
 
+    i_cfg = calibration_config(PATHS, BOUNCES, True, unroll_bounces=False)
+
+    def i_step():
+        calibration_step(tris, RX, TX, FREQ_GHZ, default_materials(dev),
+                         i_cfg)
+
     if steps in ("city", "all"):
         timed += [("D", city_paths), ("E", e_step), ("J", j_step)]
+    if steps == "bwd":
+        timed.append(("I", i_step))
     for name, step in timed:
         step()
         step()                                                  # warm-ups
@@ -649,8 +714,6 @@ def child(tree, steps):
     if steps == "bwd":
         from hermespy_rt_tpu_torch import testing
 
-        i_cfg = calibration_config(PATHS, BOUNCES, True,
-                                   unroll_bounces=False)
         mats = default_materials(dev)
         out["bwd"] = {
             name: bwd_calls(torch, testing, step, names, mats)
@@ -662,17 +725,20 @@ def child(tree, steps):
                 ("J", j_step, ("bounce_pre_bwd", "bounce_post_bwd")),
                 ("7", lambda: fused_step(RX), ("loop_bwd_slim",)),
                 ("7_nrx4", lambda: fused_step(rx_positions(4)),
-                 ("loop_bwd_slim",)))}
+                 ("loop_bwd_slim",)),
+                ("I", i_step, ("bounce_pre_bwd_slim",)))}
+        out["slim_cases"] = slim_cases(
+            torch, testing, testing.KERNELS["bounce_pre_bwd_slim"], dev)
         out["other_bwd"] = other_bwd_calls(
             torch, testing.recording_fused, testing.KERNELS,
-            (("I", lambda: calibration_step(
-                tris, RX, TX, FREQ_GHZ, default_materials(dev), i_cfg)),))
+            (("I", i_step),))
     from hermespy_rt_tpu_torch.ops._cuda_build import LIBRARY
     out["ptxas"] = {name: M.kernel_ptxas(LIBRARY.build_log, name)
                     for name in ("walk_prepass_kernel",
                                  "bounce_pre_bwd_kernel",
                                  "bounce_post_bwd_kernel",
-                                 "loop_bwd_slim_kernel")}
+                                 "loop_bwd_slim_kernel",
+                                 "bounce_pre_bwd_slim_kernel")}
     out["profiler"] = PROFILER
     print(json.dumps(out), flush=True)
 
@@ -749,7 +815,7 @@ def main():
 
         summary[tree] = {"turns": len(mine), "spread": {}}
         steps = [k for k in ("phase9", "N", "7", "7_nrx4", "G", "G_nrx4",
-                             "D", "E", "J") if k in mine[0]]
+                             "D", "E", "J", "I") if k in mine[0]]
         for step in steps:
             keys = {k: (lambda r, k=k: r[step]["profile"][k])
                     for k in ("wall_ms", "device_busy_ms", "device_ops",
@@ -757,7 +823,8 @@ def main():
             keys["wall_mean_ms"] = lambda r: r[step]["wall_mean_ms"]
             for name in ("walk_kernel", "walk_prepass", "nearest_hit_kernel",
                          "nearest_hit_culled_kernel", "bounce_pre_bwd_kernel",
-                         "bounce_post_bwd_kernel", "loop_bwd_slim_kernel"):
+                         "bounce_post_bwd_kernel", "loop_bwd_slim_kernel",
+                         "bounce_pre_bwd_slim_kernel"):
                 keys[f"{name}_ms"] = (
                     lambda r, n=name: r[step]["profile"]["named"][n]["ms"])
             summary[tree][step], summary[tree]["spread"][step] = {}, {}
@@ -812,6 +879,20 @@ def main():
                         row["within_tier"] = all(
                             t["within_tier"] is True for t in turns)
                         rows.append(row)
+        if "slim_cases" in mine[0]:
+            summary[tree]["slim_cases"] = {}
+            for case, row in mine[0]["slim_cases"].items():
+                turns = [r["slim_cases"][case] for r in mine]
+                row = {k: v for k, v in row.items() if k != "outputs"}
+                if "ms" in row:
+                    row["ms"], row["ms_spread"] = stat(
+                        lambda r, c=case: r["slim_cases"][c]["ms"])
+                    row["share"] = row["bound_ms"] / row["ms"]
+                row["same_bits_twice"] = all(t["same_bits_twice"]
+                                             for t in turns)
+                row["within_tier"] = all(t["within_tier"] is True
+                                         for t in turns)
+                summary[tree]["slim_cases"][case] = row
         summary[tree]["ptxas"] = mine[0]["ptxas"]
         summary[tree]["profiler"] = {
             k: sum(r.get("profiler", {}).get(k, 0) for r in mine)
@@ -845,6 +926,10 @@ def main():
             for step, kernels in bwd_runs[0]["bwd"].items()
             for name, calls in kernels.items()
             for c, call in enumerate(calls)}
+        summary["slim_cases_equal_across_trees"] = {
+            case: all(r["slim_cases"][case]["outputs"] == d["outputs"]
+                      for r in bwd_runs)
+            for case, d in bwd_runs[0]["slim_cases"].items()}
         first = bwd_runs[0]["other_bwd"]
         summary["other_bwd_equal_across_trees"] = {
             call: {k: all(r["other_bwd"].get(call, {}).get(k) == d[k]

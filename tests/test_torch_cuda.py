@@ -35,7 +35,10 @@ within their tiers at every RX count, parity, payload width and ray count,
 the same bits in two runs (the post backward, which sums across rays in its
 last block, in three); the whole-loop backward at 1, 17 and 300 materials,
 1 and 3 bounces and every ray count, the same bits in three runs; kernels
-13-16 the same bits in two runs on a recorded call, within their tiers.
+13-16 the same bits in two runs on a recorded call, within their tiers;
+kernel 14 also on seeded operands at every live share and with a tail
+warp (``d_st`` and a dead ray's eta row the plain version's bits), and a
+step on a 5,000-row material table through the per-stage kernels.
 The walk kernel must give the (t, idx) of its plain version and of the
 brute kernel (in any-hit mode the same `blocked`, each reported hit a
 valid one); traces through the walk equal traces through the brute kernel
@@ -47,10 +50,12 @@ import pytest
 import torch
 
 from hermespy_rt_tpu_torch import compute_paths, default_materials
+from hermespy_rt_tpu_torch import measure
 from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch import TracerConfig, trace_paths
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
-from hermespy_rt_tpu_torch.ops.bounce_fused import FusedSpec
+from hermespy_rt_tpu_torch.ops.bounce_fused import (FusedSpec,
+                                                    bounce_pre_bwd_slim_plain)
 from hermespy_rt_tpu_torch.ops.fetch import scatter_add_ordered_plain
 from hermespy_rt_tpu_torch.ops.fetch_cuda import gather, scatter_add
 from hermespy_rt_tpu_torch.ops.fresnel import ETA_FIELDS, precompute_eta
@@ -820,6 +825,69 @@ def test_slim_stage_kernels_equal_plain(dev):
             hold(args[0], args[1:], out, f"{name}{i}")
     for i, (args, _) in enumerate(calls["scatter_add"]):
         checks.hold_scatter_add(*args, f"scatter_add{i}")
+
+
+def _slim_table(dev):
+    """A 256-row payload table: seeded geometry, and the eta rows of a
+    300-row material table at ids drawn over all of it."""
+    rng = np.random.default_rng(0)
+    eta = precompute_eta(checks.material_table(300, rng, dev), FREQ)
+    eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
+                          dim=-1).detach()
+    ids = torch.as_tensor(rng.integers(0, 300, 256), device=dev)
+    geo = torch.as_tensor(rng.normal(size=(256, 15)).astype(np.float32),
+                          device=dev)
+    return torch.cat([geo, eta_tab[ids]], dim=-1).contiguous()
+
+
+@pytest.mark.parametrize("live", measure.SLIM_LIVE)
+@pytest.mark.parametrize("R", [1 << 20, (1 << 16) + 77, 33, 1])
+def test_pre_bwd_slim_kernel_live_shares(dev, R, live):
+    """Kernel 14 on seeded operands (``measure.pre_bwd_slim_operands``:
+    every ray live, ~17% clustered, ~1% scattered, none; R with a tail
+    warp): within ``hold_pre_bwd_slim``'s tiers, a dead ray's outputs the
+    plain version's bits (its state cotangent copied, a zero eta row), the
+    same bits in two runs; ``d_st`` is the plain version's bits on every
+    ray (a live ray's is four products and sums, done in the same order).
+    That every per-ray output is the parent design's bits is
+    ``scripts/profile_op_steps.py --steps bwd``'s comparison of two trees
+    on these operands."""
+    spec = FusedSpec(nrx=1, grad_positions=False, grad_geometry=False)
+    ops = measure.pre_bwd_slim_operands(R, live, _slim_table(dev), seed=R)
+    k1 = fused_ops.bounce_pre_bwd_slim(spec, *ops)
+    k2 = fused_ops.bounce_pre_bwd_slim(spec, *ops)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    p = bounce_pre_bwd_slim_plain(spec, *ops)
+    dead = ~(ops[1] & (ops[2] >= 0))
+    assert torch.equal(k1[0], p[0])
+    assert torch.equal(k1[1][dead], p[1][dead])
+    checks.hold_pre_bwd_slim(spec, ops, k1, f"pre_bwd_slim R {R} {live}")
+
+
+def test_large_table_step_takes_stage_kernels(dev):
+    """A calibration step on a 5,000-row material table (ids over all of
+    it) under the default ``unroll_bounces``: past ``MAX_MATERIALS`` it runs
+    the per-stage kernels and never the whole-loop backward, each slim
+    backward within its tier, and its material gradients hold against the
+    op path's."""
+    tris, _ = _soup(dev, 5000)
+    grads = {}
+    for fused in (False, True):
+        mats = checks.material_table(5000, np.random.default_rng(1), dev)
+        with checks.recording_fused() as calls:
+            _step(tris, 2, mats, 1 << 14, fused)
+        grads[fused] = checks.grads_of(mats)
+    assert [len(calls[n]) for n in ("bounce_pre_bwd_slim",
+                                    "bounce_post_bwd_slim", "loop_bwd_slim",
+                                    "scatter_add")] == [3, 3, 0, 7]
+    for name, hold in (("bounce_pre_bwd_slim", checks.hold_pre_bwd_slim),
+                       ("bounce_post_bwd_slim", checks.hold_post_bwd_slim)):
+        for i, (args, out) in enumerate(calls[name]):
+            hold(args[0], args[1:], out, f"{name}{i}")
+    assert float(grads[True]["a"][fused_ops.MAX_MATERIALS:].abs().max()) > 0
+    checks.leaves_close(grads[True], grads[False], checks.PATH_GRAD_RTOL,
+                        checks.LEAF_ATOL, "5,000 materials")
 
 
 @pytest.mark.parametrize("C", [27, 12, 2, 3])

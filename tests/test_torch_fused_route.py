@@ -1,0 +1,186 @@
+"""Which bounce loop a ``shade="fused"`` trace takes (``tracer.fused_loop``),
+on the CPU, where each kernel wrapper runs its plain version and the routes
+are decided as on the card.
+
+- Past ``MAX_MATERIALS`` (4842) materials the whole-loop backward's per-warp
+  ``[M, 12]`` shared-memory tables do not fit: a ``grad_positions=False``
+  trace takes the per-stage nodes (slim backwards and the table
+  scatter-add), whose material gradients equal the op path's within
+  ``tests/test_torch_fused.py``'s tier (3e-5 of each leaf's largest
+  magnitude plus 1e-16), rows past 4842 included.
+- Past ``PRE_BWD_MAX_RX`` (340) RX the full pre backward's sums do not fit
+  its shared memory: a ``grad_positions`` trace warns and runs the op path,
+  whose outputs and gradients it then gives bit for bit."""
+import dataclasses
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from hermespy_rt_tpu_torch import TracerConfig, default_materials
+from hermespy_rt_tpu_torch import testing as checks
+from hermespy_rt_tpu_torch import tracer as tracer_module
+from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
+from hermespy_rt_tpu_torch.scene import flatten_scene, random_soup_scene
+from hermespy_rt_tpu_torch.tracer import fused_loop, trace_paths
+
+FREQ = 3.0
+# a dense soup around the TX (tests/test_torch_fused.py's), so rays hit,
+# die and are occluded
+RX = np.array([[4.0, 3.0, 1.0], [-6.0, 2.0, -1.0]], np.float32)
+TX = np.array([[0.5, 0.0, 0.0]], np.float32)
+OUTPUTS = ("a_te", "a_tm", "tau", "freq_shift", "directions_rx")
+
+
+def _soup(n_materials, seed=0):
+    """The soup with triangle ids drawn over an ``n_materials``-row table
+    (half of them past ``MAX_MATERIALS`` where the table has such rows),
+    and that table."""
+    tris = flatten_scene(random_soup_scene(120, seed=5, extent=10.0,
+                                           tri_size=2.0), device="cpu")
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n_materials, tris.pad_triangles)
+    if n_materials > fused_ops.MAX_MATERIALS:
+        ids[::2] = rng.integers(fused_ops.MAX_MATERIALS, n_materials,
+                                ids[::2].shape)
+    return (dataclasses.replace(tris, material=torch.as_tensor(ids)),
+            lambda: checks.material_table(n_materials,
+                                          np.random.default_rng(seed), "cpu"))
+
+
+def _cfg(**kw):
+    base = dict(num_paths=512, num_bounces=2, shade="fused",
+                grad_positions=False, grad_geometry=False, keep_rays=False,
+                compact_rays=True)
+    return TracerConfig(**{**base, **kw})
+
+
+def _loss(res):
+    return (res.scatter.a_te.abs().square().sum()
+            + res.scatter.a_tm.abs().square().sum()) * 1e9
+
+
+@pytest.fixture()
+def routes(monkeypatch):
+    """The fused loops the traces took, by name, in order."""
+    taken = []
+    for name in ("run_fused_loop_slim", "run_fused_loop_stages"):
+        real = getattr(tracer_module, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            taken.append(_name)
+            return _real(*args, **kw)
+        monkeypatch.setattr(tracer_module, name, spy)
+    return taken
+
+
+@pytest.mark.parametrize("kw,nrx,M,route", [
+    (dict(), 1, fused_ops.MAX_MATERIALS, "run_fused_loop_slim"),
+    (dict(), 1, fused_ops.MAX_MATERIALS + 1, "run_fused_loop_stages"),
+    (dict(unroll_bounces=False), 1, 17, "run_fused_loop_stages"),
+    (dict(unroll_bounces=False), 341, 5000, "run_fused_loop_stages"),
+    (dict(grad_positions=True), fused_ops.PRE_BWD_MAX_RX, 5000,
+     "run_fused_loop_stages"),
+    (dict(grad_positions=True, grad_geometry=True),
+     fused_ops.PRE_BWD_MAX_RX + 1, 17, None)])
+def test_fused_loop_route(routes, kw, nrx, M, route):
+    """The slim loop up to MAX_MATERIALS materials; the per-stage nodes
+    past it, without unrolling and with grad_positions up to 340 RX; the
+    op path (None) past 340 RX with grad_positions, with a warning that
+    names the limit, and no warning elsewhere."""
+    cfg = _cfg(**kw)
+    if route is None:
+        with pytest.warns(UserWarning, match="340"):
+            assert fused_loop(cfg, nrx, M) is None
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert fused_loop(cfg, nrx, M) is getattr(tracer_module, route)
+
+
+def test_5000_materials_take_the_stage_path(routes, monkeypatch):
+    """A 5,000-row table with ids over all of it, under the default
+    ``unroll_bounces``: the per-stage nodes (never the whole-loop backward),
+    material gradients within the tier of the op path's, nonzero on rows
+    past MAX_MATERIALS; outputs equal to the op path's bit for bit."""
+    def whole_loop(*_args, **_kw):
+        raise AssertionError("loop_bwd_slim ran on a 5,000-row table")
+
+    monkeypatch.setattr(fused_ops, "loop_bwd_slim", whole_loop)
+    tris, table = _soup(5000)
+    grads, outs = {}, {}
+    for shade in ("xla", "fused"):
+        mats = table()
+        assert mats.num_materials == 5000
+        res = trace_paths(tris, mats, RX, TX, np.zeros_like(RX),
+                          np.zeros_like(TX), FREQ, _cfg(shade=shade))
+        _loss(res).backward()
+        grads[shade], outs[shade] = checks.grads_of(mats), res.scatter
+    assert routes == ["run_fused_loop_stages"]
+    past = {f: g[fused_ops.MAX_MATERIALS:] for f, g in grads["fused"].items()}
+    assert float(past["a"].abs().max()) > 0
+    checks.leaves_close(grads["fused"], grads["xla"], checks.LEAF_RTOL,
+                        checks.LEAF_ATOL, "5,000 materials")
+    for f in OUTPUTS:
+        assert torch.equal(getattr(outs["fused"], f),
+                           getattr(outs["xla"], f)), f
+
+
+def test_4842_materials_take_the_whole_loop(routes):
+    """At MAX_MATERIALS rows the whole-loop node still runs, and its one
+    backward call gives the op path's material gradients."""
+    tris, table = _soup(fused_ops.MAX_MATERIALS)
+    grads = {}
+    for shade in ("xla", "fused"):
+        mats = table()
+        with checks.recording_fused() as calls:
+            res = trace_paths(tris, mats, RX, TX, np.zeros_like(RX),
+                              np.zeros_like(TX), FREQ,
+                              _cfg(shade=shade, num_paths=256))
+            _loss(res).backward()
+        grads[shade] = checks.grads_of(mats)
+    assert routes == ["run_fused_loop_slim"]
+    assert len(calls["loop_bwd_slim"]) == 1
+    checks.leaves_close(grads["fused"], grads["xla"], checks.LEAF_RTOL,
+                        checks.LEAF_ATOL, "4,842 materials")
+
+
+def test_341_rx_full_gradient_falls_back_to_op_path(routes):
+    """341 RX with gradients to the materials, the RX and TX positions,
+    the frequency and the vertices: ``shade="fused"`` warns, naming the
+    340-RX limit, and gives the op path's outputs and gradients bit for
+    bit."""
+    tris = flatten_scene(random_soup_scene(120, seed=5, extent=10.0,
+                                           tri_size=2.0), device="cpu")
+    k = np.arange(341, dtype=np.float32)[:, None]
+    rx = np.float32([[4.0, 3.0, 1.0]]) + k * np.float32([[-0.03, 0.02, 0.01]])
+    outs, grads = {}, {}
+    for shade in ("xla", "fused"):
+        mats = default_materials("cpu")
+        v0 = tris.v0.clone().requires_grad_()
+        leaves = dict(rx=torch.tensor(rx, requires_grad=True),
+                      tx=torch.tensor(TX, requires_grad=True),
+                      f=torch.tensor(FREQ, requires_grad=True))
+        cfg = TracerConfig(num_paths=64, num_bounces=2, shade=shade,
+                           keep_rays=False, compact_rays=True)
+        args = (dataclasses.replace(tris, v0=v0), mats, leaves["rx"],
+                leaves["tx"], np.zeros_like(rx), np.zeros_like(TX),
+                leaves["f"], cfg)
+        if shade == "fused":
+            with pytest.warns(UserWarning, match="340"):
+                res = trace_paths(*args)
+        else:
+            res = trace_paths(*args)
+        checks.grad_loss(res).backward()
+        outs[shade] = res.scatter
+        grads[shade] = {**checks.grads_of(mats), "v0": v0.grad,
+                        **{n: x.grad for n, x in leaves.items()}}
+    assert routes == []
+    assert (outs["xla"].a_te.abs() > 0).any()
+    for f in OUTPUTS:
+        assert torch.equal(getattr(outs["fused"], f),
+                           getattr(outs["xla"], f)), f
+    for name, g in grads["xla"].items():
+        assert g is not None and torch.equal(grads["fused"][name], g), name
+    assert float(grads["xla"]["rx"].abs().max()) > 0
