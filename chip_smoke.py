@@ -172,6 +172,47 @@ M. culled     -- every recorded culled query of N (LoS, bounce, shadow;
                  shadow query and C's city bounce query timed against the
                  brute kernel and the plain version, with their bounds.
 
+The transmission modes and the models (the op path; ``shade="fused"``
+warns and runs it, as in the JAX package), after phase M and phase J:
+
+O. transmission -- the canyon stand-in at 2^20 paths, B = 3, physical
+                 parity, nrx 1 and 4, bench.py's step (loss to the material
+                 table) in seven turns: the physical step without
+                 transmission, then ``transmission=True`` with
+                 ``shade="xla"`` and ``"pallas"``, ``spawn_transmission``
+                 with ``refraction="straight"`` and ``"snell"``
+                 (``shade="pallas"``, which spawning runs as torch ops),
+                 ``shade="fused"`` under ``transmission`` (its warning; its
+                 outputs and gradients the xla turn's bits) and ``cull=True``.
+                 Each: launches of one step (counts zeroed just before, read
+                 just after) against ``testing.transmission_launches``,
+                 every recorded kernel call held as phases 4, K, L and M
+                 hold theirs (the brute and culled queries, among them the
+                 nearest-blocker shadow queries, the blockers' row gathers
+                 and their scatter-adds over nrx x 2^20 rows, the shading);
+                 forward and step walls (mean of 3 after a warm-up, with
+                 min and max), a profiler window (busy, operations, idle
+                 share, per-kernel time and launches); at 2^16 paths the
+                 step against ``backend="torch"`` (slots agree, gradients
+                 within the op path's tier).  Then the transmission step's
+                 ratio to the physical step.
+P. transmission_city -- ``transmission=True`` on the config-5 city at 2^20
+                 paths, nrx 1: every query walks, the shadow queries with
+                 any-hit off; each walk query held (prepass rows, the plain
+                 walk's bits, the brute kernel's decisions), each gather and
+                 scatter-add held; launches, walls, a profiler window; the
+                 physical step without transmission beside it (its launches,
+                 walls, window) and the ratios of wall, busy and walk time.
+Q. models     -- ``coverage_map`` under ``transmission`` on the canyon
+                 stand-in at the JAX defaults (4096 paths, B = 3, 256-probe
+                 batches) over x, y in [-60, 60] at 2 m, 1.5 m high (3,721
+                 probes, 15 batches): every cell finite, both LoS verdicts,
+                 the first batch against ``trace`` + ``path_gain_db`` and its
+                 trace against the plain query's; ``run_sweep`` over the same
+                 probes into a temporary directory (15 chunks, a resume 0, 1
+                 after one chunk file is removed, the chunks' power the map's
+                 gain); seconds and probes a second of each.
+
 Then the profiler's windows (each opened on a warm-up cycle and taken
 again while it misses launches; every device time is a window's sum over
 its calls) and the launches they still missed, the kernel summary, the
@@ -187,8 +228,10 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -197,6 +240,9 @@ from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
                                    default_materials, trace)
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS, MATERIAL_NAMES
+from hermespy_rt_tpu_torch.models import (SweepConfig, coverage_map,
+                                          load_sweep_results, path_gain_db,
+                                          run_sweep)
 from hermespy_rt_tpu_torch.measure import (
     F32_OPS_PER_S, NEAREST_HIT_OPS_PER_PAIR, POST_OPS_PER_RX, PRE_OPS_PER_RAY,
     PRE_OPS_PER_RX, SLAB_OPS, bound, bwd_work, event_ms, kernel_ptxas, nbytes,
@@ -225,7 +271,8 @@ from hermespy_rt_tpu_torch.testing import (
     calibration_step, grad_loss, grads_of, hold_bwd, hold_culled,
     hold_gather, hold_post, hold_post_bwd, hold_post_bwd_slim, hold_pre,
     hold_pre_bwd, hold_pre_bwd_slim, hold_scatter_add, hold_shade,
-    leaves_close, material_table, recording_fused, slots_agree)
+    leaves_close, material_table, recording_fused, slots_agree,
+    transmission_config, transmission_launches)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CANYON = os.path.join(REPO, "scenes", "simple_street_canyon_with_cars.hrt")
@@ -2090,6 +2137,378 @@ def phase_culled(recorded, tris):
                      gpu=smi())
     emit(phase="culled_summary", **totals, gpu=smi())
     return dict(totals, timing=timing)
+# --- the transmission modes and the models --------------------------------
+
+# O's turns: the physical op-path step without transmission (the baseline),
+# then the transmission modes (shade, and the culled query for "cull")
+TRANSMISSION_TURNS = (
+    ("physical", dict(mode=None, shade="xla")),
+    ("xla", dict(mode="transmission", shade="xla")),
+    ("pallas", dict(mode="transmission", shade="pallas")),
+    ("spawn_straight", dict(mode="spawn_straight", shade="pallas")),
+    ("spawn_snell", dict(mode="spawn_snell", shade="pallas")),
+    ("fused", dict(mode="transmission", shade="fused")),
+    ("cull", dict(mode="transmission", shade="pallas", cull=True)))
+COVERAGE_CFG = dict(num_paths=4096, num_bounces=3, keep_rays=False,
+                    parity="physical", transmission=True)
+
+
+def turn_config(paths, spec):
+    """The calibration flags of an O turn (physical parity)."""
+    kw = dict(spec)
+    mode = kw.pop("mode")
+    if mode is None:
+        return calibration_config(paths, BOUNCES, False, parity="physical",
+                                  **kw)
+    return transmission_config(paths, BOUNCES, mode, **kw)
+
+
+def spread_s(fn, reps=3):
+    """Host-clock times of ``reps`` calls of ``fn`` (which synchronises)
+    after one warm-up: mean, min and max in seconds."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return dict(mean_s=sum(ts) / reps, min_s=min(ts), max_s=max(ts))
+
+
+def quiet(fn):
+    """``fn`` with its warnings silenced (the fused turn's fallback warns
+    on every call; the recorded call checks it)."""
+    def run(*a, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return fn(*a, **kw)
+    return run
+
+
+def check_finite_result(res, label):
+    for part in ("los", "scatter"):
+        for f in OUTPUT_FIELDS:
+            x = getattr(getattr(res, part), f).detach()
+            x = torch.view_as_real(x) if x.is_complex() else x
+            check(bool(torch.isfinite(x).all()), f"{label}: {part}.{f}")
+
+
+def hold_op_calls(queries, calls, label, assert_flips, ns):
+    """Every kernel call recorded in one op-path step against its plain
+    version, as phases 4, K, L and M hold theirs: each brute query the
+    twin's bits, each gather ``table[idx]``'s bits, each scatter-add as H
+    holds it, each shading call within its tier, each culled query the
+    plain culled scan's bits and skip count.  Returns the calls held and
+    the worst errors by kernel."""
+    held, worst = {}, {}
+
+    def note(name, err=0.0):
+        held[name] = held.get(name, 0) + 1
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for i, (o, d, q_tris, kw, t_k, i_k) in enumerate(queries):
+        hold_against_twin(q_tris, o, d, kw, t_k, i_k, f"{label} q{i}")
+        note("nearest_hit")
+    for i, (args, out) in enumerate(calls["gather"]):
+        hold_gather(args, out, f"{label} gather{i}")
+        note("gather")
+    for i, (args, _) in enumerate(calls["scatter_add"]):
+        note("scatter_add", hold_scatter_add(*args,
+                                             f"{label} scatter_add{i}")[0])
+    for i, (args, out) in enumerate(calls["shade_a"]):
+        note("shade_a", hold_shade(args, out, f"{label} shade_a{i}")[0])
+    for i, (args, (t, idx)) in enumerate(calls["nearest_hit_culled"]):
+        o, d, q_tris, kw = args
+        hold_culled_query(q_tris, o, d, kw, t, idx, f"{label} culled{i}",
+                          assert_flips, ns)
+        note("nearest_hit_culled")
+    return held, worst
+
+
+def step_row(step, label):
+    """The forward and forward+backward walls (mean of 3 after a warm-up,
+    with min and max) and one profiler window over a step."""
+    return dict(fwd=spread_s(lambda: step(False)), fwd_bwd=spread_s(step),
+                profile=profile_window(step, label))
+
+
+def phase_transmission(tris, dev):
+    """O: the transmission modes on the canyon stand-in at 2^20 paths, B =
+    3, physical parity, nrx 1 and 4, as a calibration step (bench.py's
+    loss, backward to the material table).  Per turn (TRANSMISSION_TURNS):
+    launches of one step (counts zeroed just before, read just after, its
+    kernel calls recorded) against ``testing.transmission_launches``,
+    every recorded call held against its plain version, finite outputs and
+    gradients; the fused turn's fallback warning and its outputs and
+    gradients equal to the xla turn's bits; the forward and step walls,
+    a profiler window; at 2^16 paths the same step through
+    ``backend="torch"``: slots agree, material gradients within the op
+    path's tier.  Returns the launches by step and the worst errors."""
+    assert_flips = flips_check()
+    ns = types.SimpleNamespace(**{f: getattr(tris, f).cpu().numpy()
+                                  for f in ("v0", "e1", "e2")})
+    counts, worst, rows = {}, {}, {}
+    for nrx in (1, 4):
+        rx = rx_positions(nrx)
+        xla = None
+        for turn, spec in TRANSMISSION_TURNS:
+            key = f"{turn}_nrx{nrx}"
+            cfg = turn_config(PATHS, spec)
+            mats = default_materials(dev)
+            step = quiet(lambda backward=True, cfg=cfg, mats=mats, rx=rx:
+                         calibration_step(tris, rx, TX, FREQ_GHZ, mats, cfg,
+                                          backward=backward))
+            step()                                                # warm-up
+            with warnings.catch_warnings(record=True) as caught, \
+                    recording() as rec, recording_fused() as calls:
+                warnings.simplefilter("always")
+                zero_counts()
+                res, loss = calibration_step(tris, rx, TX, FREQ_GHZ, mats,
+                                             cfg)
+                counts[key] = read_counts()
+            warned = any("transmission modes" in str(w.message)
+                         for w in caught)
+            check(warned == (cfg.shade == "fused"),
+                  f"O {key}: fallback warning {warned}")
+            check(counts[key] == transmission_launches(cfg),
+                  f"O {key}: launches {counts[key]}, want "
+                  f"{transmission_launches(cfg)}")
+            check_finite_result(res, f"O {key}")
+            grads = grads_of(mats)
+            for f, g in grads.items():
+                check(bool(torch.isfinite(g).all()), f"O {key}: grad {f}")
+            check(float(grads["a"].abs().max()) > 0,
+                  f"O {key}: material gradients zero")
+            if turn == "xla":
+                xla = (res, grads)
+            if turn == "fused":
+                for part in ("los", "scatter"):
+                    for f in OUTPUT_FIELDS:
+                        check(torch.equal(getattr(getattr(res, part), f),
+                                          getattr(getattr(xla[0], part), f)),
+                              f"O {key}: {part}.{f} differs from the xla "
+                              "turn's")
+                check(all(torch.equal(grads[f], xla[1][f]) for f in grads),
+                      f"O {key}: gradients differ from the xla turn's")
+            held, errs = hold_op_calls(rec.queries, calls, f"O {key}",
+                                       assert_flips, ns)
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            blocked = int(res.los_blocked.sum())
+            written = int((res.scatter.a_te.abs() > 0).sum())
+            loss_value = float(loss.detach())
+            del rec, calls, res, loss, grads
+            row = step_row(step, f"O {key}")
+            # the same step at 2^16 paths through the plain query
+            small = turn_config(SMALL_PATHS, spec)
+            g = {}
+            for backend in ("auto", "torch"):
+                m = default_materials(dev)
+                r, _ = quiet(calibration_step)(
+                    tris, rx, TX, FREQ_GHZ, m, dataclasses.replace(
+                        small, backend=backend, ray_chunk=TWIN_CHUNK))
+                g[backend] = (r, grads_of(m))
+            agree = {f: slots_agree(getattr(g["torch"][0].scatter, f),
+                                    getattr(g["auto"][0].scatter, f), f)
+                     for f in OUTPUT_FIELDS}
+            share = leaves_close(g["auto"][1], g["torch"][1], PATH_GRAD_RTOL,
+                                 LEAF_ATOL, f"O {key}: kernels vs torch")
+            del g
+            rows[key] = row
+            emit(phase="transmission", turn=turn, nrx=nrx, paths=PATHS,
+                 bounces=BOUNCES, launches=counts[key], calls_held=held,
+                 max_abs_err=errs, los_blocked=blocked,
+                 scatter_written=written, loss=loss_value,
+                 small_slot_agreement=agree,
+                 small_grad_max_leaf_share=share, **row, gpu=smi())
+        del xla
+    # the transmission step against the physical step without it
+    ratio = {}
+    for nrx in (1, 4):
+        base, tr = rows[f"physical_nrx{nrx}"], rows[f"xla_nrx{nrx}"]
+        ratio[nrx] = dict(
+            wall=tr["fwd_bwd"]["mean_s"] / base["fwd_bwd"]["mean_s"],
+            fwd_wall=tr["fwd"]["mean_s"] / base["fwd"]["mean_s"],
+            busy=(tr["profile"]["device_busy_ms"]
+                  / base["profile"]["device_busy_ms"]
+                  if base["profile"].get("device_busy_ms") else None))
+    emit(phase="transmission_summary", ratio_to_physical=ratio,
+         worst=worst, gpu=smi())
+    return counts, worst
+
+
+def hold_walk_query(o, d, scene, kw, t_k, i_k, tris, label, assert_flips,
+                    ns):
+    """One recorded walk query held as phase B holds its nearest-mode
+    queries: the prepass kernel's visit rows the plain version's, the
+    walk the plain walk's bits, the brute kernel's decisions (each flip an
+    f64 edge or tie case)."""
+    t_max, live, ex = kw.get("t_max"), kw.get("live"), kw.get("exclude")
+    check(not kw.get("any_hit"), f"{label}: an any-hit query")
+    lim = query_limits(o.shape[0], scene.block_rays, t_max=t_max, live=live,
+                       device=o.device)
+    visits = walk_cuda.walk_prepass(o, d, lim, scene.boxes)
+    check(torch.equal(visits, visit_rows(*prepass_plain(
+        o, d, lim, scene.boxes, scene.block_rays))),
+          f"{label}: visit rows differ from the plain version's")
+    t_p, i_p = walk_plain(o, d, scene, visits, lim, exclude=ex,
+                          tile_chunk=1024)
+    check(torch.equal(i_p, i_k) and torch.equal(t_p.view(torch.int32),
+                                                t_k.view(torch.int32)),
+          f"{label}: {int((i_p != i_k).sum())} flips against the plain walk")
+    t_b, i_b = nearest_hit(o, d, tris, exclude=ex, t_max=t_max, live=live)
+    flips = int((i_k != i_b).sum())
+    if flips:
+        assert_flips(ns, o.cpu().numpy(), d.cpu().numpy(), t_b.cpu().numpy(),
+                     i_b.cpu().numpy(), t_k.cpu().numpy(), i_k.cpu().numpy(),
+                     t_rtol=0.0, label=label)
+    m = (i_k == i_b) & (i_k >= 0)
+    check(torch.equal(t_k[m], t_b[m]), f"{label}: t differs from brute")
+    return dict(rays=o.shape[0], live=int((lim >= 0).sum()),
+                hits=int((i_k >= 0).sum()), brute_flips=flips,
+                limited=t_max is not None)
+
+
+def phase_transmission_city(city, dev):
+    """P: the transmission step on the config-5 city (2^20 paths, B = 3,
+    nrx 1, physical parity, compact and coherent rays): every query walks,
+    the shadow queries with any-hit off (the nearest blocker's row is
+    read).  Launches of one step; each walk query held (prepass rows, the
+    plain walk's bits, the brute kernel's decisions), each gather and
+    scatter-add held; walls and a profiler window, and those of the
+    physical step without transmission.  Returns the launches."""
+    assert_flips = flips_check()
+    ns = types.SimpleNamespace(**{f: getattr(city, f).cpu().numpy()
+                                  for f in ("v0", "e1", "e2")})
+    cfg = transmission_config(PATHS, BOUNCES, "transmission")
+    rx = rx_positions(1, CITY_RX0)
+    mats = default_materials(dev)
+    step = lambda backward=True: calibration_step(  # noqa: E731
+        city, rx, CITY_TX, FREQ_GHZ, mats, cfg, backward=backward)
+    step()                                                        # warm-up
+    with recording_walk() as rec, recording_fused() as calls:
+        zero_counts()
+        res, loss = step()
+        counts = read_counts()
+    want = transmission_launches(cfg, walk=True)
+    check(counts == want, f"P: launches {counts}, want {want}")
+    check_finite_result(res, "P")
+    check(float(grads_of(mats)["a"].abs().max()) > 0,
+          "P: material gradients zero")
+    queries = [hold_walk_query(o, d, scene, kw, t, i, city, f"P q{qi}",
+                               assert_flips, ns)
+               for qi, (o, d, scene, kw, t, i) in enumerate(rec.queries)]
+    check(len(queries) == 1 + 2 * BOUNCES, f"P: {len(queries)} queries")
+    for i, (args, out) in enumerate(calls["gather"]):
+        hold_gather(args, out, f"P gather{i}")
+    scatter_err = max([hold_scatter_add(*args, f"P scatter_add{i}")[0]
+                       for i, (args, _) in enumerate(calls["scatter_add"])]
+                      or [0.0])
+    held = {"walk": len(queries), "gather": len(calls["gather"]),
+            "scatter_add": len(calls["scatter_add"])}
+    blocked = int(res.los_blocked.sum())
+    del rec, calls, res, loss
+    row = step_row(step, "P city transmission")
+    # the physical step without transmission (any-hit shadow walks) beside
+    cfg0 = calibration_config(PATHS, BOUNCES, False, parity="physical")
+    step0 = lambda backward=True: calibration_step(  # noqa: E731
+        city, rx, CITY_TX, FREQ_GHZ, mats, cfg0, backward=backward)
+    step0()
+    zero_counts()
+    step0()
+    counts0 = read_counts()
+    check(counts0 == transmission_launches(cfg0, walk=True),
+          f"P physical: launches {counts0}")
+    row0 = step_row(step0, "P city physical")
+    walk_ms = {k: r["profile"]["kernels"]["walk"]["ms"]
+               for k, r in (("physical", row0), ("transmission", row))}
+    emit(phase="transmission_city", paths=PATHS, bounces=BOUNCES, nrx=1,
+         triangles=city.num_triangles, launches=counts, calls_held=held,
+         queries=queries, scatter_add_max_abs_err=scatter_err,
+         los_blocked=blocked, **row, physical=row0,
+         physical_launches=counts0, walk_ms=walk_ms,
+         ratio_to_physical=dict(
+             wall=row["fwd_bwd"]["mean_s"] / row0["fwd_bwd"]["mean_s"],
+             busy=(row["profile"]["device_busy_ms"]
+                   / row0["profile"]["device_busy_ms"]),
+             walk=walk_ms["transmission"] / walk_ms["physical"]),
+         gpu=smi())
+    return counts
+
+
+def phase_models(host, dev):
+    """Q: ``coverage_map`` under ``transmission`` on the canyon stand-in at
+    the JAX defaults (4096 paths, B = 3, 256-probe batches) over x, y in
+    [-60, 60] at 2 m, 1.5 m high (3,721 probes, 15 batches, the last
+    zero-padded): every cell finite, both LoS verdicts present, the first
+    batch's gains those of ``trace`` + ``path_gain_db`` on its probes,
+    whose trace agrees with the plain query's (slots); then ``run_sweep``
+    over the same probes into a temporary directory: 15 chunks, a resume
+    computes 0, 1 after a chunk is removed, and the chunks' LoS + scatter
+    power is the map's gain.  Seconds and probes a second of each."""
+    cfg = TracerConfig(**COVERAGE_CFG)
+    kw = dict(x_range=(-60.0, 60.0), y_range=(-60.0, 60.0), resolution=2.0,
+              height=1.5, carrier_frequency_ghz=FREQ_GHZ, config=cfg,
+              batch_size=256, device=dev)
+    secs = []
+    for _ in range(2):                  # a cold call, then a warm one
+        t0 = time.perf_counter()
+        grid = coverage_map(host, TX, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    n = grid.gain_db.size
+    check(grid.gain_db.shape == (61, 61) and n == 3721,
+          f"Q: grid {grid.gain_db.shape}")
+    check(bool(np.isfinite(grid.gain_db).all()
+               and np.isfinite(grid.rms_delay).all()), "Q: non-finite cell")
+    check(bool(grid.los_blocked.any() and (~grid.los_blocked).any()),
+          f"Q: los_blocked all {bool(grid.los_blocked.flat[0])}")
+    gx, gy = np.meshgrid(grid.x, grid.y)
+    probes = np.stack([gx.ravel(), gy.ravel(),
+                       np.full(n, 1.5, np.float32)], axis=-1)
+    tris = flatten_scene(host, device=dev)
+    with torch.no_grad():
+        first = {b: trace(tris, probes[:256], TX, carrier_frequency=FREQ_GHZ,
+                          config=dataclasses.replace(cfg, backend=b))
+                 for b in ("auto", "torch")}
+    check(np.array_equal(path_gain_db(first["auto"])[:, 0].cpu().numpy(),
+                         grid.gain_db.ravel()[:256]),
+          "Q: the first batch's gains differ from trace + path_gain_db")
+    agree = {f: slots_agree(getattr(first["torch"].scatter, f),
+                            getattr(first["auto"].scatter, f), f)
+             for f in OUTPUT_FIELDS}
+    del first
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as out_dir:
+        scfg = SweepConfig(output_dir=out_dir, chunk_size=256,
+                           carrier_frequency_ghz=FREQ_GHZ, tracer=cfg)
+        t0 = time.perf_counter()
+        computed = [run_sweep(host, TX, probes, scfg, device=dev)]
+        sweep_s = time.perf_counter() - t0
+        computed.append(run_sweep(host, TX, probes, scfg, device=dev))
+        os.remove(os.path.join(out_dir, "chunk_00007.npz"))
+        computed.append(run_sweep(host, TX, probes, scfg, device=dev))
+        chunks = list(load_sweep_results(out_dir))
+    check(computed == [15, 0, 1], f"Q: sweep computed {computed} chunks")
+    check(len(chunks) == 15 and sum(c["a_te"].shape[0] for c in chunks)
+          == n and chunks[0]["a_te"].shape[1:]
+          == (1, cfg.num_bounces * cfg.num_paths),
+          "Q: sweep chunk shapes")
+    power = np.concatenate([
+        (np.abs(c["los_a_te"]) ** 2).sum(-1)[:, 0]
+        + (np.abs(c["a_te"]) ** 2).sum(-1)[:, 0] for c in chunks])
+    gain = 10.0 * np.log10(np.maximum(power, 1e-30))
+    check(np.allclose(gain, grid.gain_db.ravel(), rtol=1e-5, atol=1e-4),
+          "Q: the sweep's gains differ from the coverage map's")
+    emit(phase="models", probes=n, batches=-(-n // 256),
+         coverage_s=secs[1], coverage_cold_s=secs[0],
+         coverage_probes_per_s=n / secs[1],
+         sweep_s=sweep_s, sweep_probes_per_s=n / sweep_s,
+         sweep_chunks_computed=computed,
+         los_blocked_share=float(grid.los_blocked.mean()),
+         gain_db_range=[float(grid.gain_db.min()),
+                        float(grid.gain_db.max())],
+         first_batch_slot_agreement=agree, gpu=smi())
+
 
 def grads_of_fields(grads):
     return {f: grads[f] for f in MATERIAL_FIELDS}
@@ -2140,7 +2559,9 @@ def main():
                                "dense")
     shade = phase_shade(recorded)
     culled = phase_culled(recorded, tris)
-    del recorded, tris
+    del recorded
+    trans_counts, trans_worst = phase_transmission(tris, dev)
+    del tris
 
     city = phase_city(dev)
     _, walk_timing = phase_walk(city, dev)
@@ -2152,6 +2573,8 @@ def main():
     scatter_city = phase_scatter({"city F": city_scatters}, "F", "sorted")
     del city_gathers, city_scatters
     city_grad_counts = phase_city_grad(city, dev, f_grads)
+    trans_counts["city_nrx1"] = phase_transmission_city(city, dev)
+    phase_models(main_scene, dev)
 
     t = timing["bounce_2^20"]
     rows = [{
@@ -2296,6 +2719,15 @@ def main():
                 + culled["city"]["brute_flips"]}
                if name == "nearest_hit_culled" else {}),
             **({"city": gather["city"]} if name == "gather" else {})})
+    # the transmission steps (O, P) launch kernels of this line too
+    for row in rows:
+        steps = {f"transmission_{k}": c[row["name"]]
+                 for k, c in trans_counts.items()}
+        row["launches_per_step"].update(steps)
+        row["launches"] += sum(steps.values())
+        if row["name"] in trans_worst:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     trans_worst[row["name"]])
     emit(phase="profiler", **PROFILER)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)

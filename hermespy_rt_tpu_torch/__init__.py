@@ -7,8 +7,12 @@ the material-calibration path (``shade="fused"``): each bounce as two fused
 kernels and the whole loop's material backward as one
 (``csrc/bounce_fused.cu``).  The nearest-hit query is a hand-written CUDA
 kernel too (``csrc/intersect.cu``).  Every kernel has a plain torch version
-that CPU tensors use.  Entry points run on the card unless the caller asks
-for the CPU.  This package imports torch and never JAX.
+that CPU tensors use.  The transmission modes (penetration loss, spawned
+transmitted paths, straight or Snell continuation) run on the op path.
+``models`` holds the channel models (impulse responses, narrowband
+coefficients, gains, delay spreads), coverage maps and resumable sweeps,
+``utils`` the input validation.  Entry points run on the card unless
+the caller asks for the CPU.  This package imports torch and never JAX.
 """
 from .api import compute_paths, trace, prepare_scene, load_scene
 from .config import TracerConfig
@@ -17,6 +21,7 @@ from .scene import (HostMesh, HostScene, TriangleSoA, flatten_scene, load_hrt,
                     box_scene, simple_reflector_scene, ground_plane_scene,
                     random_soup_scene)
 from .tracer import ChannelInfo, PathsResult, RaysInfo, trace_paths
+from . import models, utils  # noqa: F401 (subsystem namespaces)
 
 __version__ = "0.1.0"
 

@@ -52,7 +52,10 @@ class TracerConfig:
                    trace warns and runs the op path), or, with
                    ``grad_positions=False`` and ``unroll_bounces``, the
                    whole loop as one node whose material backward is one
-                   kernel.
+                   kernel.  Under ``transmission`` or ``spawn_transmission``
+                   "fused" warns and runs the op path, and "pallas" under
+                   ``spawn_transmission`` runs the shading as torch ops (the
+                   kernel reflects only), as in the JAX package.
       grad_positions: False declares positions, launch geometry and the
                    carrier scalars constants of the backward: only the
                    material table (and the launch state) get gradients.
@@ -90,7 +93,21 @@ class TracerConfig:
                    blocker lies within range, so the walk may stop each
                    shadow ray at its first such hit.  Trace outputs are
                    unchanged; reference parity never uses it (it reads the
-                   nearest occluder's normal).
+                   nearest occluder's normal), nor does ``transmission``
+                   (it reads the nearest blocker's material row).
+      transmission: occlusion with penetration loss (physical parity only):
+                   a blocked LoS path or scatter shadow ray is attenuated
+                   by its nearest blocker's ITU transmission coefficients
+                   (eqs. 31c/31d) instead of zeroed.
+      spawn_transmission: transmission-path spawning (physical parity
+                   only): ray ``i`` follows the reflect/transmit pattern
+                   ``i mod 2**num_bounces`` (bit ``b`` set: pass through the
+                   surface hit at bounce ``b`` with the transmission
+                   coefficients instead of reflecting).
+      refraction:  continuation of a transmitted ray: "straight" (the ITU
+                   slab model) or "snell" (bent by Snell's law into a
+                   medium of index Re(sqrt(eta)); needs
+                   ``spawn_transmission``).
 
     The op path (``shade`` "xla" or "pallas") fetches each hit's payload
     row with the row-gather kernel on a card (``ops/fetch_cuda.py``, whose
@@ -116,6 +133,9 @@ class TracerConfig:
     shadow_any_hit: bool = True
     unroll_bounces: bool = True
     cull: bool = False
+    transmission: bool = False
+    spawn_transmission: bool = False
+    refraction: str = "straight"
 
     @property
     def resolved_launch_order(self) -> str:
@@ -165,3 +185,16 @@ class TracerConfig:
                              f"{self.unroll_bounces!r}")
         if not isinstance(self.cull, bool):
             raise ValueError(f"cull must be a bool, got {self.cull!r}")
+        if self.transmission and self.parity != "physical":
+            raise ValueError("transmission=True requires parity='physical' "
+                             "(the reference semantics zero blocked paths)")
+        if self.spawn_transmission and self.parity != "physical":
+            raise ValueError("spawn_transmission=True requires "
+                             "parity='physical' (the reference has no "
+                             "refraction branch to be parity-faithful to)")
+        if self.refraction not in ("straight", "snell"):
+            raise ValueError("refraction must be 'straight' or 'snell', "
+                             f"got {self.refraction!r}")
+        if self.refraction == "snell" and not self.spawn_transmission:
+            raise ValueError("refraction='snell' only affects transmitted "
+                             "continuations; enable spawn_transmission=True")

@@ -7,7 +7,10 @@ the same operation order:
   and its cached derived quantities;
 * :func:`refl_coefs` — complex TE/TM reflection coefficients (eqs. 31a/31b)
   with the reference's per-component approximation of eq. 33, the
-  total-internal-reflection guard and the ``r = 1 - s`` reduction.
+  total-internal-reflection guard and the ``r = 1 - s`` reduction;
+* :func:`trans_coefs` — complex TE/TM transmission coefficients (eqs.
+  31c/31d) with the same approximation of eq. 33; zero under total internal
+  reflection.
 
 Branches are ``torch.where`` over NaN-safe operands, so gradients with
 respect to the material coefficients stay finite.
@@ -20,7 +23,7 @@ from typing import Tuple
 import torch
 
 __all__ = ["EtaPrecomputed", "ETA_FIELDS", "precompute_eta", "refl_coefs",
-           "complex_sqrt"]
+           "trans_coefs", "complex_sqrt"]
 
 _FLT_EPS = 1.1920928955078125e-07  # __FLT_EPSILON__
 
@@ -127,3 +130,38 @@ def refl_coefs(eta: EtaPrecomputed, cos_t1, sin_t1) -> Tuple[
     r_tm_re = torch.where(tir, 1.0, r_tm_re * eta.r)
     r_tm_im = torch.where(tir, 0.0, r_tm_im * eta.r)
     return r_te_re, r_te_im, r_tm_re, r_tm_im
+
+
+def trans_coefs(eta: EtaPrecomputed, cos_t1, sin_t1) -> Tuple[
+        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Complex (T_TE, T_TM) for per-hit eta rows and incidence angles:
+
+        T_TE = 2 cos(t1) / (cos(t1) + sqrt(eta) cos(t2))
+        T_TM = 2 sqrt(eta) cos(t1) / (sqrt(eta) cos(t1) + cos(t2))
+
+    with :func:`refl_coefs`' approximation of cos(t2); ``T = 0`` under total
+    internal reflection.  Returns ``(t_te_re, t_te_im, t_tm_re, t_tm_im)``.
+    """
+    tir = eta.eta_abs_inv_sqrt * sin_t1 > 1.0 - _FLT_EPS
+
+    sin2 = sin_t1 * sin_t1
+    cos_t2_re = _safe_sqrt(1.0 + eta.eta_inv_re / eta.eta_abs_pow2 * sin2)
+    cos_t2_im = _safe_sqrt(1.0 - eta.eta_inv_im / eta.eta_abs_pow2 * sin2)
+
+    # sqrt(eta) * cos(t2)
+    sec_re = eta.eta_sqrt_re * cos_t2_re - eta.eta_sqrt_im * cos_t2_im
+    sec_im = eta.eta_sqrt_re * cos_t2_im + eta.eta_sqrt_im * cos_t2_re
+    t_te_re, t_te_im = _cdiv(2.0 * cos_t1, torch.zeros_like(cos_t1),
+                             cos_t1 + sec_re, sec_im)
+
+    # sqrt(eta) * cos(t1)
+    sc1_re = eta.eta_sqrt_re * cos_t1
+    sc1_im = eta.eta_sqrt_im * cos_t1
+    t_tm_re, t_tm_im = _cdiv(2.0 * sc1_re, 2.0 * sc1_im,
+                             sc1_re + cos_t2_re, sc1_im + cos_t2_im)
+
+    t_te_re = torch.where(tir, 0.0, t_te_re)
+    t_te_im = torch.where(tir, 0.0, t_te_im)
+    t_tm_re = torch.where(tir, 0.0, t_tm_re)
+    t_tm_im = torch.where(tir, 0.0, t_tm_im)
+    return t_te_re, t_te_im, t_tm_re, t_tm_im

@@ -4,7 +4,10 @@
 Per active ray after its nearest hit: the differentiable hit distance from
 the gathered triangle, the incidence trig, ITU Fresnel reflection with the
 per-segment free-space loss, the complex amplitude update, the specular ray
-update with the 1e-4 self-hit offset, and the mesh-velocity Doppler.
+update with the 1e-4 self-hit offset, and the mesh-velocity Doppler.  Under
+transmission spawning a ray selected by ``transmit`` takes the ITU
+transmission coefficients instead and passes through the surface, straight
+or bent by Snell's law.
 
 :func:`shade_a_plain` is the same chain on the operands of the CUDA kernel
 ``csrc/shade.cu`` (wrapper in :mod:`.shade_cuda`): the payload rows as
@@ -15,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fresnel import ETA_FIELDS, EtaPrecomputed, refl_coefs
+from .fresnel import ETA_FIELDS, EtaPrecomputed, refl_coefs, trans_coefs
 from .geometry import cross3, dot3, fast_acos, reflect3
 from .intersect import FLT_EPS
 
@@ -38,13 +41,15 @@ def split_payload(row, geo=None):
 
 
 def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
-            hit, eta, fslm, k_dop):
+            hit, eta, fslm, k_dop, transmit=None, refraction="straight"):
     """``hit`` is the fetch dict (v0/e1/e2/normal/velocity, [R, 3] each),
     ``eta`` an :class:`~hermespy_rt_tpu_torch.ops.fresnel.EtaPrecomputed` of
-    [R] rows.  Returns ``(o', d', ate_re', ate_im', atm_re', atm_im', tau',
-    freq', theta, cos_t1, ndot, sin_t1, fscale)``: the last two are the
-    residuals at which the fused path's material backward re-evaluates the
-    Fresnel chain."""
+    [R] rows.  ``transmit`` (bool[R] or None) selects per ray the
+    transmitted continuation (``spawn_transmission``), ``refraction``
+    ("straight" or "snell") its direction.  Returns ``(o', d', ate_re',
+    ate_im', atm_re', atm_im', tau', freq', theta, cos_t1, ndot, sin_t1,
+    fscale)``: the last two are the residuals at which the fused path's
+    material backward re-evaluates the Fresnel chain."""
     n = hit["normal"]
     vel = hit["velocity"]
 
@@ -60,6 +65,12 @@ def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
     theta = fast_acos(cos_t1)
 
     r_te_re, r_te_im, r_tm_re, r_tm_im = refl_coefs(eta, cos_t1, sin_t1)
+    if transmit is not None:
+        x_te_re, x_te_im, x_tm_re, x_tm_im = trans_coefs(eta, cos_t1, sin_t1)
+        r_te_re = torch.where(transmit, x_te_re, r_te_re)
+        r_te_im = torch.where(transmit, x_te_im, r_te_im)
+        r_tm_re = torch.where(transmit, x_tm_re, r_tm_re)
+        r_tm_im = torch.where(transmit, x_tm_im, r_tm_im)
     fsl = fslm * t
     fsl2 = fsl * fsl
     big = fsl2 > 1.0
@@ -79,6 +90,21 @@ def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
 
     hitp = o + t[:, None] * d
     d_ref = reflect3(d, n)
+    if transmit is not None:
+        tr = transmit[:, None]
+        if refraction == "snell":
+            # bent at one air -> medium interface of index n = Re(sqrt(eta))
+            # >= 1, so mu = 1/n <= 1 and no total internal reflection on
+            # entry; the oriented normal points against the incident ray
+            mu = 1.0 / torch.clamp(eta.eta_sqrt_re, min=1.0)
+            sgn = torch.where(ndot >= 0.0, -1.0, 1.0)
+            n_in = sgn[:, None] * n
+            cos_t2 = torch.sqrt(torch.clamp(
+                1.0 - mu * mu * (1.0 - cos_t1 * cos_t1), min=0.0))
+            d_t = mu[:, None] * d + (mu * cos_t1 - cos_t2)[:, None] * n_in
+            d_ref = torch.where(tr, d_t, d_ref)
+        else:
+            d_ref = torch.where(tr, d, d_ref)
     o_ref = hitp + 1e-4 * d_ref
     lv = live[:, None]
     o2 = torch.where(lv, o_ref, o)

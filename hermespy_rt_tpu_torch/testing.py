@@ -44,7 +44,8 @@ __all__ = ["ROW_RTOL", "LEAF_RTOL", "LEAF_ATOL", "PATH_GRAD_RTOL",
            "hold_post_bwd", "hold_pre_bwd_slim", "hold_post_bwd_slim",
            "hold_scatter_add", "hold_gather", "hold_shade", "hold_culled",
            "material_table", "calibration_config",
-           "calibration_step", "grad_loss"]
+           "calibration_step", "grad_loss", "TRANSMISSION_MODES",
+           "transmission_config", "transmission_launches"]
 
 # Tier of the fused kernels against their plain versions: decisions equal;
 # value rows within 3e-5 of their row's largest magnitude
@@ -544,3 +545,43 @@ def calibration_step(tris, rx, tx, freq_ghz, mats, cfg, backward=True):
     if torch.device(tris.device).type == "cuda":
         torch.cuda.synchronize()
     return res, loss
+
+
+# the transmission modes as TracerConfig flags
+TRANSMISSION_MODES = {
+    "transmission": dict(transmission=True),
+    "spawn_straight": dict(spawn_transmission=True),
+    "spawn_snell": dict(spawn_transmission=True, refraction="snell")}
+
+
+def transmission_config(paths, bounces, mode, **kw):
+    """The calibration flags of :func:`calibration_config` (op path) under
+    physical parity with the transmission mode ``mode`` (a key of
+    :data:`TRANSMISSION_MODES`)."""
+    return calibration_config(paths, bounces, False,
+                              **{"parity": "physical",
+                                 **TRANSMISSION_MODES[mode], **kw})
+
+
+def transmission_launches(cfg, walk=False):
+    """The launches of one :func:`calibration_step` of ``cfg`` (physical
+    parity, op path, loss of the scatter gains only) on a scene of one
+    material table: one query for the LoS and two a bounce (the walk's
+    prepass and walk each, or the culled or the brute scan); the payload
+    table's eta rows, the LoS blocker's row under ``transmission``, and a
+    bounce's payload rows and (``transmission``) its shadow blockers' rows,
+    one gather each, each but the LoS's summed back by one scatter-add; a
+    shading node a bounce with ``shade="pallas"`` unless rays spawn."""
+    B = cfg.num_bounces
+    queries = 1 + 2 * B
+    per_bounce = 1 + cfg.transmission
+    out = {**{n: 0 for n in KERNELS}, "walk_prepass": 0, "walk": 0,
+           "gather": 1 + cfg.transmission + B * per_bounce,
+           "scatter_add": 1 + B * per_bounce,
+           "shade_a": (B if cfg.shade == "pallas"
+                       and not cfg.spawn_transmission else 0)}
+    if walk:
+        out.update(walk_prepass=queries, walk=queries)
+    else:
+        out["nearest_hit_culled" if cfg.cull else "nearest_hit"] = queries
+    return out

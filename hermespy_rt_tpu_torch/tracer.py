@@ -33,6 +33,14 @@ tiles no ray of a block reaches.
 On the op path every payload fetch is the row-gather kernel, whose backward
 is the scatter-add kernel (``ops/fetch_cuda.py``), and ``shade="pallas"``
 runs each bounce's reflection half as one kernel (``ops/shade_cuda.py``).
+
+The transmission modes run on the op path only, as in the JAX package:
+``transmission`` attenuates a blocked LoS path or shadow ray by its nearest
+blocker's transmission coefficients (so its shadow queries ask for the
+nearest blocker, not any), and ``spawn_transmission`` sends each ray through
+the surfaces its pattern bits select (:func:`transmit_patterns`).
+``shade="fused"`` warns and runs the op path under either, and
+``shade="pallas"`` runs the torch shading under ``spawn_transmission``.
 """
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ from .config import TracerConfig
 from .ops import bounce_fused_cuda as fused_ops
 from .ops.bounce_fused import NORMAL_COL, FusedSpec
 from .ops.fetch_cuda import gather_rows
-from .ops.fresnel import ETA_FIELDS, EtaPrecomputed, precompute_eta
+from .ops.fresnel import (ETA_FIELDS, EtaPrecomputed, precompute_eta,
+                          trans_coefs)
 from .ops.geometry import dot3, fast_acos, fibonacci_sphere
 from .ops.intersect import FLT_EPS, intersect_torch
 from .ops.intersect_cuda import nearest_hit, nearest_hit_culled
@@ -60,7 +69,7 @@ from .ops.walk_cuda import walk_query
 from .scene.model import TriangleSoA, _morton_order
 
 __all__ = ["ChannelInfo", "RaysInfo", "PathsResult", "trace_paths",
-           "LocalSceneAccess", "SPEED_OF_LIGHT", "PI"]
+           "LocalSceneAccess", "transmit_patterns", "SPEED_OF_LIGHT", "PI"]
 
 PI = float(np.float32(np.pi))
 
@@ -98,7 +107,10 @@ class PathsResult:
     scatter: ChannelInfo
     rays_los: Optional[RaysInfo] = None
     rays_scatter: Optional[RaysInfo] = None
-    los_blocked: Optional[torch.Tensor] = None  # bool[NRx, NTx]
+    # the LoS pass's occlusion decision, bool[NRx, NTx]: under transmission
+    # a blocked LoS has a nonzero penetration-loss gain, so blockage must
+    # not be read from |a_te| == 0
+    los_blocked: Optional[torch.Tensor] = None
 
 
 def _select_intersect(cfg: TracerConfig, tris: TriangleSoA):
@@ -222,9 +234,27 @@ def _los_pass(access: LocalSceneAccess, rx_pos, tx_pos, rx_vel, tx_vel, fslm,
     fsl = fslm * dist
     big = fsl > 1.0
     amp = torch.where(big, 1.0 / torch.where(big, fsl, 1.0), 1.0)
-    a_re = torch.where(coincident, 1.0, torch.where(blocked, 0.0, amp))
-    a_im = torch.zeros_like(a_re)
-    tau = torch.where(coincident | blocked, 0.0, dist / SPEED_OF_LIGHT)
+    if cfg.transmission:
+        # a blocked LoS passes through its nearest blocker with the ITU
+        # transmission coefficients (eqs. 31c/31d)
+        hit_b = access.fetch(torch.clamp(idx, min=0))
+        cos1 = torch.clamp(torch.abs(dot3(hit_b["normal"], dn)), 0.0, _CLIP)
+        sin1 = torch.sqrt(1.0 - cos1 * cos1)
+        tte_re, tte_im, ttm_re, ttm_im = trans_coefs(hit_b["eta"], cos1, sin1)
+        bf = blocked.to(torch.float32)
+        te_re = torch.where(coincident, 1.0,
+                            amp * (1.0 + bf * (tte_re - 1.0)))
+        te_im = torch.where(coincident, 0.0, amp * bf * tte_im)
+        tm_re = torch.where(coincident, 1.0,
+                            amp * (1.0 + bf * (ttm_re - 1.0)))
+        tm_im = torch.where(coincident, 0.0, amp * bf * ttm_im)
+        a_te = torch.complex(te_re, te_im)
+        a_tm = torch.complex(tm_re, tm_im)
+        tau = torch.where(coincident, 0.0, dist / SPEED_OF_LIGHT)
+    else:
+        a_re = torch.where(coincident, 1.0, torch.where(blocked, 0.0, amp))
+        a_te = a_tm = torch.complex(a_re, torch.zeros_like(a_re))
+        tau = torch.where(coincident | blocked, 0.0, dist / SPEED_OF_LIGHT)
 
     if cfg.parity == "reference":
         # reference quirk kept for parity: velocity row 0 for every pair
@@ -234,17 +264,17 @@ def _los_pass(access: LocalSceneAccess, rx_pos, tx_pos, rx_vel, tx_vel, fslm,
         txv = tx_vel[None, :, :].expand(nrx, ntx, 3).reshape(-1, 3)
         rxv = rx_vel[:, None, :].expand(nrx, ntx, 3).reshape(-1, 3)
     freq = (dot3(txv, dn) - dot3(rxv, dn)) * k_dop
-    freq = torch.where(coincident | blocked, 0.0, freq)
+    freq = torch.where(coincident if cfg.transmission
+                       else coincident | blocked, 0.0, freq)
 
     x_hat = dn.new_tensor([1.0, 0.0, 0.0])
     dir_tx = torch.where(coincident[:, None], x_hat, dn)
     dir_rx = torch.where(coincident[:, None], -x_hat, -dn)
 
-    a = torch.complex(a_re, a_im).reshape(nrx, ntx, 1)
     los = ChannelInfo(
         directions_rx=dir_rx.reshape(nrx, ntx, 1, 3),
         directions_tx=dir_tx.reshape(nrx, ntx, 1, 3),
-        a_te=a, a_tm=a,
+        a_te=a_te.reshape(nrx, ntx, 1), a_tm=a_tm.reshape(nrx, ntx, 1),
         tau=tau.reshape(nrx, ntx, 1),
         freq_shift=freq.reshape(nrx, ntx, 1),
     )
@@ -290,8 +320,11 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     """One bounce: reflect every active ray off its nearest triangle, then
     scatter a shadow ray from the hit point to every RX.  Returns the new
     state and this bounce's outputs."""
-    o, d, ate_re, ate_im, atm_re, atm_im, tau, act, freq, pidx = state
+    o, d, ate_re, ate_im, atm_re, atm_im, tau, act, freq, pidx, pat = state
     nrx = rx_pos.shape[0]
+    # transmission spawning: bit 0 of the ray's pattern selects "pass
+    # through with the transmission coefficients" at this bounce
+    transmit = (pat & 1) != 0 if cfg.spawn_transmission else None
 
     # nearest hit, excluding the triangle each ray originates on
     _, idx = access.intersect(o, d, exclude=pidx,
@@ -303,11 +336,12 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     hit = access.split_row(row)
     mat_rows = hit["eta"]
     shade_args = (o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live)
-    if cfg.shade == "pallas":
+    if cfg.shade == "pallas" and not cfg.spawn_transmission:
         shaded = shade_a_rows(*shade_args, row, fslm, k_dop,
                               grad_geometry=cfg.grad_geometry)
     else:
-        shaded = shade_a(*shade_args, hit, mat_rows, fslm, k_dop)
+        shaded = shade_a(*shade_args, hit, mat_rows, fslm, k_dop,
+                         transmit=transmit, refraction=cfg.refraction)
     (o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, theta, cos_t1,
      ndot, _, _) = shaded
     n = hit["normal"]
@@ -345,11 +379,12 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     else:
         eps_o = cfg.occlusion_offset
         limit = d2rx.reshape(-1) - 2.0 * eps_o
-        # only `blocked` is read from this query, so the walk may stop each
-        # shadow ray at its first blocker within the limit
-        t_o, idx_o = _shadow_intersect(access, so + eps_o * ds, ds,
-                                       limit.detach(), excl, cfg, live=lv,
-                                       any_hit=cfg.shadow_any_hit)
+        # only `blocked` is read from this query, unless transmission reads
+        # the nearest blocker's row, so the walk may stop each shadow ray at
+        # its first blocker within the limit
+        t_o, idx_o = _shadow_intersect(
+            access, so + eps_o * ds, ds, limit.detach(), excl, cfg, live=lv,
+            any_hit=cfg.shadow_any_hit and not cfg.transmission)
         # in query coordinates the origin is a further eps_o along ds
         t_self_q = t_self.reshape(-1) - eps_o
         self_hit = (crossing.reshape(-1) & (t_self_q > FLT_EPS)
@@ -362,6 +397,15 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
 
     cos_ts = torch.clamp(ds_dot_n, -_CLIP, _CLIP)
     theta_s = fast_acos(cos_ts)
+
+    # physical parity: a reflection re-radiates into the incidence-side
+    # hemisphere, a transmission into the exit side
+    hemi = None
+    if cfg.parity != "reference":
+        hemi = ds_dot_n * ndot[None] < 0.0
+        if cfg.spawn_transmission:
+            hemi = torch.where(transmit[None], ds_dot_n * ndot[None] > 0.0,
+                               hemi)
 
     if cfg.parity == "reference":
         # reference quirk: the shadow query writes its hit angle into the
@@ -381,12 +425,9 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
             cos_used.append(cos_c)
         theta_i_scat = torch.stack(th_used)                    # [NRx, R]
         cos_ti = torch.stack(cos_used)
-        write = live[None] & ~blocked
     else:
         theta_i_scat = theta[None].expand_as(theta_s)
         cos_ti = cos_t1[None].expand_as(theta_s)
-        # a reflection re-radiates into the incidence-side hemisphere
-        write = live[None] & ~blocked & (ds_dot_n * ndot[None] < 0.0)
     sin_ti = torch.sqrt(1.0 - cos_ti * cos_ti)
 
     s_te_re, s_te_im, s_tm_re, s_tm_im = scat_coefs(
@@ -402,6 +443,28 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     fsl_s2 = fsl_s * fsl_s
     big = fsl_s2 > 1.0
     sscale = torch.where(big, 1.0 / torch.where(big, fsl_s2, 1.0), 1.0)
+    if cfg.transmission:
+        # a blocked shadow ray passes through its nearest blocker with the
+        # ITU transmission coefficients instead of being zeroed
+        hit_o = access.fetch(torch.clamp(idx_o, min=0).reshape(nrx, -1))
+        cos1b = torch.clamp(torch.abs(dot3(hit_o["normal"], ds)), 0.0, _CLIP)
+        sin1b = torch.sqrt(1.0 - cos1b * cos1b)
+        tte_re, tte_im, ttm_re, ttm_im = trans_coefs(hit_o["eta"], cos1b,
+                                                     sin1b)
+        bf = blocked.to(torch.float32)
+        fte_re = 1.0 + bf * (tte_re - 1.0)
+        fte_im = bf * tte_im
+        ftm_re = 1.0 + bf * (ttm_re - 1.0)
+        ftm_im = bf * ttm_im
+        out_te_re, out_te_im = (out_te_re * fte_re - out_te_im * fte_im,
+                                out_te_re * fte_im + out_te_im * fte_re)
+        out_tm_re, out_tm_im = (out_tm_re * ftm_re - out_tm_im * ftm_im,
+                                out_tm_re * ftm_im + out_tm_im * ftm_re)
+        write = live[None].expand_as(blocked)
+    else:
+        write = live[None] & ~blocked
+    if hemi is not None:
+        write = write & hemi
     wf = write.to(torch.float32) * sscale
 
     out_te_re, out_te_im = out_te_re * wf, out_te_im * wf
@@ -413,14 +476,19 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     out_dir_rx = torch.where(write[..., None], -ds, 0.0)
 
     state = (o, d, ate_re, ate_im, atm_re, atm_im, tau, live, freq,
-             torch.where(live, idx, -1))
+             torch.where(live, idx, -1),
+             pat >> 1 if cfg.spawn_transmission else pat)
     ys = (out_te_re, out_te_im, out_tm_re, out_tm_im, out_tau, out_freq,
           out_dir_rx, o, d, live)
     return state, ys
 
 
-def launch_state(tx_pos, tx_vel, launch_dirs, k_dop):
-    """Initial per-ray state over the flattened tx-major ray axis."""
+def launch_state(tx_pos, tx_vel, launch_dirs, k_dop, transmit_pattern=None):
+    """Initial per-ray state over the flattened tx-major ray axis.  Its last
+    field is ``transmit_pattern`` (i32[R] or None): bit ``b`` of a ray's
+    word set means it passes through the surface it hits at bounce ``b``;
+    the word is shifted right once a bounce.  The first ten fields are what
+    the fused loop reads (:func:`_launch_rows`)."""
     ntx = tx_pos.shape[0]
     P = launch_dirs.shape[0]
     d0 = launch_dirs.repeat(ntx, 1)                             # [R, 3]
@@ -432,7 +500,19 @@ def launch_state(tx_pos, tx_vel, launch_dirs, k_dop):
     freq0 = dot3(txv0, d0) * k_dop
     act = torch.ones((R,), dtype=torch.bool, device=tx_pos.device)
     pidx0 = torch.full((R,), -1, dtype=torch.int32, device=tx_pos.device)
-    return (o0, d0, ones, zeros, ones, zeros, zeros, act, freq0, pidx0)
+    pat = (None if transmit_pattern is None else torch.as_tensor(
+        transmit_pattern, dtype=torch.int32, device=tx_pos.device))
+    return (o0, d0, ones, zeros, ones, zeros, zeros, act, freq0, pidx0, pat)
+
+
+def transmit_patterns(num_rays: int, num_bounces: int, device=None
+                      ) -> torch.Tensor:
+    """The interaction pattern of each ray for transmission spawning: ray
+    ``i`` follows bit pattern ``i mod 2**B`` (bit b = transmit at bounce b),
+    so every reflect/transmit sequence gets an equal share of the launch
+    set, interleaved over the sphere."""
+    return torch.arange(num_rays, dtype=torch.int32, device=device) % (
+        2 ** num_bounces)
 
 
 def _fused_spec(cfg: TracerConfig, nrx: int) -> FusedSpec:
@@ -549,7 +629,7 @@ class FusedLoopSlim(torch.autograd.Function):
 def _launch_rows(state0):
     """The :func:`launch_state` tuple as the fused loop's operands
     ``(o, d, st [6, R], act, pidx)``."""
-    o, d, ate_re, ate_im, atm_re, atm_im, tau, act, freq, pidx = state0
+    o, d, ate_re, ate_im, atm_re, atm_im, tau, act, freq, pidx = state0[:10]
     return o, d, torch.stack([ate_re, ate_im, atm_re, atm_im, tau, freq]), \
         act, pidx
 
@@ -612,7 +692,14 @@ def fused_loop(cfg: TracerConfig, nrx: int, n_materials: int):
     per-stage nodes up to ``PRE_BWD_MAX_RX`` RX (the full pre backward keeps
     its sums across rays in shared memory); beyond, the op path on the same
     device, with a warning, as the JAX package falls back past its own
-    limits."""
+    limits.  Under ``transmission`` or ``spawn_transmission`` the op path,
+    with a warning, as the JAX package: the fused stages reflect only and
+    zero a blocked shadow ray."""
+    if cfg.transmission or cfg.spawn_transmission:
+        warnings.warn("shade='fused' falling back to the op path: "
+                      "transmission modes run on the op path only",
+                      stacklevel=3)
+        return None
     if cfg.grad_positions:
         if nrx > fused_ops.PRE_BWD_MAX_RX:
             warnings.warn(
@@ -700,7 +787,10 @@ def trace_paths(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
     los, rays_los, los_blocked = _los_pass(access, rx_pos, tx_pos, rx_vel,
                                            tx_vel, fslm, k_dop, cfg)
 
-    state = launch_state(tx_pos, tx_vel, launch_dirs, k_dop)
+    pattern = (transmit_patterns(ntx * P, B, dev) if cfg.spawn_transmission
+               else None)
+    state = launch_state(tx_pos, tx_vel, launch_dirs, k_dop,
+                         transmit_pattern=pattern)
     o0, d0 = state[0], state[1]
     run = (fused_loop(cfg, nrx, access._eta_tab.shape[0])
            if cfg.shade == "fused" else None)

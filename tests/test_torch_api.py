@@ -146,6 +146,12 @@ def test_import_leaves_jax_out():
             " hermespy_rt_tpu_torch.ops.walk,"
             " hermespy_rt_tpu_torch.ops.walk_cuda,"
             " hermespy_rt_tpu_torch.scene.sionna,"
+            " hermespy_rt_tpu_torch.models,"
+            " hermespy_rt_tpu_torch.models.channel,"
+            " hermespy_rt_tpu_torch.models.coverage,"
+            " hermespy_rt_tpu_torch.models.sweep,"
+            " hermespy_rt_tpu_torch.utils,"
+            " hermespy_rt_tpu_torch.utils.validation,"
             " hermespy_rt_tpu_torch.testing, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hermespy_rt_tpu.', "

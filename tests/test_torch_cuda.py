@@ -42,7 +42,14 @@ step on a 5,000-row material table through the per-stage kernels.
 The walk kernel must give the (t, idx) of its plain version and of the
 brute kernel (in any-hit mode the same `blocked`, each reported hit a
 valid one); traces through the walk equal traces through the brute kernel
-bit for bit."""
+bit for bit.
+Under the transmission modes a calibration step makes the launches
+``testing.transmission_launches`` counts, agrees with the same step
+through ``backend="torch"`` (slots; gradients within the op path's tier),
+and every gather, shading call, culled query and scatter-add it records
+holds against its plain version; ``shade="fused"`` warns and gives the op
+path's bits; the walk, answering the shadow queries with the nearest
+blocker, gives the brute scan's trace bit for bit."""
 import dataclasses
 
 import numpy as np
@@ -1297,3 +1304,94 @@ def test_pallas_op_path_matches_op_path(dev, parity):
     checks.leaves_close(grads[True], grads[False], checks.PATH_GRAD_RTOL,
                         checks.LEAF_ATOL, "pallas vs xla op path")
     assert float(grads[True]["v0"].abs().max()) > 0
+
+
+def _transmission_step(dev, tris, cfg, **kw):
+    """One calibration step of ``cfg`` (``replace``d by ``kw``) on the card,
+    its kernel calls recorded.  Returns the result, the material gradients,
+    the calls and the launches."""
+    mats = default_materials(dev)
+    for kern in (*checks.KERNELS.values(), walk, walk_prepass):
+        kern.launches = 0
+    with checks.recording_fused() as calls:
+        res, _ = checks.calibration_step(tris, RX[:2], TX, FREQ, mats,
+                                         dataclasses.replace(cfg, **kw))
+    launches = {n: k.launches for n, k in checks.KERNELS.items()}
+    launches.update(walk=walk.launches, walk_prepass=walk_prepass.launches)
+    return res, checks.grads_of(mats), calls, launches
+
+
+@pytest.mark.parametrize("mode,shade,cull", [
+    ("transmission", "xla", False), ("transmission", "pallas", False),
+    ("transmission", "pallas", True), ("spawn_straight", "pallas", False),
+    ("spawn_snell", "xla", False)])
+def test_transmission_step_matches_torch_backend(dev, mode, shade, cull):
+    """A calibration step under each transmission mode through the kernels:
+    its launches; its written slots and material gradients against the same
+    step through ``backend="torch"`` on the card (the op path's tier); every
+    recorded gather, shading call, culled query and scatter-add against its
+    plain version."""
+    tris, _ = _soup(dev, 17)
+    cfg = checks.transmission_config(1 << 14, 3, mode, shade=shade,
+                                     cull=cull)
+    res_k, g_k, calls, launches = _transmission_step(dev, tris, cfg)
+    res_p, g_p, _, _ = _transmission_step(dev, tris, cfg, backend="torch")
+    assert launches == checks.transmission_launches(cfg)
+    for part in ("los", "scatter"):
+        for f in checks.OUTPUT_FIELDS:
+            checks.slots_agree(getattr(getattr(res_p, part), f),
+                               getattr(getattr(res_k, part), f),
+                               f"{part}.{f}")
+    assert torch.equal(res_k.los_blocked, res_p.los_blocked)
+    checks.leaves_close(g_k, g_p, checks.PATH_GRAD_RTOL, checks.LEAF_ATOL,
+                        f"{mode} kernels vs torch backend")
+    assert float(g_k["a"].abs().max()) > 0
+    for i, (args, out) in enumerate(calls["gather"]):
+        checks.hold_gather(args, out, f"gather{i}")
+    for i, (args, out) in enumerate(calls["shade_a"]):
+        checks.hold_shade(args, out, f"shade_a{i}")
+    for i, (args, _) in enumerate(calls["scatter_add"]):
+        checks.hold_scatter_add(*args, f"scatter_add{i}")
+    for i, (args, (t, idx)) in enumerate(calls["nearest_hit_culled"]):
+        o, d, q_tris, kw = args
+        skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+        t2, i2 = nearest_hit_culled(o, d, q_tris, skipped=skipped, **kw)
+        assert torch.equal(t2, t) and torch.equal(i2, idx)
+        checks.hold_culled(o, d, q_tris, kw, t, idx, int(skipped),
+                           f"culled{i}")
+
+
+@pytest.mark.parametrize("mode", sorted(checks.TRANSMISSION_MODES))
+def test_transmission_fused_warns_and_equals_op_path(dev, mode):
+    tris, _ = _soup(dev, 17)
+    cfg = checks.transmission_config(1 << 14, 3, mode)
+    res_x, g_x, _, n_x = _transmission_step(dev, tris, cfg)
+    with pytest.warns(UserWarning, match="transmission modes"):
+        res_f, g_f, _, n_f = _transmission_step(dev, tris, cfg,
+                                                shade="fused")
+    assert n_f == n_x == checks.transmission_launches(cfg)
+    for part in ("los", "scatter"):
+        for f in checks.OUTPUT_FIELDS:
+            assert torch.equal(getattr(getattr(res_x, part), f),
+                               getattr(getattr(res_f, part), f)), (part, f)
+    assert all(torch.equal(g_x[f], g_f[f]) for f in g_x)
+
+
+def test_transmission_walk_equals_brute(dev):
+    """Under ``transmission`` the walk answers the shadow queries with the
+    nearest blocker (any-hit off): the trace equals the brute scan's bit
+    for bit."""
+    tris = _walk_scene(dev)
+    cfg = checks.transmission_config(1 << 14, 3, "transmission")
+    out = {}
+    for w in (False, True):
+        res, grads, _, launches = _transmission_step(dev, tris, cfg, walk=w)
+        assert launches == checks.transmission_launches(
+            dataclasses.replace(cfg, walk=w), walk=w)
+        out[w] = (res, grads)
+    for part in ("los", "scatter"):
+        for f in checks.OUTPUT_FIELDS:
+            assert torch.equal(getattr(getattr(out[False][0], part), f),
+                               getattr(getattr(out[True][0], part), f)), f
+    assert all(torch.equal(out[False][1][f], out[True][1][f])
+               for f in out[False][1])

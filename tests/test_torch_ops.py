@@ -139,7 +139,9 @@ def test_config_validation():
                 dict(launch_order="random"), dict(ray_chunk=0)):
         with pytest.raises(ValueError):
             TracerConfig(**bad)
-    with pytest.raises(TypeError):   # knobs not ported yet are not accepted
+    with pytest.raises(TypeError):   # knobs not ported are not accepted
+        TracerConfig(tri_shard_table=True)
+    with pytest.raises(ValueError):  # as the JAX package: physical only
         TracerConfig(transmission=True)
     assert TracerConfig().resolved_launch_order == "fibonacci"
     assert (TracerConfig(parity="physical").resolved_launch_order
