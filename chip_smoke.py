@@ -213,6 +213,30 @@ Q. models     -- ``coverage_map`` under ``transmission`` on the canyon
                  after one chunk file is removed, the chunks' power the map's
                  gain); seconds and probes a second of each.
 
+R. sharded   -- two ranks share the card over gloo, each a process of
+                 this script (``--sharded-rank``) that imports the port
+                 only; the kernels are built before they start.  R1 (rays 2
+                 x tris 1): bench.py's step on the canyon stand-in at 2^20
+                 paths, B = 3, nrx 1 and 4, ``shade="fused"``: each rank's
+                 launches (#1 7, #10 3, #11 3, #16 1), the gathered outputs
+                 the single-process step's bits, material gradients within
+                 rtol 1e-5.  R2 (rays 1 x tris 2): the config-5 city, each
+                 rank walking a 65,536-triangle slab, physical parity, 2^20
+                 paths, nrx 1, the op-path forward: launches the single
+                 process's (#6 and #4/#5 7 each), every query's hits after
+                 the lexicographic minimum the single process's, outputs
+                 within the op path's tier; one backward step per payload
+                 table mode (replicated, masked), gradients within rtol
+                 1e-4, every scatter-add held.  Walls (mean of 3 after a
+                 warm-up, min, max) and seconds in collectives: the ranks
+                 share one card, so these show the collectives' cost, not
+                 scaling.
+S. aux        -- ``save_hrt`` -> ``load_hrt`` of the canyon stand-in;
+                 ``hrt-torch-trace`` on it with ``--device cuda --metrics``
+                 (queries a second; its npz ``api.trace``'s arrays, bit for
+                 bit); the native reader and writer against the Python ones
+                 where ``g++`` builds them, else a printed skip of that part.
+
 Then the profiler's windows (each opened on a warm-up cycle and taken
 again while it misses launches; every device time is a window's sum over
 its calls) and the launches they still missed, the kernel summary, the
@@ -221,20 +245,25 @@ it exits non-zero and prints no result.
 """
 import contextlib
 import dataclasses
+import datetime
 import importlib.util
+import io
 import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
                                    default_materials, trace)
@@ -257,6 +286,13 @@ from hermespy_rt_tpu_torch.ops.fetch import gather_plain
 from hermespy_rt_tpu_torch.ops.intersect_cuda import (SOURCE, nearest_hit,
                                                       nearest_hit_culled)
 from hermespy_rt_tpu_torch.ops.shade import shade_a_plain
+from hermespy_rt_tpu_torch.parallel import (TriShardedSceneAccess,
+                                            default_mesh,
+                                            initialize_distributed,
+                                            trace_paths_sharded)
+from hermespy_rt_tpu_torch.parallel.sharding import (COLLECTIVES,
+                                                     collective_route,
+                                                     reset_collectives)
 from hermespy_rt_tpu_torch.ops.walk import (CULL_BLOCK_RAYS, CULL_BLOCK_TRIS,
                                             prepare_walk, prepass_kept_plain,
                                             prepass_plain, query_limits,
@@ -264,7 +300,8 @@ from hermespy_rt_tpu_torch.ops.walk import (CULL_BLOCK_RAYS, CULL_BLOCK_TRIS,
 from hermespy_rt_tpu_torch.scene import (box_scene, flatten_scene, load_hrt,
                                          load_scene, make_city,
                                          random_soup_scene)
-from hermespy_rt_tpu_torch.tracer import trace_paths
+from hermespy_rt_tpu_torch.scene.model import TriangleSoA
+from hermespy_rt_tpu_torch.tracer import launch_directions, trace_paths
 from hermespy_rt_tpu_torch.testing import (
     FUSED, KERNELS, LEAF_ATOL, LEAF_RTOL, OUTPUT_FIELDS, PATH_GRAD_RTOL,
     PLAIN, STAGE_BWD, CheckFailure, check, calibration_config,
@@ -353,7 +390,8 @@ def time_pair(run_k, run_p, reps_k=20, reps_p=3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-PROFILER = dict(windows=0, taken_again=0, missed=0, windows_with_misses=[])
+PROFILER = dict(windows=0, taken_again=0, missed=0, windows_with_misses=[],
+                event_timed=[])
 
 
 def device_window(fn, reps, label):
@@ -376,10 +414,18 @@ def device_ms(fn, reps, kernel=None):
     """Device time in ms per call of ``fn``: the own times of the device
     events (torch.profiler) of ``reps`` calls, only those of ``kernel`` when
     it is named, over ``reps``.  Unlike :func:`time_pair` it leaves out the
-    host's gaps between launches."""
-    ev = device_window(fn, reps, kernel or "whole call").device
-    return sum(event_ms(e) for e in ev
-               if kernel is None or f"{kernel}_kernel" in e.key) / reps
+    host's gaps between launches.  Where every window the profiler took
+    still missed launches, or recorded none of what is measured, the time
+    is :func:`cuda_ms`'s (CUDA events around the calls, host gaps
+    included) and the label is listed in ``PROFILER["event_timed"]``."""
+    label = kernel or "whole call"
+    w = device_window(fn, reps, label)
+    ms = sum(event_ms(e) for e in w.device
+             if kernel is None or f"{kernel}_kernel" in e.key) / reps
+    if w.missed or not ms > 0:
+        PROFILER["event_timed"].append(label)
+        return cuda_ms(fn, reps)
+    return ms
 
 
 def call_profile(fn, reps):
@@ -2225,6 +2271,14 @@ def hold_op_calls(queries, calls, label, assert_flips, ns):
     return held, worst
 
 
+def busy_ratio(prof, base):
+    """The device busy time of one :func:`profile_window` over another's,
+    or None where either window recorded no device events."""
+    if prof.get("device_busy_ms") and base.get("device_busy_ms"):
+        return prof["device_busy_ms"] / base["device_busy_ms"]
+    return None
+
+
 def step_row(step, label):
     """The forward and forward+backward walls (mean of 3 after a warm-up,
     with min and max) and one profiler window over a step."""
@@ -2329,9 +2383,7 @@ def phase_transmission(tris, dev):
         ratio[nrx] = dict(
             wall=tr["fwd_bwd"]["mean_s"] / base["fwd_bwd"]["mean_s"],
             fwd_wall=tr["fwd"]["mean_s"] / base["fwd"]["mean_s"],
-            busy=(tr["profile"]["device_busy_ms"]
-                  / base["profile"]["device_busy_ms"]
-                  if base["profile"].get("device_busy_ms") else None))
+            busy=busy_ratio(tr["profile"], base["profile"]))
     emit(phase="transmission_summary", ratio_to_physical=ratio,
          worst=worst, gpu=smi())
     return counts, worst
@@ -2421,6 +2473,7 @@ def phase_transmission_city(city, dev):
           f"P physical: launches {counts0}")
     row0 = step_row(step0, "P city physical")
     walk_ms = {k: r["profile"]["kernels"]["walk"]["ms"]
+               if "kernels" in r["profile"] else None
                for k, r in (("physical", row0), ("transmission", row))}
     emit(phase="transmission_city", paths=PATHS, bounces=BOUNCES, nrx=1,
          triangles=city.num_triangles, launches=counts, calls_held=held,
@@ -2429,9 +2482,10 @@ def phase_transmission_city(city, dev):
          physical_launches=counts0, walk_ms=walk_ms,
          ratio_to_physical=dict(
              wall=row["fwd_bwd"]["mean_s"] / row0["fwd_bwd"]["mean_s"],
-             busy=(row["profile"]["device_busy_ms"]
-                   / row0["profile"]["device_busy_ms"]),
-             walk=walk_ms["transmission"] / walk_ms["physical"]),
+             busy=busy_ratio(row["profile"], row0["profile"]),
+             walk=(walk_ms["transmission"] / walk_ms["physical"]
+                   if walk_ms["transmission"] and walk_ms["physical"]
+                   else None)),
          gpu=smi())
     return counts
 
@@ -2510,6 +2564,404 @@ def phase_models(host, dev):
          first_batch_slot_agreement=agree, gpu=smi())
 
 
+# --- multi-rank tracing and the host-side modules ---------------------------
+
+SHARDED_TIMEOUT_S = 600
+
+
+def sharded_turns(fn, reps=3):
+    """Walls of ``fn`` (which synchronises) after one warm-up, mean, min
+    and max in seconds, and the seconds and calls spent in collectives a
+    call (``parallel.sharding.COLLECTIVES``, the host clock)."""
+    fn()
+    walls, coll = [], []
+    for _ in range(reps):
+        reset_collectives()
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+        coll.append(dict(COLLECTIVES))
+    return dict(mean_s=sum(walls) / reps, min_s=min(walls),
+                max_s=max(walls),
+                collective_s=sum(c["seconds"] for c in coll) / reps,
+                collective_calls=coll[-1]["calls"],
+                collective_bytes=coll[-1]["bytes"])
+
+
+def max_rel(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def grads_within(g, ref, rtol, label):
+    """Each material leaf elementwise within ``rtol`` and 1e-12
+    (``tests/test_sharding.py``'s form); returns the largest error as a
+    share of its leaf's largest value."""
+    for f in ref:
+        check(torch.allclose(g[f], ref[f], rtol=rtol, atol=1e-12),
+              f"{label}: {f} beyond rtol {rtol}")
+    return max(max_rel(g[f], ref[f]) for f in ref)
+
+
+def sharded_step(tris, rx, tx, mats, cfg, dirs, mesh=None, backward=True):
+    """One trace, single-process or over ``mesh``, the calibration loss
+    (sum |a_te|^2 + |a_tm|^2) 1e9 and its backward to ``mats``."""
+    mats.zero_grad(set_to_none=True)
+    nrx = len(rx)
+    args = (tris, mats, rx, tx, np.zeros((nrx, 3), np.float32),
+            np.zeros((1, 3), np.float32), FREQ_GHZ, cfg)
+    with torch.set_grad_enabled(backward):
+        res = (trace_paths(*args, launch_dirs=dirs) if mesh is None else
+               trace_paths_sharded(*args, mesh=mesh, launch_dirs=dirs))
+        loss = (res.scatter.a_te.abs().square().sum()
+                + res.scatter.a_tm.abs().square().sum()) * 1e9
+        if backward:
+            loss.backward()
+    torch.cuda.synchronize()
+    return res, loss
+
+
+def rank_rays(dev):
+    """R1 on one rank: bench.py's step over a (rays 2 x tris 1) mesh."""
+    mesh = default_mesh(2, 1, device_type=dev.type)
+    host = load_hrt(CANYON) if os.path.exists(CANYON) else random_soup_scene(
+        234, seed=0, extent=90.0, tri_size=8.0)
+    tris = flatten_scene(host, device=dev)
+    dirs = launch_directions(PATHS, "coherent", dev)
+    expected = {**{n: 0 for n in read_counts()}, "nearest_hit": 1 + 2 * BOUNCES,
+                "bounce_pre": BOUNCES, "bounce_post": BOUNCES,
+                "loop_bwd_slim": 1, "gather": 1}
+    out = {}
+    for nrx in (1, 4):
+        cfg = calibration_config(PATHS, BOUNCES, True)
+        rx = rx_positions(nrx)
+        mats = default_materials(dev)
+
+        def step(mesh_=mesh):
+            return sharded_step(tris, rx, TX, mats, cfg, dirs, mesh_)
+
+        step()                                                   # warm-up
+        zero_counts()
+        res, loss = step()
+        counts = read_counts()
+        check(counts == expected,
+              f"R1 nrx={nrx}: launches {counts}, expected {expected}")
+        g = grads_of(mats)
+        ref, ref_loss = step(None)
+        g_ref = grads_of(mats)
+        for part in ("los", "scatter"):
+            for f in OUTPUT_FIELDS:
+                check(torch.equal(getattr(getattr(res, part), f),
+                                  getattr(getattr(ref, part), f)),
+                      f"R1 nrx={nrx}: {part}.{f} differs from the single "
+                      "process")
+        share = grads_within(g, g_ref, 1e-5, f"R1 nrx={nrx}")
+        del res, ref
+        out[nrx] = dict(launches=counts, loss=float(loss.detach()),
+                        single_loss=float(ref_loss.detach()),
+                        grad_max_rel_err=share, outputs_bit_equal=True,
+                        sharded=sharded_turns(step),
+                        single=sharded_turns(lambda: step(None)))
+    return out
+
+
+class QueryLog:
+    """Stands in for a scene access's ``intersect`` for one trace and keeps
+    each answer with its mode."""
+
+    def __init__(self, cls):
+        self.cls, self.saved, self.queries = cls, cls.intersect, []
+
+    def __enter__(self):
+        saved = self.saved
+
+        def intersect(access, o, d, t_max=None, exclude=None, live=None,
+                      any_hit=False):
+            t, idx = saved(access, o, d, t_max=t_max, exclude=exclude,
+                           live=live, any_hit=any_hit)
+            self.queries.append((t, idx, any_hit))
+            return t, idx
+        self.cls.intersect = intersect
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.intersect = self.saved
+
+
+def rank_tris(dev, city_path):
+    """R2 on one rank: the config-5 city over a (rays 1 x tris 2) mesh."""
+    mesh = default_mesh(1, 2, device_type=dev.type)
+    fields = torch.load(city_path)
+    num = int(fields.pop("num_triangles"))
+    tris = TriangleSoA(**{k: v.to(dev) for k, v in fields.items()},
+                       num_triangles=num)
+    dirs = launch_directions(PATHS, "coherent", dev)
+    rx = rx_positions(1, CITY_RX0)
+    cfg = TracerConfig(num_paths=PATHS, num_bounces=BOUNCES,
+                       parity="physical", launch_order="coherent",
+                       compact_rays=True, keep_rays=False)
+    mats = default_materials(dev)
+
+    def fwd(mesh_=mesh):
+        return sharded_step(tris, rx, CITY_TX, mats, cfg, dirs, mesh_,
+                            backward=False)
+
+    fwd()                                                        # warm-up
+    zero_counts()
+    with QueryLog(TriShardedSceneAccess) as log:
+        res, _ = fwd()
+    counts = read_counts()
+    fwd(None)
+    zero_counts()
+    with QueryLog(tracer_module.LocalSceneAccess) as ref_log:
+        ref, _ = fwd(None)
+    ref_counts = read_counts()
+    check(counts == ref_counts and counts["walk"] == 1 + 2 * BOUNCES
+          and counts["walk_prepass"] == 1 + 2 * BOUNCES
+          and counts["nearest_hit"] == 0,
+          f"R2: launches {counts}, single process {ref_counts}")
+    check(len(log.queries) == len(ref_log.queries) == 1 + 2 * BOUNCES,
+          f"R2: {len(log.queries)} queries")
+    hits = []
+    for i, ((t, idx, any_hit), (t_r, idx_r, _)) in enumerate(
+            zip(log.queries, ref_log.queries)):
+        if any_hit:     # any blocker within range: the decision is read
+            same = torch.equal(idx >= 0, idx_r >= 0)
+        else:
+            same = torch.equal(idx, idx_r) and torch.equal(
+                t.view(torch.int32), t_r.view(torch.int32))
+        check(same, f"R2 query {i} (any_hit={any_hit}): hits differ from "
+              "the single process")
+        hits.append(int((idx >= 0).sum()))
+    agree = {f: slots_agree(getattr(ref.scatter, f), getattr(res.scatter, f),
+                            f"R2 {f}") for f in OUTPUT_FIELDS}
+    bit_equal = all(torch.equal(getattr(ref.scatter, f),
+                                getattr(res.scatter, f))
+                    for f in OUTPUT_FIELDS)
+    del log, ref_log, res, ref
+    out = dict(launches=counts, query_hits=hits, slot_agreement=agree,
+               outputs_bit_equal=bit_equal, fwd=sharded_turns(fwd),
+               single_fwd=sharded_turns(lambda: fwd(None)))
+
+    # one op-path backward step per payload-table mode, its scatter-adds
+    # held against their plain version
+    _, _ = sharded_step(tris, rx, CITY_TX, mats, cfg, dirs)
+    g_ref = grads_of(mats)
+    for table in ("auto", True):
+        tcfg = dataclasses.replace(cfg, tri_shard_table=table)
+        zero_counts()
+        with recording_fused() as calls:
+            sharded_step(tris, rx, CITY_TX, mats, tcfg, dirs, mesh)
+            step_counts = read_counts()
+            g = grads_of(mats)
+        worst = 0.0
+        for i, ((idx, gr, T), _) in enumerate(calls["scatter_add"]):
+            err, _ = hold_scatter_add(idx, gr, T, f"R2 {table} scatter{i}")
+            worst = max(worst, err)
+        n_scatter = len(calls["scatter_add"])
+        del calls
+        key = "replicated" if table == "auto" else "masked"
+        out[f"step_{key}"] = dict(
+            launches=step_counts, scatter_calls_held=n_scatter,
+            scatter_max_abs_err=worst,
+            grad_max_rel_err=grads_within(g, g_ref, 1e-4, f"R2 {key}"),
+            wall=sharded_turns(lambda: sharded_step(
+                tris, rx, CITY_TX, mats, tcfg, dirs, mesh)))
+    out["single_step"] = sharded_turns(lambda: sharded_step(
+        tris, rx, CITY_TX, mats, cfg, dirs))
+    return out
+
+
+def sharded_rank(argv):
+    """One of phase R's two ranks (``chip_smoke.py --sharded-rank RANK
+    PORT OUT_DIR``): gloo on the first card, R1 then R2; writes its
+    numbers to ``OUT_DIR/rank<RANK>.json``."""
+    rank, port, out_dir = int(argv[0]), int(argv[1]), argv[2]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend="gloo",
+                           init_method=f"tcp://localhost:{port}",
+                           world_size=2, rank=rank,
+                           timeout=datetime.timedelta(seconds=300))
+    t0 = time.perf_counter()
+    result = dict(rank=rank, backend=dist.get_backend(),
+                  route=collective_route(dist.group.WORLD,
+                                         torch.zeros(1, device=dev)))
+    result["rays"] = rank_rays(dev)
+    result["tris"] = rank_tris(dev, os.path.join(out_dir, "city.pt"))
+    result["seconds"] = time.perf_counter() - t0
+    result["jax_imported"] = any(m == "jax" or m.startswith("jax.")
+                                 for m in sys.modules)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded(city):
+    """R: two ranks share the card over gloo (NCCL refuses two ranks on one
+    device), each a process of this script that imports the port only.  R1
+    (rays 2 x tris 1): bench.py's step on the canyon stand-in at 2^20
+    paths, B = 3, nrx 1 and 4, ``shade="fused"``, backward to the material
+    table: each rank's launches (#1 7, #10 3, #11 3, #16 1, the eta rows'
+    gather 1), the gathered outputs the single-process step's bits, the
+    material gradients within rtol 1e-5 and 1e-12.  R2 (rays 1 x tris 2):
+    the config-5 city (65,536 triangles a slab: each query walks its slab),
+    physical parity, 2^20 paths, nrx 1, the op-path forward: each rank's
+    launches equal the single process's (#6 7, #4/#5 7), every query's
+    hits after the lexicographic minimum the single process's (nearest
+    mode: (t, idx) bits; any-hit shadows: the blocked decisions), outputs
+    within the op path's tier; then one op-path backward step per payload
+    table mode (replicated, masked), gradients within rtol 1e-4, every
+    scatter-add held.  Walls a mean of 3 after a warm-up with min and max,
+    and the seconds in collectives: two ranks on one card measure the
+    collectives' cost, not scaling."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as out_dir:
+        torch.save({**{f: getattr(city, f).cpu() for f in (
+            "v0", "e1", "e2", "normal", "velocity", "material", "mesh_id")},
+            "num_triangles": city.num_triangles},
+            os.path.join(out_dir, "city.pt"))
+        s = socket.socket()
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+        s.close()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             str(r), str(port), out_dir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+            for r in range(2)]
+        logs = [[] for _ in procs]
+        readers = [threading.Thread(target=lambda p=p, log=log: log.extend(
+            p.stdout), daemon=True) for p, log in zip(procs, logs)]
+        for t in readers:
+            t.start()
+        failed = None
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            if time.perf_counter() - t0 > SHARDED_TIMEOUT_S:
+                failed = "timeout"
+            time.sleep(0.2)
+        if failed is None:
+            failed = next((r for r, p in enumerate(procs) if p.returncode),
+                          None)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for t in readers:
+            t.join(timeout=10)
+        check(failed is None, f"R: rank {failed} failed:\n" + "".join(
+            logs[failed if isinstance(failed, int) else 0])[-4000:])
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    check(not any(r["jax_imported"] for r in ranks), "R: a rank imported jax")
+    for k in ("1", "4"):
+        check(ranks[0]["rays"][k]["launches"] == ranks[1]["rays"][k][
+            "launches"], f"R1 nrx={k}: the ranks' launches differ")
+    for k in ("launches", "query_hits"):
+        check(ranks[0]["tris"][k] == ranks[1]["tris"][k],
+              f"R2: the ranks' {k} differ")
+    r0 = ranks[0]
+    emit(phase="sharded", ranks=2, backend=r0["backend"],
+         collective_route=r0["route"],
+         note="two ranks share one card: the walls show the collectives' "
+              "cost, not scaling", seconds=time.perf_counter() - t0,
+         rank_seconds=[r["seconds"] for r in ranks],
+         rays_2x1={k: {**v, "rank1_sharded": ranks[1]["rays"][k]["sharded"]}
+                   for k, v in r0["rays"].items()},
+         tris_1x2=r0["tris"], rank1_tris_fwd=ranks[1]["tris"]["fwd"],
+         gpu=smi())
+    return r0
+
+
+def phase_aux(host, dev):
+    """S: the host-side modules on the card.  ``save_hrt`` then ``load_hrt``
+    of the canyon stand-in (the same meshes); ``hrt-torch-trace`` (the
+    CLI's ``trace_main``) on that file with ``--device cuda --metrics`` at
+    2^20 paths, B = 3, nrx 1: its queries a second, its npz the arrays of
+    ``api.trace`` on the same inputs, bit for bit, and the device time of
+    that ``api.trace`` call (one profiler window); the native (g++) reader
+    and writer against the Python ones where a C++ compiler is on PATH (a
+    library that then fails to build or load fails the phase), else a
+    printed skip of that part alone."""
+    from hermespy_rt_tpu_torch.cli import trace_main
+    from hermespy_rt_tpu_torch.scene import native, save_hrt
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "canyon.hrt")
+        save_hrt(host, path)
+        back = load_hrt(path)
+        check(back.num_meshes == host.num_meshes and all(
+            np.array_equal(a.vertices, b.vertices)
+            and np.array_equal(a.indices, b.indices)
+            and a.material_index == b.material_index
+            and np.array_equal(a.velocity, b.velocity)
+            for a, b in zip(back.meshes, host.meshes)),
+            "S: save_hrt -> load_hrt changed the scene")
+        npz, metrics = (os.path.join(tmp, n) for n in ("p.npz", "m.jsonl"))
+        rx = rx_positions(1)[0]
+        args = [path, "--tx=" + ",".join(map(str, TX[0])),
+                "--rx=" + ",".join(map(str, rx)), "-p", str(PATHS),
+                "-b", str(BOUNCES), "--device", dev.type, "-o", npz,
+                "--metrics", metrics]
+        with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+            check(trace_main(args) == 0, "S: hrt-torch-trace failed")
+        summary = json.loads(cli_out.getvalue())
+        record = json.loads(open(metrics).read().splitlines()[-1])
+
+        def api_trace():
+            with torch.no_grad():
+                return trace(back, [rx], TX, carrier_frequency=3.0,
+                             config=TracerConfig(num_paths=PATHS,
+                                                 num_bounces=BOUNCES),
+                             device=dev)
+        res = api_trace()
+        got = np.load(npz)
+        for part in ("los", "scatter"):
+            for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx",
+                      "directions_tx"):
+                check(np.array_equal(
+                    got[f"{part}_{f}"],
+                    getattr(getattr(res, part), f).cpu().numpy()),
+                    f"S: the CLI's {part}_{f} differs from api.trace's")
+        out["trace_device_s"] = device_ms(api_trace, 3) / 1e3
+        check(out["trace_device_s"] > 0,
+              "S: the profiler saw no device operation of api.trace")
+        out.update(cli_queries_per_s=summary["queries_per_s"],
+                   cli_wall_s=record["wall_s"], cli_queries=record["queries"],
+                   scatter_nonzero=summary["scatter_nonzero"],
+                   npz_equals_trace=True, hrt_roundtrip=True)
+        if native.compiler() is not None:
+            # a library that does not build or load fails the phase here
+            native._get_lib()
+            t0 = time.perf_counter()
+            s_native = native.load_hrt_native(path)
+            out["native_load_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            load_hrt(path)
+            out["python_load_s"] = time.perf_counter() - t0
+            native.save_hrt_native(s_native, os.path.join(tmp, "n.hrt"))
+            check(open(os.path.join(tmp, "n.hrt"), "rb").read()
+                  == open(path, "rb").read(),
+                  "S: the native writer's bytes differ from save_hrt's")
+            check(all(np.array_equal(a.vertices, b.vertices)
+                      and np.array_equal(a.indices, b.indices)
+                      for a, b in zip(s_native.meshes, back.meshes)),
+                  "S: the native reader differs from load_hrt")
+            out["native"] = "held"
+        else:
+            out["native"] = "skipped: no g++ on PATH here"
+    emit(phase="aux", paths=PATHS, bounces=BOUNCES, **out, gpu=smi())
+    return out
+
+
 def grads_of_fields(grads):
     return {f: grads[f] for f in MATERIAL_FIELDS}
 
@@ -2575,6 +3027,9 @@ def main():
     city_grad_counts = phase_city_grad(city, dev, f_grads)
     trans_counts["city_nrx1"] = phase_transmission_city(city, dev)
     phase_models(main_scene, dev)
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(city)
+    phase_aux(main_scene, dev)
 
     t = timing["bounce_2^20"]
     rows = [{
@@ -2728,6 +3183,23 @@ def main():
         if row["name"] in trans_worst:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      trans_worst[row["name"]])
+    # so do phase R's ranks (rank 0's; phase R held rank 1's equal)
+    tris_steps = sharded["tris"]
+    sharded_steps = {
+        **{f"sharded_rays_nrx{k}": v["launches"]
+           for k, v in sharded["rays"].items()},
+        "sharded_tris_fwd": tris_steps["launches"],
+        **{f"sharded_tris_{k}": tris_steps[k]["launches"]
+           for k in ("step_replicated", "step_masked")}}
+    for row in rows:
+        steps = {k: c[row["name"]] for k, c in sharded_steps.items()}
+        row["launches_per_step"].update(steps)
+        row["launches"] += sum(steps.values())
+        if row["name"] == "scatter_add":
+            row["max_abs_err"] = max(
+                row["max_abs_err"],
+                *(tris_steps[k]["scatter_max_abs_err"]
+                  for k in ("step_replicated", "step_masked")))
     emit(phase="profiler", **PROFILER)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
@@ -2738,4 +3210,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(sys.argv[2:]))
     sys.exit(main())

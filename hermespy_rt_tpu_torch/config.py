@@ -108,6 +108,12 @@ class TracerConfig:
                    slab model) or "snell" (bent by Snell's law into a
                    medium of index Re(sqrt(eta)); needs
                    ``spawn_transmission``).
+      tri_shard_table: where the ``[T, 27]`` payload table lives when
+                   ``parallel.trace_paths_sharded`` shards the triangles:
+                   False replicates it, so every hit fetch is a local row
+                   gather with no collective; True fetches from each
+                   rank's slab, owner-masked and summed over the triangle
+                   shards; "auto" replicates up to 2^22 padded triangles.
 
     The op path (``shade`` "xla" or "pallas") fetches each hit's payload
     row with the row-gather kernel on a card (``ops/fetch_cuda.py``, whose
@@ -136,6 +142,7 @@ class TracerConfig:
     transmission: bool = False
     spawn_transmission: bool = False
     refraction: str = "straight"
+    tri_shard_table: "bool | str" = "auto"
 
     @property
     def resolved_launch_order(self) -> str:
@@ -198,3 +205,6 @@ class TracerConfig:
         if self.refraction == "snell" and not self.spawn_transmission:
             raise ValueError("refraction='snell' only affects transmitted "
                              "continuations; enable spawn_transmission=True")
+        if self.tri_shard_table not in (False, True, "auto"):
+            raise ValueError("tri_shard_table must be False, True or "
+                             f"'auto', got {self.tri_shard_table!r}")

@@ -1,10 +1,12 @@
-"""HRT binary scene reader, byte-compatible with the reference serializer.
+"""HRT binary scene reader and writer, byte-compatible with the reference
+serializer.
 
 Layout: magic ``b"HRT"``, ``u32 num_meshes``, then per mesh ``u32
 num_vertices``, ``f32[num_vertices, 3]`` vertices, ``u32 num_triangles``,
 ``u32[num_triangles, 3]`` indices, ``u32 material_index`` and ``f32[3]``
-velocity, little-endian and packed.  Files written by
-:func:`hermespy_rt_tpu.scene.hrt.save_hrt` read back unchanged.
+velocity, little-endian and packed.  :func:`save_hrt` writes the bytes
+:func:`hermespy_rt_tpu.scene.hrt.save_hrt` writes for the same scene, and
+files of either read back unchanged.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 
 from .model import HostMesh, HostScene
 
-__all__ = ["load_hrt", "HrtFormatError"]
+__all__ = ["load_hrt", "save_hrt", "HrtFormatError"]
 
 _MAGIC = b"HRT"
 MAX_MESHES = 1000
@@ -57,3 +59,21 @@ def load_hrt(path_or_file: Union[str, io.IOBase]) -> HostScene:
         meshes.append(HostMesh(vertices=vs.copy(), indices=idx.copy(),
                                material_index=int(mat), velocity=vel))
     return HostScene(meshes=meshes)
+
+
+def save_hrt(scene: HostScene, path_or_file: Union[str, io.IOBase]) -> None:
+    """Write a scene in HRT format (path or binary file object)."""
+    if isinstance(path_or_file, (str, bytes)):
+        with open(path_or_file, "wb") as f:
+            save_hrt(scene, f)
+            return
+    f = path_or_file
+    f.write(_MAGIC)
+    f.write(struct.pack("<I", scene.num_meshes))
+    for m in scene.meshes:
+        f.write(struct.pack("<I", m.num_vertices))
+        f.write(np.ascontiguousarray(m.vertices, dtype="<f4").tobytes())
+        f.write(struct.pack("<I", m.num_triangles))
+        f.write(np.ascontiguousarray(m.indices, dtype="<u4").tobytes())
+        f.write(struct.pack("<I", m.material_index))
+        f.write(np.asarray(m.velocity, dtype="<f4").tobytes())

@@ -58,6 +58,12 @@ class HostScene:
     def num_triangles(self) -> int:
         return sum(m.num_triangles for m in self.meshes)
 
+    def bounding_box(self):
+        """``(lo, hi)``, the corners of the box around every vertex."""
+        lo = np.min([m.vertices.min(0) for m in self.meshes], axis=0)
+        hi = np.max([m.vertices.max(0) for m in self.meshes], axis=0)
+        return lo, hi
+
 
 @dataclasses.dataclass(frozen=True)
 class TriangleSoA:

@@ -44,6 +44,7 @@ the surfaces its pattern bits select (:func:`transmit_patterns`).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import warnings
 from functools import partial
@@ -69,7 +70,9 @@ from .ops.walk_cuda import walk_query
 from .scene.model import TriangleSoA, _morton_order
 
 __all__ = ["ChannelInfo", "RaysInfo", "PathsResult", "trace_paths",
-           "LocalSceneAccess", "transmit_patterns", "SPEED_OF_LIGHT", "PI"]
+           "LocalSceneAccess", "run_bounce_loop", "transmit_patterns",
+           "trace_with",
+           "SPEED_OF_LIGHT", "PI"]
 
 PI = float(np.float32(np.pi))
 
@@ -143,30 +146,51 @@ def _walks(cfg: TracerConfig, tris: TriangleSoA) -> bool:
     return bool(cfg.walk)
 
 
+def payload_table(tris: TriangleSoA, eta: EtaPrecomputed):
+    """``(eta_tab f32[M, 12], material i32[T], table f32[T, 27])``: the
+    per-material eta rows and the per-hit payload table (v0, e1, e2, normal,
+    velocity, then the triangle's eta row).  The eta rows of the triangles
+    come from the row-gather kernel, whose backward sums them per material
+    with the scatter-add kernel (131,072 triangles of 2 materials would
+    serialise in PyTorch's indexing backward)."""
+    eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS], dim=-1)
+    material = tris.material.to(torch.int32)
+    eta_cols = gather_rows(eta_tab, material)                         # [T, 12]
+    table = torch.cat([tris.v0, tris.e1, tris.e2, tris.normal, tris.velocity,
+                       eta_cols], dim=-1)                             # [T, 27]
+    return eta_tab, material, table
+
+
 class LocalSceneAccess:
     """The whole triangle SoA on this device, with the per-hit payload
     (triangle basis, normal, velocity, material eta row) in ONE ``[T, 27]``
     table so that a hit fetch is a single row gather, the per-material eta
     rows ``[M, 12]`` and the int32 triangle materials (the fused path's).
-    When the queries walk, the scene is cut for the walk once, here."""
+    When the queries walk, the scene is cut for the walk once, here.  With
+    ``eta=None`` the access answers queries only and holds no table."""
+
+    tri_sharded = False   # the fused loop needs the whole scene's table
 
     def __init__(self, tris: TriangleSoA, cfg: TracerConfig,
-                 eta: EtaPrecomputed):
+                 eta: Optional[EtaPrecomputed]):
         self.tris = tris
         self.walk = prepare_walk(tris) if _walks(cfg, tris) else None
         self._intersect = (None if self.walk is not None
                            else _select_intersect(cfg, tris))
         self._grad_geometry = cfg.grad_geometry
-        self._eta_tab = torch.stack([getattr(eta, f) for f in ETA_FIELDS],
-                                    dim=-1)                           # [M, 12]
-        self._material = tris.material.to(torch.int32)
-        # each triangle's eta row; the backward sums them per material with
-        # the scatter-add kernel (131,072 triangles of 2 materials would
-        # serialise in PyTorch's indexing backward)
-        eta_cols = gather_rows(self._eta_tab, self._material)         # [T, 12]
-        self._table = torch.cat(
-            [tris.v0, tris.e1, tris.e2, tris.normal, tris.velocity, eta_cols],
-            dim=-1)                                                   # [T, 27]
+        self._eta_tab = self._material = self._table = None
+        if eta is not None:
+            self._eta_tab, self._material, self._table = payload_table(tris,
+                                                                       eta)
+
+    def replicated(self, fn) -> "LocalSceneAccess":
+        """This access with ``fn`` applied to its eta and payload tables,
+        both taken from the ones built here (the scene cut for the walk is
+        shared): the shard body's view of replicated tables, whose backward
+        ``fn`` sums over the ray shards."""
+        other = copy.copy(self)
+        other._eta_tab, other._table = fn(self._eta_tab), fn(self._table)
+        return other
 
     def intersect(self, o, d, t_max=None, exclude=None, live=None,
                   any_hit=False):
@@ -698,19 +722,46 @@ def fused_loop(cfg: TracerConfig, nrx: int, n_materials: int):
     if cfg.transmission or cfg.spawn_transmission:
         warnings.warn("shade='fused' falling back to the op path: "
                       "transmission modes run on the op path only",
-                      stacklevel=3)
+                      stacklevel=6)
         return None
     if cfg.grad_positions:
         if nrx > fused_ops.PRE_BWD_MAX_RX:
             warnings.warn(
                 "shade='fused' falling back to the op path: "
                 f"nrx={nrx} > {fused_ops.PRE_BWD_MAX_RX}, the most RX the "
-                "full pre-stage backward takes", stacklevel=3)
+                "full pre-stage backward takes", stacklevel=6)
             return None
         return run_fused_loop_stages
     if cfg.unroll_bounces and n_materials <= fused_ops.MAX_MATERIALS:
         return run_fused_loop_slim
     return run_fused_loop_stages
+
+
+def run_bounce_loop(access: LocalSceneAccess, rx_pos, state0, fslm, k_dop,
+                    cfg: TracerConfig):
+    """The bounce loop from the :func:`launch_state` tuple, its outputs per
+    bounce in the ``ys`` layout of :func:`assemble_scatter`: the fused loop
+    :func:`fused_loop` picks under ``shade="fused"``, else
+    :func:`bounce_step` per bounce.  Shared by :func:`trace_paths` and the
+    shard body of ``parallel.trace_paths_sharded``, where the fused kernels
+    run per ray shard (they are per-ray maps).  A triangle-sharded access
+    holds no whole-scene table for the fused kernels: ``shade="fused"``
+    then warns and runs the op path, as the JAX package."""
+    run = None
+    if cfg.shade == "fused":
+        if access.tri_sharded:
+            warnings.warn("shade='fused' falling back to the op path: "
+                          "tri-sharded scene access", stacklevel=5)
+        else:
+            run = fused_loop(cfg, rx_pos.shape[0], access._eta_tab.shape[0])
+    if run is not None:
+        return run(access, rx_pos, state0, fslm, k_dop, cfg)
+    ys, state = [], state0
+    for _ in range(cfg.num_bounces):
+        state, y = bounce_step(state, access=access, rx_pos=rx_pos,
+                               fslm=fslm, k_dop=k_dop, cfg=cfg)
+        ys.append(y)
+    return ys
 
 
 def assemble_scatter(ys, d0, o0, nrx, ntx, P, B, keep_rays: bool):
@@ -766,6 +817,26 @@ def trace_paths(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
     """Trace LoS + scatter paths on the device that holds ``tris``.
     Differentiable with respect to ``materials`` (and, with
     ``cfg.grad_geometry``, the triangle payload) through autograd."""
+    return trace_with(tris, materials, rx_pos, tx_pos, rx_vel, tx_vel,
+                      carrier_frequency_ghz, cfg, launch_dirs)
+
+
+def _plain_body(access, rx_pos, fslm, k_dop, state0, relaunch, cfg):
+    return run_bounce_loop(access, rx_pos, state0, fslm, k_dop, cfg)
+
+
+def trace_with(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
+               carrier_frequency_ghz, cfg: TracerConfig,
+               launch_dirs: Optional[torch.Tensor] = None,
+               make_access=None, body=_plain_body) -> PathsResult:
+    """:func:`trace_paths` with its scene access and its bounce loop given:
+    ``make_access(tris, eta)`` builds the access (a
+    :class:`LocalSceneAccess` by default), and ``body(access, rx_pos, fslm,
+    k_dop, state0, relaunch, cfg)`` returns the per-bounce outputs
+    (:func:`run_bounce_loop` on ``state0`` by default).  ``relaunch(wrap)``
+    gives ``(state, wrap(k_dop))``: the :func:`launch_state` tuple again
+    from ``wrap`` of the TX positions, velocities and ``k_dop``.  The LoS
+    pass and the assembly run here, on the access and the raw inputs."""
     dev = tris.device
     f32 = dict(dtype=torch.float32, device=dev)
     rx_pos = torch.as_tensor(rx_pos, **f32).reshape(-1, 3)
@@ -782,26 +853,23 @@ def trace_paths(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
     if launch_dirs is None:
         launch_dirs = launch_directions(P, cfg.resolved_launch_order, dev)
     eta = precompute_eta(materials, carrier_frequency_ghz)
-    access = LocalSceneAccess(tris, cfg, eta)
+    access = (LocalSceneAccess(tris, cfg, eta) if make_access is None
+              else make_access(tris, eta))
 
     los, rays_los, los_blocked = _los_pass(access, rx_pos, tx_pos, rx_vel,
                                            tx_vel, fslm, k_dop, cfg)
 
     pattern = (transmit_patterns(ntx * P, B, dev) if cfg.spawn_transmission
                else None)
-    state = launch_state(tx_pos, tx_vel, launch_dirs, k_dop,
-                         transmit_pattern=pattern)
+
+    def relaunch(wrap):
+        k = wrap(k_dop)
+        return launch_state(wrap(tx_pos), wrap(tx_vel), launch_dirs, k,
+                            transmit_pattern=pattern), k
+
+    state, _ = relaunch(lambda x: x)
     o0, d0 = state[0], state[1]
-    run = (fused_loop(cfg, nrx, access._eta_tab.shape[0])
-           if cfg.shade == "fused" else None)
-    if run is not None:
-        ys = run(access, rx_pos, state, fslm, k_dop, cfg)
-    else:
-        ys = []
-        for _ in range(B):
-            state, y = bounce_step(state, access=access, rx_pos=rx_pos,
-                                   fslm=fslm, k_dop=k_dop, cfg=cfg)
-            ys.append(y)
+    ys = body(access, rx_pos, fslm, k_dop, state, relaunch, cfg)
     scatter, rays_scatter = assemble_scatter(ys, d0, o0, nrx, ntx, P, B,
                                              cfg.keep_rays)
     return PathsResult(los=los, scatter=scatter, rays_los=rays_los,

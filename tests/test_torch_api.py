@@ -152,6 +152,11 @@ def test_import_leaves_jax_out():
             " hermespy_rt_tpu_torch.models.sweep,"
             " hermespy_rt_tpu_torch.utils,"
             " hermespy_rt_tpu_torch.utils.validation,"
+            " hermespy_rt_tpu_torch.utils.profiling,"
+            " hermespy_rt_tpu_torch.parallel,"
+            " hermespy_rt_tpu_torch.parallel.sharding,"
+            " hermespy_rt_tpu_torch.cli, hermespy_rt_tpu_torch.viz,"
+            " hermespy_rt_tpu_torch.scene.native,"
             " hermespy_rt_tpu_torch.testing, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'hermespy_rt_tpu.', "

@@ -1395,3 +1395,44 @@ def test_transmission_walk_equals_brute(dev):
                                getattr(getattr(out[True][0], part), f)), f
     assert all(torch.equal(out[False][1][f], out[True][1][f])
                for f in out[False][1])
+
+
+def test_two_rank_ray_sharded_step_equals_single_process(dev, tmp_path):
+    """``bench.py``'s step at 2^16 paths over two gloo ranks sharing the
+    card (``parallel.trace_paths_sharded``, rays 2 x tris 1): the gathered
+    outputs the single-process step's bits, the material gradients within
+    rtol 1e-5 and 1e-12 (``tests/test_sharding.py:67-70``), on each rank."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import _torch_sharding_worker as worker
+    from hermespy_rt_tpu_torch.ops._cuda_build import LIBRARY
+
+    LIBRARY.build()          # once, before the ranks load it
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests",
+                                      "_torch_sharding_worker.py"),
+         str(r), "2", str(port), "2", "1", str(tmp_path), "cuda",
+         "card_step"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=repo), cwd=repo)
+        for r in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    ref = worker.case_card_step(worker.single, dev)
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        for k, v in ref.items():
+            if k.startswith("d_"):
+                np.testing.assert_allclose(got[f"card_step/{k}"], v,
+                                           rtol=1e-5, atol=1e-12, err_msg=k)
+            else:
+                np.testing.assert_array_equal(got[f"card_step/{k}"], v,
+                                              err_msg=k)

@@ -140,7 +140,10 @@ def test_config_validation():
         with pytest.raises(ValueError):
             TracerConfig(**bad)
     with pytest.raises(TypeError):   # knobs not ported are not accepted
-        TracerConfig(tri_shard_table=True)
+        TracerConfig(precision="exact1")
+    TracerConfig(tri_shard_table=True)
+    with pytest.raises(ValueError):  # as the JAX package: False, True, auto
+        TracerConfig(tri_shard_table="sharded")
     with pytest.raises(ValueError):  # as the JAX package: physical only
         TracerConfig(transmission=True)
     assert TracerConfig().resolved_launch_order == "fibonacci"
