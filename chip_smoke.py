@@ -236,6 +236,23 @@ S. aux        -- ``save_hrt`` -> ``load_hrt`` of the canyon stand-in;
                  (queries a second; its npz ``api.trace``'s arrays, bit for
                  bit); the native reader and writer against the Python ones
                  where ``g++`` builds them, else a printed skip of that part.
+T. bench      -- the step ``hrt-torch-bench`` times (``hermespy_rt_tpu_torch/
+                 bench.py``: bench.py's workload and flags on the port).
+                 T1: ``bench_main([])`` at its defaults (2^21 paths, B = 3,
+                 nrx 1), its line with queries 3 x 2^21 x 2 and a finite,
+                 positive rate.  T2: ``bench.measure`` at 2^20 paths for nrx
+                 1, 4 and 16 (8, 4 and 4 steps, as bench.py runs them), both
+                 shades in turns (bench.py's choice, the other, the other,
+                 the choice, twice): the walls' mean, min and max and the
+                 queries a second; for each (nrx, shade) one step's launches
+                 (counts zeroed just before, read just after) against
+                 ``testing.calibration_launches``, its loss and material
+                 gradients finite and not all zero, its peak device memory,
+                 and one profiler window over one step (busy, device
+                 operations, idle share, per-kernel time).  At nrx 16 and
+                 2^16 paths the fused gradients against the op path's
+                 (``PATH_GRAD_RTOL``) and the scatter slots alike, as phase 7
+                 holds them at nrx 1 and 4.
 
 Then the profiler's windows (each opened on a warm-up cycle and taken
 again while it misses launches; every device time is a window's sum over
@@ -267,6 +284,7 @@ import torch.distributed as dist
 
 from hermespy_rt_tpu_torch import (TracerConfig, compute_paths,
                                    default_materials, trace)
+from hermespy_rt_tpu_torch import bench
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.materials import MATERIAL_FIELDS, MATERIAL_NAMES
 from hermespy_rt_tpu_torch.models import (SweepConfig, coverage_map,
@@ -305,7 +323,7 @@ from hermespy_rt_tpu_torch.tracer import launch_directions, trace_paths
 from hermespy_rt_tpu_torch.testing import (
     FUSED, KERNELS, LEAF_ATOL, LEAF_RTOL, OUTPUT_FIELDS, PATH_GRAD_RTOL,
     PLAIN, STAGE_BWD, CheckFailure, check, calibration_config,
-    calibration_step, grad_loss, grads_of, hold_bwd, hold_culled,
+    calibration_launches, calibration_step, grad_loss, grads_of, hold_bwd, hold_culled,
     hold_gather, hold_post, hold_post_bwd, hold_post_bwd_slim, hold_pre,
     hold_pre_bwd, hold_pre_bwd_slim, hold_scatter_add, hold_shade,
     leaves_close, material_table, recording_fused, slots_agree,
@@ -2962,6 +2980,113 @@ def phase_aux(host, dev):
     return out
 
 
+# --- the bench step that hrt-torch-bench times ------------------------------
+
+BENCH_CLI_PATHS = 1 << 21        # bench_main's default --paths
+BENCH_RUNS = ((1, 8), (4, 4), (16, 4))   # (nrx, steps timed), as bench.py
+
+
+def phase_bench_cli():
+    """T1: ``hrt-torch-bench`` (the CLI's ``bench_main``) at its defaults on
+    the card: its one line, ``queries`` B x 2^21 x (1 + 1), a finite and
+    positive rate."""
+    from hermespy_rt_tpu_torch.cli import bench_main
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        check(bench_main([]) == 0, "T1: hrt-torch-bench failed")
+    line = json.loads(out.getvalue())
+    check(sorted(line) == ["queries", "rays_per_s", "wall_s"],
+          f"T1: keys {sorted(line)}")
+    check(line["queries"] == BOUNCES * BENCH_CLI_PATHS * 2,
+          f"T1: {line['queries']} queries")
+    check(math.isfinite(line["rays_per_s"]) and line["rays_per_s"] > 0,
+          f"T1: rate {line['rays_per_s']}")
+    emit(phase="bench_cli", **line, gpu=smi())
+    return line
+
+
+def bench_checked_step(step, label):
+    """One step of ``step`` (a ``bench.BenchStep``) with the launch counts
+    zeroed just before and read just after, held to
+    ``testing.calibration_launches``; its loss finite and its material
+    gradients finite and not all zero.  Returns ``(launches, loss, largest
+    gradient, peak device memory in bytes)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res, loss = step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    nrx = step.rx.shape[0]
+    expected = {**{n: 0 for n in WALK_KERNELS},
+                **calibration_launches(step.cfg, nrx)}
+    check(counts == expected,
+          f"{label}: launches {counts}, expected {expected}")
+    loss = float(loss.detach())
+    check(math.isfinite(loss) and loss > 0, f"{label}: loss {loss}")
+    check_finite_result(res, label)
+    check(tuple(res.scatter.a_te.shape)
+          == (nrx, 1, step.cfg.num_bounces * step.cfg.num_paths),
+          f"{label}: scatter shape {tuple(res.scatter.a_te.shape)}")
+    g = grads_of(step.mats)
+    check(all(bool(torch.isfinite(v).all()) for v in g.values()),
+          f"{label}: material gradients not finite")
+    gmax = max(float(v.abs().max()) for v in g.values())
+    check(gmax > 0, f"{label}: material gradients all zero")
+    return counts, loss, gmax, torch.cuda.max_memory_allocated()
+
+
+def phase_bench(dev):
+    """T2: bench.measure's walls per (nrx, shade), in turns, beside one
+    held step and one profiler window each; at nrx 16 the fused path
+    against the op path at 2^16 paths.  Returns each step's launches by
+    ``"bench_<shade>_nrx<nrx>"``."""
+    counts = {}
+    for nrx, iters in BENCH_RUNS:
+        choice = bench.shade_for(nrx)
+        other = "xla" if choice == "fused" else "fused"
+        walls = {choice: [], other: []}
+        for shade in (choice, other, other, choice) * 2:
+            _, dt, queries = bench.measure(PATHS, BOUNCES, nrx, iters, dev,
+                                           shade)
+            walls[shade].append(dt)
+        for shade in (choice, other):
+            label = f"T2 {shade} nrx={nrx}"
+            step = bench.BenchStep(PATHS, BOUNCES, nrx, dev, shade)
+            step()                                              # warm-up
+            launches, loss, gmax, peak = bench_checked_step(step, label)
+            counts[f"bench_{shade}_nrx{nrx}"] = launches
+            prof = profile_window(step, label)
+            mean = sum(walls[shade]) / len(walls[shade])
+            emit(phase="bench", nrx=nrx, shade=shade,
+                 bench_choice=shade == choice, paths=PATHS, bounces=BOUNCES,
+                 steps_timed=iters, queries=queries, wall_s=mean,
+                 wall_min_s=min(walls[shade]), wall_max_s=max(walls[shade]),
+                 walls_s=walls[shade], queries_per_s=queries / mean,
+                 launches=launches, loss=loss, grad_abs_max=gmax,
+                 peak_memory_gb=peak / 1e9,
+                 **{k: prof.get(k) for k in ("wall_ms", "device_busy_ms",
+                                             "idle_share", "device_ops",
+                                             "kernels")}, gpu=smi())
+            del step
+        torch.cuda.empty_cache()
+
+    # at nrx 16, the fused path against the op path at 2^16 paths
+    nrx, grads, scat = 16, {}, {}
+    for shade in ("xla", "fused"):
+        step = bench.BenchStep(SMALL_PATHS, BOUNCES, nrx, dev, shade)
+        res, _ = step()
+        grads[shade], scat[shade] = grads_of(step.mats), res.scatter
+    share = leaves_close(grads["fused"], grads["xla"], PATH_GRAD_RTOL,
+                         LEAF_ATOL, f"T2 nrx={nrx}: fused vs op-path gradients")
+    agree = {f: slots_agree(getattr(scat["xla"], f),
+                            getattr(scat["fused"], f), f"T2 nrx={nrx} {f}")
+             for f in OUTPUT_FIELDS}
+    emit(phase="bench_fused_vs_op", nrx=nrx, paths=SMALL_PATHS,
+         grad_vs_op_path_max_leaf_share=share, slot_agreement_2_16=agree)
+    return counts
+
+
 def grads_of_fields(grads):
     return {f: grads[f] for f in MATERIAL_FIELDS}
 
@@ -3030,6 +3155,9 @@ def main():
     torch.cuda.empty_cache()
     sharded = phase_sharded(city)
     phase_aux(main_scene, dev)
+    torch.cuda.empty_cache()
+    phase_bench_cli()
+    bench_counts = phase_bench(dev)
 
     t = timing["bounce_2^20"]
     rows = [{
@@ -3200,6 +3328,11 @@ def main():
                 row["max_abs_err"],
                 *(tris_steps[k]["scatter_max_abs_err"]
                   for k in ("step_replicated", "step_masked")))
+    # and phase T's steps, the bench's
+    for row in rows:
+        steps = {k: c[row["name"]] for k, c in bench_counts.items()}
+        row["launches_per_step"].update(steps)
+        row["launches"] += sum(steps.values())
     emit(phase="profiler", **PROFILER)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)

@@ -1,12 +1,14 @@
 """Command-line entry points of the PyTorch port.
 
-The counterparts of :mod:`hermespy_rt_tpu.cli`'s ``hrt-convert`` and
-``hrt-trace``, with the same flags and npz keys: ``hrt-torch-convert``
-writes a Sionna/Mitsuba XML, PLY or HRT scene as HRT; ``hrt-torch-trace``
-traces one scene and writes the channel as an npz, optionally a PNG of the
-rays and a metrics record (on a card with the device time a trace).
+The counterparts of :mod:`hermespy_rt_tpu.cli`'s ``hrt-convert``,
+``hrt-trace`` and ``hrt-bench``, with the same flags, npz keys and output
+line: ``hrt-torch-convert`` writes a Sionna/Mitsuba XML, PLY or HRT scene as
+HRT; ``hrt-torch-trace`` traces one scene and writes the channel as an npz,
+optionally a PNG of the rays and a metrics record (on a card with the device
+time a trace); ``hrt-torch-bench`` times the material-calibration step of
+:mod:`.bench` and prints ``{"rays_per_s", "wall_s", "queries"}``.
 ``--backend`` takes the port's nearest-hit choices and ``--device`` the
-device to trace on, the card by default.
+device to run on, the card by default.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import sys
 
 import numpy as np
 
-__all__ = ["convert_main", "trace_main"]
+__all__ = ["convert_main", "trace_main", "bench_main"]
 
 
 def convert_main(argv=None):
@@ -142,6 +144,23 @@ def trace_main(argv=None):
         summary["queries_per_s"] = stats.queries_per_s
 
     print(json.dumps(summary))
+    return 0
+
+
+def bench_main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="hrt-torch-bench",
+        description="Throughput of the material-calibration step.")
+    p.add_argument("--paths", type=int, default=1 << 21)
+    p.add_argument("--bounces", type=int, default=3)
+    p.add_argument("--device", default="cuda",
+                   help="device to run on (default cuda)")
+    args = p.parse_args(argv)
+
+    from .bench import measure
+    value, dt, queries = measure(num_paths=args.paths,
+                                 num_bounces=args.bounces, device=args.device)
+    print(json.dumps({"rays_per_s": value, "wall_s": dt, "queries": queries}))
     return 0
 
 

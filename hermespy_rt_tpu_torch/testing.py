@@ -7,19 +7,18 @@ Shared by ``chip_smoke.py`` (on the card) and the tests
 reasons, the comparisons, a recorder of the kernels' calls inside the tracer
 (the fused stages, the row gather, the shading, the culled query and the
 scatter-add), and the material-calibration step of the JAX package's
-``bench.py``.  Imports no JAX.
+``bench.py`` (re-exported from :mod:`.bench`, which ``hrt-torch-bench``
+times).  Imports no JAX.
 """
 from __future__ import annotations
 
 import contextlib
-import warnings
 
 import numpy as np
 import torch
 
 from . import tracer as tracer_module
-from .api import trace
-from .config import TracerConfig
+from .bench import calibration_config, calibration_step
 from .materials import MATERIAL_FIELDS, MaterialTable, default_materials
 from .ops import bounce_fused_cuda as fused_ops
 from .ops import fetch_cuda, shade_cuda
@@ -43,8 +42,8 @@ __all__ = ["ROW_RTOL", "LEAF_RTOL", "LEAF_ATOL", "PATH_GRAD_RTOL",
            "hold_pre", "hold_post", "hold_bwd", "hold_pre_bwd",
            "hold_post_bwd", "hold_pre_bwd_slim", "hold_post_bwd_slim",
            "hold_scatter_add", "hold_gather", "hold_shade", "hold_culled",
-           "material_table", "calibration_config",
-           "calibration_step", "grad_loss", "TRANSMISSION_MODES",
+           "material_table", "calibration_config", "calibration_step",
+           "calibration_launches", "grad_loss", "TRANSMISSION_MODES",
            "transmission_config", "transmission_launches"]
 
 # Tier of the fused kernels against their plain versions: decisions equal;
@@ -515,36 +514,25 @@ def material_table(n, rng, device):
     return MaterialTable(cols, device=device)
 
 
-def calibration_config(paths, bounces, fused, **kw):
-    """``bench.py``'s material-calibration flags on the port: reference
-    parity, compact and coherent rays, no rays kept, no geometry gradient;
-    with ``fused`` the fused path (``shade="fused", grad_positions=False``),
-    else the op path."""
-    base = dict(num_paths=paths, num_bounces=bounces, parity="reference",
-                compact_rays=True, launch_order="coherent", keep_rays=False,
-                grad_geometry=False)
-    if fused:
-        base.update(shade="fused", grad_positions=False)
-    with warnings.catch_warnings():   # coherent order under reference parity
-        warnings.simplefilter("ignore")
-        return TracerConfig(**{**base, **kw})
-
-
-def calibration_step(tris, rx, tx, freq_ghz, mats, cfg, backward=True):
-    """One step: trace, loss (sum |a_te|^2 + |a_tm|^2) 1e9 as ``bench.py``,
-    backward to the material table, on the device that holds the prepared
-    scene ``tris``.  Returns ``(result, loss)``."""
-    mats.zero_grad(set_to_none=True)
-    with torch.set_grad_enabled(backward):
-        res = trace(tris, rx, tx, carrier_frequency=freq_ghz, config=cfg,
-                    materials=mats)
-        loss = (res.scatter.a_te.abs().square().sum()
-                + res.scatter.a_tm.abs().square().sum()) * 1e9
-        if backward:
-            loss.backward()
-    if torch.device(tris.device).type == "cuda":
-        torch.cuda.synchronize()
-    return res, loss
+def calibration_launches(cfg, nrx):
+    """The launches of one :func:`calibration_step` of ``cfg`` at ``nrx``
+    receivers (the bench flags, one TX, one material table, loss of the
+    scatter gains only): one nearest-hit query for the LoS, one a bounce
+    for the bounce rays and one a bounce per group of RX rows of its shadow
+    rays (``tracer.rx_rows_per_query``); with ``shade="fused"``
+    the two fused stages a bounce, the whole-loop material backward once and
+    the gather of the payload table's eta rows; with ``shade="xla"`` that
+    gather, a bounce's payload rows and hit normals, one gather each, and
+    each but the normals' summed back by one scatter-add."""
+    B = cfg.num_bounces
+    groups = nrx // tracer_module.rx_rows_per_query(nrx, cfg.num_paths,
+                                                    cfg.rx_query_rays)
+    out = {**{n: 0 for n in KERNELS}, "nearest_hit": 1 + B * (1 + groups)}
+    if cfg.shade == "fused":
+        out.update(bounce_pre=B, bounce_post=B, loop_bwd_slim=1, gather=1)
+    else:
+        out.update(gather=1 + 2 * B, scatter_add=1 + B)
+    return out
 
 
 # the transmission modes as TracerConfig flags

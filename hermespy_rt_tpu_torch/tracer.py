@@ -310,17 +310,25 @@ def _los_pass(access: LocalSceneAccess, rx_pos, tx_pos, rx_vel, tx_vel, fslm,
     return los, rays, blocked.reshape(nrx, ntx)
 
 
+def rx_rows_per_query(nrx, R, rx_query_rays):
+    """RX rows in one shadow query of ``R`` rays a row: the largest divisor
+    of ``nrx`` whose rows hold at most ``rx_query_rays`` rays, at least one
+    (a bounce's shadow rays take ``nrx`` // this many queries)."""
+    c = max(1, rx_query_rays // R)
+    while nrx % c:
+        c -= 1
+    return c
+
+
 def _shadow_intersect(access, so, ds, t_max, excl, cfg: TracerConfig,
                       live=None, any_hit=False):
     """Shadow-ray nearest hit over the flattened ``[NRx * R]`` axis, in RX
-    groups of at most ``cfg.rx_query_rays`` rays (the largest divisor of NRx
-    that fits), one query per group.  ``so``/``ds`` are [NRx, R, 3];
+    groups of at most ``cfg.rx_query_rays`` rays (:func:`rx_rows_per_query`),
+    one query per group.  ``so``/``ds`` are [NRx, R, 3];
     ``t_max``/``excl``/``live`` flat [NRx * R] or None; ``any_hit`` as in
     :meth:`LocalSceneAccess.intersect`."""
     nrx, R = so.shape[0], so.shape[1]
-    c = max(1, cfg.rx_query_rays // R)          # rx rows per query
-    while nrx % c:
-        c -= 1
+    c = rx_rows_per_query(nrx, R, cfg.rx_query_rays)
     if c >= nrx:
         return access.intersect(so.reshape(-1, 3), ds.reshape(-1, 3),
                                 t_max=t_max, exclude=excl, live=live,

@@ -155,7 +155,8 @@ def test_import_leaves_jax_out():
             " hermespy_rt_tpu_torch.utils.profiling,"
             " hermespy_rt_tpu_torch.parallel,"
             " hermespy_rt_tpu_torch.parallel.sharding,"
-            " hermespy_rt_tpu_torch.cli, hermespy_rt_tpu_torch.viz,"
+            " hermespy_rt_tpu_torch.cli, hermespy_rt_tpu_torch.bench,"
+            " hermespy_rt_tpu_torch.viz,"
             " hermespy_rt_tpu_torch.scene.native,"
             " hermespy_rt_tpu_torch.testing, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

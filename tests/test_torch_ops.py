@@ -11,11 +11,13 @@ import torch
 
 import jax.numpy as jnp
 
+from hermespy_rt_tpu import materials as jmat
 from hermespy_rt_tpu.materials import default_materials as jax_materials
 from hermespy_rt_tpu.ops import fresnel as jfres
 from hermespy_rt_tpu.ops import geometry as jgeo
 from hermespy_rt_tpu.ops.scattering import scat_coefs as jax_scat
 from hermespy_rt_tpu_torch import TracerConfig
+from hermespy_rt_tpu_torch import materials as tmat
 from hermespy_rt_tpu_torch.materials import (MATERIAL_FIELDS, NUM_MATERIALS,
                                              default_materials,
                                              get_material_index)
@@ -64,6 +66,22 @@ def test_material_table():
         assert getattr(t, f).requires_grad
     assert get_material_index("metal") == 13
     assert get_material_index("no_such_material") == 0
+
+
+MATERIAL_IDS = ["AIR", "CONCRETE", "BRICK", "PLASTERBOARD", "WOOD", "GLASS1",
+                "GLASS2", "CEILING_BOARD1", "CEILING_BOARD2", "CHIPBOARD",
+                "PLYWOOD", "MARBLE", "FLOORBOARD", "METAL", "VERY_DRY_GROUND",
+                "MEDIUM_DRY_GROUND", "WET_GROUND"]
+
+
+@pytest.mark.parametrize("name", MATERIAL_IDS)
+def test_material_id_constants_match(name):
+    """Each ``MATERIAL_<NAME>`` id equals the JAX package's and names the
+    same row of ``MATERIAL_NAMES`` and ``MATERIAL_KEYS``."""
+    ours = getattr(tmat, f"MATERIAL_{name}")
+    assert ours == getattr(jmat, f"MATERIAL_{name}")
+    assert tmat.MATERIAL_NAMES[ours] == jmat.MATERIAL_NAMES[ours]
+    assert tmat.MATERIAL_KEYS[name.lower()] == ours
 
 
 @pytest.mark.parametrize("f_ghz", [0.5, 3.0, 28.0, 70.0])

@@ -1,0 +1,303 @@
+"""Golden parity of the PyTorch port against the compiled C reference.
+
+``tests/test_parity.py``'s cases, ``tests/test_parity_fuzz.py``'s three
+random scenes and ``tests/test_materials.py``'s eta globals, each run
+through the port (``compute_paths`` / ``trace`` on the CPU,
+``backend="torch"``) instead of the JAX package, and held to the C oracle
+by the JAX tests' own comparisons (``check_los``, ``check_scatter``,
+``assert_mostly_allclose``) at their tolerances.  Every case skips where the
+reference checkout (``$HERMESPY_RT_REFERENCE``, or the default of
+``tests/utils.py``) is absent."""
+import ctypes
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import hermespy_rt_tpu_torch as hrt
+from hermespy_rt_tpu_torch.materials import default_materials
+from hermespy_rt_tpu_torch.ops.fresnel import precompute_eta
+from tests.oracle.oracle import REFERENCE_DIR, run_reference
+from tests.test_parity import check_los, check_scatter
+from tests.utils import _mt_f64, assert_mostly_allclose, ref_scene_path
+
+Z1 = np.zeros((1, 3), np.float32)
+CHANNEL_FIELDS = ("a_te", "a_tm", "tau", "freq_shift", "directions_rx",
+                  "directions_tx")
+
+
+def _numpy(info):
+    """A ``ChannelInfo`` or ``RaysInfo`` of the port as numpy arrays."""
+    return types.SimpleNamespace(**{
+        f: getattr(info, f).detach().numpy()
+        for f in (CHANNEL_FIELDS if hasattr(info, "a_te")
+                  else ("origins", "directions", "active"))})
+
+
+def port_paths(path, rx, tx, rxv=None, txv=None, f=3.0, P=1000, B=3,
+               **cfg_kw):
+    """The port's ``compute_paths`` on the CPU: ``(los, scatter)``."""
+    rx = np.asarray(rx, np.float32).reshape(-1, 3)
+    tx = np.asarray(tx, np.float32).reshape(-1, 3)
+    los, scat = hrt.compute_paths(path, rx, tx, rxv, txv, f, rx.shape[0],
+                                  tx.shape[0], P, B, device="cpu",
+                                  backend="torch", **cfg_kw)
+    return _numpy(los), _numpy(scat)
+
+
+def run_both(scene_name, rx, tx, rxv=None, txv=None, f=3.0, P=1000, B=3):
+    """``tests/test_parity.py::run_both`` with the port in place of the JAX
+    package: the C reference's result and the port's ``(los, scatter)``."""
+    path = ref_scene_path(scene_name)
+    rx = np.asarray(rx, np.float32).reshape(-1, 3)
+    tx = np.asarray(tx, np.float32).reshape(-1, 3)
+    rxv = np.zeros_like(rx) if rxv is None else np.asarray(
+        rxv, np.float32).reshape(-1, 3)
+    txv = np.zeros_like(tx) if txv is None else np.asarray(
+        txv, np.float32).reshape(-1, 3)
+    ref = run_reference(path, rx, tx, rxv, txv, f, P, B)
+    return (ref, *port_paths(path, rx, tx, rxv, txv, f, P, B))
+
+
+def port_trace(path, rx, tx, P, B, **cfg_kw):
+    with torch.no_grad():
+        return hrt.trace(path, rx, tx, carrier_frequency=3.0,
+                         config=hrt.TracerConfig(num_paths=P, num_bounces=B,
+                                                 backend="torch", **cfg_kw),
+                         device="cpu")
+
+
+def test_simple_reflector_parity():
+    ref, los, scat = run_both("simple_reflector.hrt",
+                              [[0, 0, 0.15]], [[0, 0, 0.151]], P=2000, B=3)
+    check_los(ref, los)
+    check_scatter(ref, scat, freq=True)
+
+
+def test_box_parity_depth2():
+    ref, los, scat = run_both("box.hrt", [[1.0, 2.0, 1.5]], [[-2.0, -1.0, 2.5]],
+                              P=2000, B=2)
+    check_los(ref, los)
+    check_scatter(ref, scat, freq=True)
+
+
+def test_box_parity_depth4_offcenter():
+    ref, los, scat = run_both("box.hrt", [[4.0, -3.0, 0.5]], [[-4.5, 4.0, 4.5]],
+                              P=1500, B=4, f=28.0)
+    check_los(ref, los)
+    check_scatter(ref, scat)
+
+
+def test_2cars_parity_depth3():
+    ref, los, scat = run_both("2cars.hrt", [[5.0, 2.0, 1.0]],
+                              [[-5.0, -2.0, 1.5]], P=2000, B=3, f=70.0)
+    check_los(ref, los)
+    check_scatter(ref, scat)
+
+
+def test_street_canyon_parity():
+    ref, los, scat = run_both("simple_street_canyon_with_cars.hrt",
+                              [[10.0, 5.0, 2.0]], [[-20.0, -10.0, 10.0]],
+                              P=2000, B=3)
+    check_los(ref, los)
+    check_scatter(ref, scat)
+
+
+def test_multi_rx_tx_parity():
+    rx = [[0, 0, 0.15], [0.2, 0.1, 0.3], [-0.3, 0.2, 0.5]]
+    tx = [[0, 0, 0.151], [0.1, -0.2, 0.4]]
+    ref, los, scat = run_both("simple_reflector.hrt", rx, tx, P=500, B=2)
+    check_los(ref, los, freq=False)
+    check_scatter(ref, scat)
+
+
+def test_doppler_parity_single_link():
+    ref, los, scat = run_both("simple_reflector.hrt",
+                              [[0, 0, 0.15]], [[0, 0, 0.151]],
+                              rxv=[[1.0, 2.0, -0.5]], txv=[[-3.0, 0.5, 2.0]],
+                              P=500, B=3)
+    check_los(ref, los, freq=True)
+    check_scatter(ref, scat, freq=True)
+
+
+def test_los_blocked_and_coincident():
+    ref, los, _ = run_both("simple_reflector.hrt",
+                           [[0, 0, 1.0]], [[0, 0, -1.0]], P=100, B=1)
+    assert not ref.los_active[0]
+    assert abs(los.a_te)[0, 0, 0] == 0.0
+    np.testing.assert_allclose(ref.los.a_te, los.a_te)
+    ref2, los2, _ = run_both("simple_reflector.hrt",
+                             [[0, 0, 0.25]], [[0, 0, 0.25]], P=100, B=1)
+    np.testing.assert_allclose(los2.a_te[0, 0, 0], 1.0)
+    np.testing.assert_allclose(ref2.los.a_te[0, 0, 0], 1.0)
+    assert float(los2.tau[0, 0, 0]) == 0.0
+
+
+def test_rays_info_parity_single_tx():
+    P, B = 500, 3
+    path = ref_scene_path("box.hrt")
+    rx = np.array([[1.0, 2.0, 1.5]], np.float32)
+    tx = np.array([[-2.0, -1.0, 2.5]], np.float32)
+    ref = run_reference(path, rx, tx, Z1, Z1, 3.0, P, B)
+    ri = _numpy(port_trace(path, rx, tx, P, B).rays_scatter)
+    ours_o, ours_d = ri.origins[0], ri.directions[0]     # [B+1, P, 3]
+    ref_rays = ref.scat_rays.reshape(-1, P, 6)            # slot-major (tx=0)
+    for slot in range(B + 1):
+        ro, rd = ref_rays[slot, :, :3], ref_rays[slot, :, 3:]
+        if slot == 0:
+            np.testing.assert_allclose(ro, ours_o[0], atol=1e-6)
+            np.testing.assert_allclose(rd, ours_d[0], atol=1e-6)
+        else:
+            act = ri.active[0, slot]
+            assert_mostly_allclose(ro[act], ours_o[slot][act], rtol=1e-4,
+                                   atol=1e-4, max_bad_frac=0.01,
+                                   label=f"rays o slot {slot}")
+            assert_mostly_allclose(rd[act], ours_d[slot][act], rtol=1e-4,
+                                   atol=1e-4, max_bad_frac=0.01,
+                                   label=f"rays d slot {slot}")
+    stride = P // 8 + 1
+    for slot in range(1, B + 1):
+        chunk = ref.scat_active_bits[slot * stride:(slot + 1) * stride]
+        bits = np.unpackbits(chunk, bitorder="little").astype(bool)
+        n = min(P, bits.size)
+        assert (bits[:n] == ri.active[0, slot][:n]).mean() > 0.995
+
+
+def test_physical_mode_runs():
+    path = ref_scene_path("box.hrt")
+    rx = [[1.0, 2.0, 1.5]]
+    tx = [[-2.0, -1.0, 2.5]]
+    _, scat_ref = port_paths(path, rx, tx, P=500, B=2, parity="reference")
+    _, scat_phy = port_paths(path, rx, tx, P=500, B=2, parity="physical")
+    nz_ref = int((np.abs(scat_ref.a_te) > 0).sum())
+    nz_phy = int((np.abs(scat_phy.a_te) > 0).sum())
+    assert nz_phy > 0
+    assert nz_phy <= nz_ref
+
+
+MARGIN = 2e-4
+
+
+def _marginal(tris, o, d, window=None):
+    """``tests/test_parity.py::test_canyon_parity_flips_are_marginal``'s
+    test: is any f64 Möller-Trumbore quantity of the ray ``(o, d)`` within
+    the margin of a decision boundary (a barycentric edge, the shadow
+    window, a near-tie nearest hit)?"""
+    det, u, v, t = _mt_f64(tris, o[None], d[None])
+    det, u, v, t = det[0], u[0], v[0], t[0]
+    near_edge = ((np.abs(u) < MARGIN) | (np.abs(u - 1) < MARGIN)
+                 | (np.abs(v) < MARGIN) | (np.abs(u + v - 1) < MARGIN)
+                 | (np.abs(det) < 1e-5))
+    inside = (u > -MARGIN) & (v > -MARGIN) & (u + v < 1 + MARGIN) & (t > 0)
+    if window is not None and (inside
+                               & (np.abs(t - window) < MARGIN * window)).any():
+        return True
+    if (near_edge & inside).any():
+        return True
+    valid = (u > MARGIN) & (v > MARGIN) & (u + v < 1 - MARGIN) & (t > 1e-7)
+    if window is not None:
+        valid &= t <= window
+    ts = np.sort(t[valid])
+    return len(ts) >= 2 and (ts[1] - ts[0]) < MARGIN * max(ts[0], 1e-9)
+
+
+def test_canyon_parity_flips_are_marginal():
+    """Slots where the port and the C reference disagree on the hit/blocked
+    mask are provably marginal: the bounce-hit decision at some depth, or
+    the slot's shadow occlusion, is within the margin of a boundary."""
+    P, B = 2000, 3
+    rx = [[10.0, 5.0, 2.0]]
+    tx = [[-20.0, -10.0, 10.0]]
+    path = ref_scene_path("simple_street_canyon_with_cars.hrt")
+    ref = run_reference(path, np.asarray(rx, np.float32),
+                        np.asarray(tx, np.float32), Z1, Z1, 3.0, P, B)
+    res = port_trace(path, rx, tx, P, B, keep_rays=True)
+    tiny = 1e-37
+    nz_ref = np.abs(ref.scatter.a_te) > tiny
+    nz_us = np.abs(res.scatter.a_te.numpy()) > tiny
+    flips = (nz_ref != nz_us)[0, 0]          # [B*P]
+    if not flips.any():
+        return
+    soa = hrt.flatten_scene(hrt.load_hrt(path), device="cpu")
+    tris = types.SimpleNamespace(v0=soa.v0.numpy(), e1=soa.e1.numpy(),
+                                 e2=soa.e2.numpy())
+    rays = _numpy(res.rays_scatter)
+    rxp = np.asarray(rx[0], np.float64)
+    unexplained = []
+    for slot in np.where(flips)[0]:
+        b, p = divmod(int(slot), P)
+        ok = any(_marginal(tris, rays.origins[0, bb, p].astype(np.float64),
+                           rays.directions[0, bb, p].astype(np.float64))
+                 for bb in range(b + 1))
+        if not ok:
+            o_s = rays.origins[0, b + 1, p].astype(np.float64)
+            ds = rxp - o_s
+            ds /= np.linalg.norm(ds)
+            ok = _marginal(tris, o_s, ds, window=1.0)
+        if not ok:
+            unexplained.append(int(slot))
+    assert not unexplained, (
+        f"{len(unexplained)}/{flips.sum()} parity mask flips are not "
+        f"provably marginal: slots {unexplained[:10]}")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fuzz_random_scene_parity(seed, tmp_path):
+    """``tests/test_parity_fuzz.py``'s random scenes and configurations (the
+    same draws), built and written by the port."""
+    if not os.path.isdir(REFERENCE_DIR):
+        pytest.skip(f"reference checkout {REFERENCE_DIR} not available")
+    rng = np.random.default_rng(seed)
+    n_tris = int(rng.integers(20, 120))
+    scene = hrt.random_soup_scene(n_tris, seed=seed + 100, extent=20.0,
+                                  tri_size=4.0)
+    path = str(tmp_path / "fuzz.hrt")
+    hrt.save_hrt(scene, path)
+
+    nrx = int(rng.integers(1, 3))
+    ntx = int(rng.integers(1, 3))
+    rx = rng.uniform(-15, 15, (nrx, 3)).astype(np.float32)
+    tx = rng.uniform(-15, 15, (ntx, 3)).astype(np.float32)
+    z_rx, z_tx = np.zeros((nrx, 3), np.float32), np.zeros((ntx, 3), np.float32)
+    P = int(rng.integers(200, 800))
+    B = int(rng.integers(1, 4))
+    f = float(rng.uniform(0.8, 30.0))
+
+    ref = run_reference(path, rx, tx, z_rx, z_tx, f, P, B)
+    los, scat = port_paths(path, rx, tx, z_rx, z_tx, f, P, B)
+    check_los(ref, los, freq=False)
+    check_scatter(ref, scat, max_bad_frac=0.005)
+
+
+# the C struct's columns of each compared eta field
+# (eta_re, eta_sqrt_re, eta_inv_re, eta_inv_sqrt_re, eta_im, eta_sqrt_im,
+#  eta_inv_im, eta_inv_sqrt_im, eta_abs, eta_abs_pow2, eta_abs_inv_sqrt, r)
+ETA_COLUMNS = {"eta_re": 0, "eta_sqrt_re": 1, "eta_inv_re": 2, "eta_im": 4,
+               "eta_sqrt_im": 5, "eta_inv_im": 6, "eta_abs": 8,
+               "eta_abs_pow2": 9, "eta_abs_inv_sqrt": 10, "r": 11}
+
+
+@pytest.mark.parametrize("material", [1, 13])
+@pytest.mark.parametrize("f_ghz", [0.5, 3.0, 28.0, 70.0])
+def test_eta_matches_c_reference(f_ghz, material):
+    """The port's eta rows against the C reference's precomputed globals
+    (``tests/test_materials.py::test_eta_matches_c_reference``, rtol 2e-6)
+    for the two materials ``2cars.hrt`` uses, concrete and metal: only
+    those rows are written by the C precompute."""
+    from tests.oracle import oracle as O
+    scene_path = ref_scene_path("2cars.hrt")
+    lib = O._get_lib()
+    scene = lib.scene_load(scene_path.encode())
+    lib.precompute_materials.argtypes = [ctypes.POINTER(O.Scene),
+                                         ctypes.c_float]
+    lib.precompute_materials(ctypes.byref(scene), ctypes.c_float(f_ghz))
+    arr = np.array((ctypes.c_float * (12 * 17)).in_dll(
+        lib, "g_materials_precomputed")).reshape(17, 12)
+
+    with torch.no_grad():
+        eta = precompute_eta(default_materials("cpu"), f_ghz)
+    got = [float(getattr(eta, f)[material]) for f in ETA_COLUMNS]
+    want = [arr[material, c] for c in ETA_COLUMNS.values()]
+    np.testing.assert_allclose(got, want, rtol=2e-6)
