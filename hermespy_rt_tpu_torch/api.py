@@ -24,6 +24,7 @@ from .materials import MaterialTable, default_materials
 from .scene.model import HostScene, TriangleSoA, flatten_scene
 from .scene.sionna import load_scene
 from .tracer import ChannelInfo, PathsResult, launch_directions, trace_paths
+from .utils.profiling import api_call, span
 
 __all__ = ["compute_paths", "trace", "prepare_scene", "load_scene"]
 
@@ -59,6 +60,7 @@ def _as_f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+@api_call
 def trace(scene: SceneLike,
           rx_positions, tx_positions,
           rx_velocities=None, tx_velocities=None,
@@ -70,33 +72,37 @@ def trace(scene: SceneLike,
     TriangleSoA, on the device that holds it).  Positions, velocities and
     the carrier frequency (GHz) given as tensors keep their autograd
     history, so gradients reach them."""
-    cfg = config or TracerConfig()
-    if not isinstance(scene, TriangleSoA):
-        # Morton-sort large scenes outside reference parity, as the JAX
-        # package does; parity runs keep file order (it decides exact ties)
-        host = scene if isinstance(scene, HostScene) else load_scene(scene)
-        scene = flatten_scene(
-            host, sort_triangles=(cfg.parity != "reference"
-                                  and host.num_triangles >= 4096),
-            device=device)
-    tris = scene  # a prepared TriangleSoA runs on the device that holds it
-    mats = (materials if materials is not None
-            else default_materials(tris.device))
-    rx_pos = _as_f32(rx_positions, tris.device).reshape(-1, 3)
-    tx_pos = _as_f32(tx_positions, tris.device).reshape(-1, 3)
-    rx_vel = (torch.zeros_like(rx_pos) if rx_velocities is None
-              else _as_f32(rx_velocities, tris.device).reshape(-1, 3))
-    tx_vel = (torch.zeros_like(tx_pos) if tx_velocities is None
-              else _as_f32(tx_velocities, tris.device).reshape(-1, 3))
-    dirs = _cached_dirs(cfg.num_paths, cfg.resolved_launch_order,
-                        str(tris.device))
-    freq = (_as_f32(carrier_frequency, tris.device)
-            if isinstance(carrier_frequency, torch.Tensor)
-            else float(carrier_frequency))
+    with span("hrt.prepare"):
+        cfg = config or TracerConfig()
+        if not isinstance(scene, TriangleSoA):
+            # Morton-sort large scenes outside reference parity, as the JAX
+            # package does; parity runs keep file order (it decides exact
+            # ties)
+            host = (scene if isinstance(scene, HostScene)
+                    else load_scene(scene))
+            scene = flatten_scene(
+                host, sort_triangles=(cfg.parity != "reference"
+                                      and host.num_triangles >= 4096),
+                device=device)
+        tris = scene  # a prepared TriangleSoA runs on the device holding it
+        mats = (materials if materials is not None
+                else default_materials(tris.device))
+        rx_pos = _as_f32(rx_positions, tris.device).reshape(-1, 3)
+        tx_pos = _as_f32(tx_positions, tris.device).reshape(-1, 3)
+        rx_vel = (torch.zeros_like(rx_pos) if rx_velocities is None
+                  else _as_f32(rx_velocities, tris.device).reshape(-1, 3))
+        tx_vel = (torch.zeros_like(tx_pos) if tx_velocities is None
+                  else _as_f32(tx_velocities, tris.device).reshape(-1, 3))
+        dirs = _cached_dirs(cfg.num_paths, cfg.resolved_launch_order,
+                            str(tris.device))
+        freq = (_as_f32(carrier_frequency, tris.device)
+                if isinstance(carrier_frequency, torch.Tensor)
+                else float(carrier_frequency))
     return trace_paths(tris, mats, rx_pos, tx_pos, rx_vel, tx_vel, freq, cfg,
                        launch_dirs=dirs)
 
 
+@api_call
 def compute_paths(mesh_filepath: SceneLike,
                   rx_positions, tx_positions,
                   rx_velocities, tx_velocities,
@@ -110,13 +116,15 @@ def compute_paths(mesh_filepath: SceneLike,
     (use :func:`trace` with a :class:`MaterialTable` for gradients).  Extra
     keyword arguments go to :class:`TracerConfig` (e.g.
     ``parity="physical"``, ``backend="torch"``, ``shade="fused"``)."""
-    rx_positions = np.asarray(rx_positions, np.float32).reshape(-1, 3)
-    tx_positions = np.asarray(tx_positions, np.float32).reshape(-1, 3)
-    if rx_positions.shape[0] != num_rx:
-        raise ValueError(f"rx_positions has {rx_positions.shape[0]} rows, expected {num_rx}")
-    if tx_positions.shape[0] != num_tx:
-        raise ValueError(f"tx_positions has {tx_positions.shape[0]} rows, expected {num_tx}")
-    cfg = TracerConfig(num_paths=num_paths, num_bounces=num_bounces, **kwargs)
+    with span("hrt.prepare"):
+        rx_positions = np.asarray(rx_positions, np.float32).reshape(-1, 3)
+        tx_positions = np.asarray(tx_positions, np.float32).reshape(-1, 3)
+        if rx_positions.shape[0] != num_rx:
+            raise ValueError(f"rx_positions has {rx_positions.shape[0]} rows, expected {num_rx}")
+        if tx_positions.shape[0] != num_tx:
+            raise ValueError(f"tx_positions has {tx_positions.shape[0]} rows, expected {num_tx}")
+        cfg = TracerConfig(num_paths=num_paths, num_bounces=num_bounces,
+                           **kwargs)
     # the default material table is made here and nothing outside can reach
     # it, so no autograd graph is kept
     with torch.no_grad():

@@ -4,9 +4,11 @@ The counterparts of :mod:`hermespy_rt_tpu.cli`'s ``hrt-convert``,
 ``hrt-trace`` and ``hrt-bench``, with the same flags, npz keys and output
 line: ``hrt-torch-convert`` writes a Sionna/Mitsuba XML, PLY or HRT scene as
 HRT; ``hrt-torch-trace`` traces one scene and writes the channel as an npz,
-optionally a PNG of the rays and a metrics record (on a card with the device
-time a trace); ``hrt-torch-bench`` times the material-calibration step of
-:mod:`.bench` and prints ``{"rays_per_s", "wall_s", "queries"}``.
+optionally a PNG of the rays, a metrics record (on a card with the device
+time a trace) and a profiler window with the program's spans
+(``--profile DIR``, :func:`.utils.profiling.profile_trace`);
+``hrt-torch-bench`` times the material-calibration step of :mod:`.bench`
+and prints ``{"rays_per_s", "wall_s", "queries"}``.
 ``--backend`` takes the port's nearest-hit choices and ``--device`` the
 device to run on, the card by default.
 """
@@ -75,6 +77,10 @@ def trace_main(argv=None):
     p.add_argument("--render", default=None,
                    help="render scene + rays to this image file")
     p.add_argument("--metrics", default=None, help="append metrics JSONL here")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace once more in a profiler window and write it, "
+                        "the program's spans in it, as a Chrome trace "
+                        "into DIR")
     args = p.parse_args(argv)
 
     tx = _vectors(args.tx)
@@ -87,7 +93,8 @@ def trace_main(argv=None):
     from .api import trace
     from .config import TracerConfig
     from .scene import load_scene
-    from .utils.profiling import device_to_numpy, log_metrics, time_trace
+    from .utils.profiling import (device_to_numpy, log_metrics,
+                                  profile_trace, time_trace)
 
     cfg = TracerConfig(num_paths=args.paths, num_bounces=args.bounces,
                        parity=args.parity, backend=args.backend)
@@ -142,6 +149,11 @@ def trace_main(argv=None):
                                   "device": args.device},
                     path=args.metrics)
         summary["queries_per_s"] = stats.queries_per_s
+
+    if args.profile:
+        with profile_trace(args.profile) as prof:
+            run()
+        summary["profile"] = prof.trace_path
 
     print(json.dumps(summary))
     return 0

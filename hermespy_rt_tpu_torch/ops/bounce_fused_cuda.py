@@ -35,6 +35,8 @@ from typing import Tuple
 import torch
 
 from . import fetch_cuda
+from ..utils.profiling import (LaunchCounter, current_call,
+                               traced_backward)
 from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
                           raise_on)
 from .bounce_fused import (NORMAL_COL, TABLE_COLS, FusedSpec, PostOut, PreOut,
@@ -64,14 +66,14 @@ _TABLE_BYTES_PER_MATERIAL = 4 * len(ETA_FIELDS)
 MAX_MATERIALS = _SMEM_BYTES // _TABLE_BYTES_PER_MATERIAL
 
 
-class BouncePreKernel:
+class BouncePreKernel(LaunchCounter):
     """Wrapper of ``bounce_pre_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.bounce_pre_plain`."""
 
     _ARGTYPES = (_P,) * 9 + (_I, _I, _I, _F) + (_P,) * 14
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("bounce_pre")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, o, d, st, act, idx, table, material,
@@ -111,18 +113,18 @@ class BouncePreKernel:
                            spec.eps_o, *(x.data_ptr() for x in out),
                            torch.cuda.current_stream(dev).cuda_stream)
         raise_on("bounce_pre", err)
-        self.launches += 1
+        self.launched()
         return out
 
 
-class BouncePostKernel:
+class BouncePostKernel(LaunchCounter):
     """Wrapper of ``bounce_post_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.bounce_post_plain`."""
 
     _ARGTYPES = (_P,) * 13 + (_I, _I, _I, _F) + (_P,) * 4
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("bounce_post")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
@@ -158,7 +160,7 @@ class BouncePostKernel:
                            spec.eps_o, *(x.data_ptr() for x in out),
                            torch.cuda.current_stream(dev).cuda_stream)
         raise_on("bounce_post", err)
-        self.launches += 1
+        self.launched()
         return out
 
 
@@ -176,7 +178,7 @@ def loop_bwd_blocks(R: int, threads: int, sms: int) -> int:
     return max(1, min(-(-R // threads), 8 * sms))
 
 
-class LoopBwdSlimKernel:
+class LoopBwdSlimKernel(LaunchCounter):
     """Wrapper of ``loop_bwd_slim_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.loop_bwd_slim_plain`.
     The kernel leaves one partial ``[M, 12]`` table per block; this wrapper
@@ -186,7 +188,7 @@ class LoopBwdSlimKernel:
     _ARGTYPES = (_P, _I) + (_P,) * 6 + (_I, _I, _I, _P, _P, _I, _I, _P)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("loop_bwd_slim")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, eta_tab, st_all, live_all, mat_all,
@@ -225,7 +227,7 @@ class LoopBwdSlimKernel:
                            part.data_ptr(), n_blocks, threads,
                            torch.cuda.current_stream(dev).cuda_stream)
         raise_on("loop_bwd_slim", err)
-        self.launches += 1
+        self.launched()
         return d_st0, part.sum(dim=0)
 
 
@@ -233,7 +235,7 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-class BouncePreBwdKernel:
+class BouncePreBwdKernel(LaunchCounter):
     """Wrapper of ``bounce_pre_bwd_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.bounce_pre_bwd_plain`.
     The kernel leaves per-block partials of ``d_rxp`` and ``d_sc``, summed
@@ -242,7 +244,7 @@ class BouncePreBwdKernel:
     _ARGTYPES = (_P,) * 14 + (_I, _I, _I) + (_P,) * 5 + (_P,)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("bounce_pre_bwd")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, o, d, st, act, idx, table, rx_pos,
@@ -287,14 +289,14 @@ class BouncePreBwdKernel:
                 err = self._fn(*ptrs, R, nrx, pc,
                                *(x.data_ptr() for x in outs), _stream(dev))
             raise_on("bounce_pre_bwd", err)
-            self.launches += 1
+            self.launched()
         d_o, d_d, d_st, d_payload, part = outs
         tot = part.sum(dim=0)
         return (d_o, d_d, d_st, d_payload, tot[:3 * nrx].reshape(nrx, 3),
                 tot[3 * nrx:])
 
 
-class BouncePostBwdKernel:
+class BouncePostBwdKernel(LaunchCounter):
     """Wrapper of ``bounce_post_bwd_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.bounce_post_bwd_plain`.
     The kernel leaves per-block partials of ``d_sc`` in scratch, and its
@@ -303,7 +305,7 @@ class BouncePostBwdKernel:
     _ARGTYPES = (_P,) * 14 + (_I, _I, _I, _F, _I) + (_P,) * 10 + (_P,)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("bounce_post_bwd")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
@@ -352,18 +354,18 @@ class BouncePostBwdKernel:
                                  for x in outs[:-1]), part.data_ptr(),
                                outs[-1].data_ptr(), _stream(dev))
             raise_on("bounce_post_bwd", err)
-            self.launches += 1
+            self.launched()
         return tuple(outs)
 
 
-class BouncePreBwdSlimKernel:
+class BouncePreBwdSlimKernel(LaunchCounter):
     """Wrapper of ``bounce_pre_bwd_slim_kernel``: see
     :func:`.bounce_fused.bounce_pre_bwd_slim_plain`."""
 
     _ARGTYPES = (_P,) * 6 + (_I,) + (_P,) * 2 + (_P,)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("bounce_pre_bwd_slim")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, st, act, idx, table, res, d_st2):
@@ -388,18 +390,18 @@ class BouncePreBwdSlimKernel:
                 err = self._fn(*ptrs, R, *(x.data_ptr() for x in outs),
                                _stream(dev))
             raise_on("bounce_pre_bwd_slim", err)
-            self.launches += 1
+            self.launched()
         return outs
 
 
-class BouncePostBwdSlimKernel:
+class BouncePostBwdSlimKernel(LaunchCounter):
     """Wrapper of ``bounce_post_bwd_slim_kernel``: see
     :func:`.bounce_fused.bounce_post_bwd_slim_plain`."""
 
     _ARGTYPES = (_P,) * 5 + (_I, _I) + (_P,) * 2 + (_P,)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("bounce_post_bwd_slim")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, st2, excl, table, res, d_out):
@@ -423,7 +425,7 @@ class BouncePostBwdSlimKernel:
                 err = self._fn(*ptrs, R, nrx, *(x.data_ptr() for x in outs),
                                _stream(dev))
             raise_on("bounce_post_bwd_slim", err)
-            self.launches += 1
+            self.launched()
         return outs
 
 
@@ -460,7 +462,7 @@ class BouncePreFn(torch.autograd.Function):
     def forward(ctx, spec, o, d, st, act, idx, table, material, rx_pos, sc):
         out = bounce_pre(spec, o, d, st, act, idx, table, material, rx_pos,
                          sc)
-        ctx.spec = spec
+        ctx.spec, ctx.call = spec, current_call()
         ctx.save_for_backward(o, d, st, act, idx, table, rx_pos, sc, out.res,
                               out.excl)
         ctx.mark_non_differentiable(out.sh_o, out.t_self, out.crossing,
@@ -468,6 +470,7 @@ class BouncePreFn(torch.autograd.Function):
         return tuple(out)
 
     @staticmethod
+    @traced_backward
     def backward(ctx, d_o2, d_d2, d_st2, d_ex, _d_sh_o, d_sh_d, d_d2rx, *_):
         spec = ctx.spec
         o, d, st, act, idx, table, rx_pos, sc, res, excl = ctx.saved_tensors
@@ -499,13 +502,14 @@ class BouncePostFn(torch.autograd.Function):
                 live, t_o, idx_o, table, sc):
         out = bounce_post(spec, d2, st2, ex, sh_d, d2rx, t_self, crossing,
                           excl, live, t_o, idx_o, table, sc)
-        ctx.spec = spec
+        ctx.spec, ctx.call = spec, current_call()
         ctx.save_for_backward(d2, st2, ex, sh_d, d2rx, t_self, crossing,
                               excl, live, t_o, idx_o, table, sc, out.res)
         ctx.mark_non_differentiable(out.write, out.res)
         return tuple(out)
 
     @staticmethod
+    @traced_backward
     def backward(ctx, d_out, *_):
         spec = ctx.spec
         (d2, st2, ex, sh_d, d2rx, t_self, crossing, excl, live, t_o, idx_o,

@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import LaunchCounter
 from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
                           raise_on)
 from .fetch import (dense_plan, gather_plain, gather_plan, scatter_add_plain,
@@ -57,14 +58,14 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-class GatherKernel:
+class GatherKernel(LaunchCounter):
     """Wrapper of ``gather_kernel``: one launch of :func:`.gather_plan`'s
     persistent grid."""
 
     _ARGTYPES = (_P, _I, _I, _I, _I, _P, _L, _I, _P, _I, _I, _P)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("gather")
         self._fn = None
         self._sm_count = {}
 
@@ -98,14 +99,14 @@ class GatherKernel:
                            plan.full_groups, plan.tail_rows, out.data_ptr(),
                            int(plan.staged), plan.blocks, _stream(dev))
         raise_on("gather", err)
-        self.launches += 1
+        self.launched()
         return out
 
 
 gather = GatherKernel()
 
 
-class ScatterAddKernel:
+class ScatterAddKernel(LaunchCounter):
     """Wrapper of ``scatter_add_kernel_partials`` and ``_sum`` (the dense
     route) and of ``scatter_add_kernel_sorted`` (the sorted route, one
     launch per level)."""
@@ -115,7 +116,7 @@ class ScatterAddKernel:
                         _P)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("scatter_add")
         self._fns = {}
         self._smem_optin = {}
 
@@ -181,7 +182,7 @@ class ScatterAddKernel:
                     scratch_g.data_ptr(), scratch_keys.data_ptr(),
                     _stream(dev))
         raise_on("scatter_add", err)
-        self.launches += 1
+        self.launched()
         return out
 
 

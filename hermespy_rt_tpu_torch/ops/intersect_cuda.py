@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import LaunchCounter
 from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
                           raise_on)
 from .intersect import T_MAX, intersect_torch
@@ -90,13 +91,13 @@ def _launch_operands(name, o, d, tris, exclude, t_max, live, records):
     return dev, records, head, tail
 
 
-class NearestHitKernel:
+class NearestHitKernel(LaunchCounter):
     """Launch wrapper of the nearest-hit kernel (one per process)."""
 
     _ARGTYPES = (_P, _P, _P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("nearest_hit")
         self._fn = None
         self._n_sm = {}
 
@@ -130,20 +131,20 @@ class NearestHitKernel:
                            t_out.data_ptr(), idx_out.data_ptr(),
                            torch.cuda.current_stream(dev).cuda_stream)
         raise_on("nearest_hit", err)
-        self.launches += 1
+        self.launched()
         return t_out, idx_out
 
 
 nearest_hit = NearestHitKernel()
 
 
-class NearestHitCulledKernel:
+class NearestHitCulledKernel(LaunchCounter):
     """Launch wrapper of the culled nearest-hit kernel (one per process)."""
 
     _ARGTYPES = (_P, _P, _P, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P)
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("nearest_hit_culled")
         self._fn = None
 
     def __call__(self, o: torch.Tensor, d: torch.Tensor, tris,
@@ -183,7 +184,7 @@ class NearestHitCulledKernel:
                 None if skipped is None else skipped.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         raise_on("nearest_hit_culled", err)
-        self.launches += 1
+        self.launched()
         return t_out, idx_out
 
 

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import LaunchCounter
 from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
                           raise_on)
 from .bounce_fused import TABLE_COLS
@@ -33,13 +34,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _F32 = torch.float32
 
 
-class ShadeAKernel:
+class ShadeAKernel(LaunchCounter):
     """Wrapper of ``shade_a_kernel`` (one per process)."""
 
     _ARGTYPES = (_P,) * 6 + (_I,) + (_P,) * 5
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("shade_a")
         self._fn = None
 
     def __call__(self, o, d, st, live, row, sc):
@@ -64,7 +65,7 @@ class ShadeAKernel:
             err = self._fn(*ptrs, R, *(x.data_ptr() for x in out),
                            torch.cuda.current_stream(dev).cuda_stream)
         raise_on("shade_a", err)
-        self.launches += 1
+        self.launched()
         return out
 
 

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import LaunchCounter
 from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
                           raise_on)
 from .walk import (MAX_BOXES, WALK_BLOCK_RAYS, SceneWalk, prepass_plain,
@@ -48,11 +49,11 @@ def _on_card(name, x):
     return True
 
 
-class WalkPrepassKernel:
+class WalkPrepassKernel(LaunchCounter):
     """Launch wrapper of the prepass kernel (one per process)."""
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("walk_prepass")
         self._fn = None
 
     def __call__(self, o: torch.Tensor, d: torch.Tensor, lim: torch.Tensor,
@@ -90,15 +91,15 @@ class WalkPrepassKernel:
             err = self._fn(o.data_ptr(), d.data_ptr(), lim.data_ptr(), R, n_rt,
                            boxes.data_ptr(), C, visits.data_ptr(), stream)
         raise_on("walk_prepass", err)
-        self.launches += 1
+        self.launched()
         return visits
 
 
-class WalkKernel:
+class WalkKernel(LaunchCounter):
     """Launch wrapper of the walk kernel (one per process)."""
 
     def __init__(self):
-        self.launches = 0
+        super().__init__("walk")
         self._fn = None
 
     def __call__(self, o: torch.Tensor, d: torch.Tensor, lim: torch.Tensor,
@@ -156,7 +157,7 @@ class WalkKernel:
                 order.data_ptr(), t_out.data_ptr(), idx_out.data_ptr(),
                 stream)
         raise_on("walk", err)
-        self.launches += 1
+        self.launched()
         return t_out, idx_out
 
 

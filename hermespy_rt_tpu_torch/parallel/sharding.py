@@ -35,7 +35,8 @@ returns one global array.
   tensors for ``all_gather`` and ``all_reduce`` and copies them through the
   host itself (:func:`collective_route`); the kernels still run on the
   card.  :data:`COLLECTIVES` counts the calls, bytes and host seconds spent
-  in the collectives.
+  in the collectives (under NCCL the seconds are the enqueue alone), and
+  each is a span ``hrt.collective`` of the recorder.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ from ..ops.walk import CULL_BLOCK_TRIS, WALK_BLOCK_TRIS
 from ..scene.model import TriangleSoA
 from ..tracer import (LocalSceneAccess, PathsResult, payload_table,
                       run_bounce_loop, trace_with)
+from ..utils.profiling import CounterView, count, span
 
 __all__ = ["default_mesh", "trace_paths_sharded", "TriShardedSceneAccess",
            "initialize_distributed", "collective_route", "COLLECTIVES",
@@ -66,7 +68,10 @@ TRI_TILE = max(WALK_BLOCK_TRIS, CULL_BLOCK_TRIS)
 # padded triangles (108 bytes a triangle), as the JAX package
 REPLICATE_TABLE_MAX = 1 << 22
 
-COLLECTIVES = dict(calls=0, bytes=0, seconds=0.0)
+COLLECTIVES = CounterView("collective", calls=0, bytes=0, seconds=0.0)
+"""The collectives' calls, bytes and seconds, a view of the recorder's
+counters ``collective.*``.  ``seconds`` is host time: under gloo the whole
+exchange, under NCCL only its enqueue (the device work runs on after)."""
 
 
 def reset_collectives():
@@ -133,12 +138,13 @@ def _counted(fn, x, group):
     """``fn(x)`` on ``x`` detached and contiguous, counted in
     :data:`COLLECTIVES` (the bytes each rank's tensor carries, times the
     group's size)."""
-    t0 = time.perf_counter()
-    y = x.detach().contiguous()
-    out = fn(y)
-    COLLECTIVES["calls"] += 1
-    COLLECTIVES["bytes"] += y.numel() * y.element_size() * group.size()
-    COLLECTIVES["seconds"] += time.perf_counter() - t0
+    with span("hrt.collective"):
+        t0 = time.perf_counter()
+        y = x.detach().contiguous()
+        out = fn(y)
+        count("collective.calls")
+        count("collective.bytes", y.numel() * y.element_size() * group.size())
+        count("collective.seconds", time.perf_counter() - t0)
     return out
 
 

@@ -68,6 +68,8 @@ from .ops.shade_cuda import shade_a_rows
 from .ops.walk import cull_boxes, prepare_walk, triangle_records
 from .ops.walk_cuda import walk_query
 from .scene.model import TriangleSoA, _morton_order
+from .utils.profiling import (api_call, current_call, open_span, span,
+                              traced_backward)
 
 __all__ = ["ChannelInfo", "RaysInfo", "PathsResult", "trace_paths",
            "LocalSceneAccess", "run_bounce_loop", "transmit_patterns",
@@ -327,24 +329,25 @@ def _shadow_intersect(access, so, ds, t_max, excl, cfg: TracerConfig,
     one query per group.  ``so``/``ds`` are [NRx, R, 3];
     ``t_max``/``excl``/``live`` flat [NRx * R] or None; ``any_hit`` as in
     :meth:`LocalSceneAccess.intersect`."""
-    nrx, R = so.shape[0], so.shape[1]
-    c = rx_rows_per_query(nrx, R, cfg.rx_query_rays)
-    if c >= nrx:
-        return access.intersect(so.reshape(-1, 3), ds.reshape(-1, 3),
-                                t_max=t_max, exclude=excl, live=live,
-                                any_hit=any_hit)
-    n = c * R
-    part = lambda x, g: None if x is None else x[g * n:(g + 1) * n]
-    ts, idxs = [], []
-    for g in range(nrx // c):
-        t, i = access.intersect(
-            so[g * c:(g + 1) * c].reshape(-1, 3),
-            ds[g * c:(g + 1) * c].reshape(-1, 3),
-            t_max=part(t_max, g), exclude=part(excl, g), live=part(live, g),
-            any_hit=any_hit)
-        ts.append(t)
-        idxs.append(i)
-    return torch.cat(ts), torch.cat(idxs)
+    with span("hrt.shadow"):
+        nrx, R = so.shape[0], so.shape[1]
+        c = rx_rows_per_query(nrx, R, cfg.rx_query_rays)
+        if c >= nrx:
+            return access.intersect(so.reshape(-1, 3), ds.reshape(-1, 3),
+                                    t_max=t_max, exclude=excl, live=live,
+                                    any_hit=any_hit)
+        n = c * R
+        part = lambda x, g: None if x is None else x[g * n:(g + 1) * n]
+        ts, idxs = [], []
+        for g in range(nrx // c):
+            t, i = access.intersect(
+                so[g * c:(g + 1) * c].reshape(-1, 3),
+                ds[g * c:(g + 1) * c].reshape(-1, 3),
+                t_max=part(t_max, g), exclude=part(excl, g),
+                live=part(live, g), any_hit=any_hit)
+            ts.append(t)
+            idxs.append(i)
+        return torch.cat(ts), torch.cat(idxs)
 
 
 def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
@@ -359,8 +362,11 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     transmit = (pat & 1) != 0 if cfg.spawn_transmission else None
 
     # nearest hit, excluding the triangle each ray originates on
-    _, idx = access.intersect(o, d, exclude=pidx,
-                              live=act if cfg.compact_rays else None)
+    with span("hrt.intersect"):
+        _, idx = access.intersect(o, d, exclude=pidx,
+                                  live=act if cfg.compact_rays else None)
+    # the shading, the shadow query's span inside it
+    shading = open_span("hrt.shade")
     live = act & (idx >= 0)
     safe = torch.clamp(idx, min=0)
 
@@ -512,6 +518,7 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
              pat >> 1 if cfg.spawn_transmission else pat)
     ys = (out_te_re, out_te_im, out_tm_re, out_tm_im, out_tau, out_freq,
           out_dir_rx, o, d, live)
+    shading.close()
     return state, ys
 
 
@@ -562,23 +569,27 @@ def _fused_bounces(access: LocalSceneAccess, spec: FusedSpec,
     (each called as its kernel wrapper, ``bounce_pre`` / ``bounce_post``).
     Yields ``(pre, post)`` per bounce."""
     nrx, R = spec.nrx, o.shape[0]
-    for _ in range(cfg.num_bounces):
-        _, idx = access.intersect(o, d, exclude=pidx,
-                                  live=act if cfg.compact_rays else None)
-        pre = pre_fn(spec, o, d, st, act, idx, table, access._material,
-                     rx_pos, sc)
-        t_max = (None if spec.parity == "reference"
-                 else (pre.d2rx - 2.0 * spec.eps_o).detach().reshape(-1))
-        excl_q = pre.excl[None].expand(nrx, R).reshape(-1)
-        live_q = (pre.live[None].expand(nrx, R).reshape(-1)
-                  if cfg.compact_rays else None)
-        t_o, idx_o = _shadow_intersect(
-            access, pre.sh_o, pre.sh_d, t_max, excl_q, cfg, live=live_q,
-            any_hit=cfg.shadow_any_hit and spec.parity != "reference")
-        post = post_fn(
-            spec, pre.d2, pre.st2, pre.ex, pre.sh_d, pre.d2rx, pre.t_self,
-            pre.crossing, pre.excl, pre.live, t_o.reshape(nrx, R),
-            idx_o.reshape(nrx, R), table, sc)
+    for k in range(cfg.num_bounces):
+        with span("hrt.bounce", k=k):
+            with span("hrt.intersect"):
+                _, idx = access.intersect(
+                    o, d, exclude=pidx, live=act if cfg.compact_rays else None)
+            with span("hrt.shade"):
+                pre = pre_fn(spec, o, d, st, act, idx, table,
+                             access._material, rx_pos, sc)
+            t_max = (None if spec.parity == "reference"
+                     else (pre.d2rx - 2.0 * spec.eps_o).detach().reshape(-1))
+            excl_q = pre.excl[None].expand(nrx, R).reshape(-1)
+            live_q = (pre.live[None].expand(nrx, R).reshape(-1)
+                      if cfg.compact_rays else None)
+            t_o, idx_o = _shadow_intersect(
+                access, pre.sh_o, pre.sh_d, t_max, excl_q, cfg, live=live_q,
+                any_hit=cfg.shadow_any_hit and spec.parity != "reference")
+            with span("hrt.shade_post"):
+                post = post_fn(
+                    spec, pre.d2, pre.st2, pre.ex, pre.sh_d, pre.d2rx,
+                    pre.t_self, pre.crossing, pre.excl, pre.live,
+                    t_o.reshape(nrx, R), idx_o.reshape(nrx, R), table, sc)
         yield pre, post
         o, d, st, act, pidx = pre.o2, pre.d2, pre.st2, pre.live, pre.excl
 
@@ -620,12 +631,13 @@ def _fused_forward(access: LocalSceneAccess, spec: FusedSpec,
             mats.append(pre.mat)
             res_pre.append(pre.res)
             res_post.append(post.res)
-    primal = tuple(torch.stack(xs) if xs else None
-                   for xs in (outs, writes, sh_ds, lives, o2s, d2s))
-    if not save:
-        return primal, None
-    resid = (torch.stack(sts), primal[3], torch.stack(mats),
-             torch.stack(res_pre), torch.stack(res_post))
+    with span("hrt.assemble"):
+        primal = tuple(torch.stack(xs) if xs else None
+                       for xs in (outs, writes, sh_ds, lives, o2s, d2s))
+        if not save:
+            return primal, None
+        resid = (torch.stack(sts), primal[3], torch.stack(mats),
+                 torch.stack(res_pre), torch.stack(res_post))
     return primal, resid
 
 
@@ -642,13 +654,14 @@ class FusedLoopSlim(torch.autograd.Function):
     @staticmethod
     def forward(ctx, eta_tab, st0, spec, run):
         primal, resid = run(save=True)
-        ctx.spec = spec
+        ctx.spec, ctx.call = spec, current_call()
         ctx.save_for_backward(eta_tab, *resid)
         ctx.mark_non_differentiable(*(x for x in primal[1:]
                                       if x is not None))
         return primal
 
     @staticmethod
+    @traced_backward
     def backward(ctx, d_out, *_):
         eta_tab, st_all, live_all, mat_all, res_pre, res_post = (
             ctx.saved_tensors)
@@ -684,10 +697,11 @@ def run_fused_loop_slim(access: LocalSceneAccess, rx_pos, state0, fslm,
                                                              spec, run)
     else:
         (out, write, sh_d, live, o2, d2), _ = run(save=False)
-    return [_bounce_ys(out[b], write[b], sh_d[b], cfg,
-                       *((o2[b], d2[b], live[b]) if cfg.keep_rays
-                         else (None,) * 3))
-            for b in range(cfg.num_bounces)]
+    with span("hrt.assemble"):
+        return [_bounce_ys(out[b], write[b], sh_d[b], cfg,
+                           *((o2[b], d2[b], live[b]) if cfg.keep_rays
+                             else (None,) * 3))
+                for b in range(cfg.num_bounces)]
 
 
 def run_fused_loop_stages(access: LocalSceneAccess, rx_pos, state0, fslm,
@@ -765,9 +779,10 @@ def run_bounce_loop(access: LocalSceneAccess, rx_pos, state0, fslm, k_dop,
     if run is not None:
         return run(access, rx_pos, state0, fslm, k_dop, cfg)
     ys, state = [], state0
-    for _ in range(cfg.num_bounces):
-        state, y = bounce_step(state, access=access, rx_pos=rx_pos,
-                               fslm=fslm, k_dop=k_dop, cfg=cfg)
+    for k in range(cfg.num_bounces):
+        with span("hrt.bounce", k=k):
+            state, y = bounce_step(state, access=access, rx_pos=rx_pos,
+                                   fslm=fslm, k_dop=k_dop, cfg=cfg)
         ys.append(y)
     return ys
 
@@ -833,6 +848,7 @@ def _plain_body(access, rx_pos, fslm, k_dop, state0, relaunch, cfg):
     return run_bounce_loop(access, rx_pos, state0, fslm, k_dop, cfg)
 
 
+@api_call
 def trace_with(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
                carrier_frequency_ghz, cfg: TracerConfig,
                launch_dirs: Optional[torch.Tensor] = None,
@@ -847,25 +863,29 @@ def trace_with(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
     pass and the assembly run here, on the access and the raw inputs."""
     dev = tris.device
     f32 = dict(dtype=torch.float32, device=dev)
-    rx_pos = torch.as_tensor(rx_pos, **f32).reshape(-1, 3)
-    tx_pos = torch.as_tensor(tx_pos, **f32).reshape(-1, 3)
-    rx_vel = torch.as_tensor(rx_vel, **f32).reshape(-1, 3)
-    tx_vel = torch.as_tensor(tx_vel, **f32).reshape(-1, 3)
-    nrx, ntx = rx_pos.shape[0], tx_pos.shape[0]
     P, B = cfg.num_paths, cfg.num_bounces
+    with span("hrt.prepare"):
+        rx_pos = torch.as_tensor(rx_pos, **f32).reshape(-1, 3)
+        tx_pos = torch.as_tensor(tx_pos, **f32).reshape(-1, 3)
+        rx_vel = torch.as_tensor(rx_vel, **f32).reshape(-1, 3)
+        tx_vel = torch.as_tensor(tx_vel, **f32).reshape(-1, 3)
 
-    f_hz = torch.as_tensor(carrier_frequency_ghz, **f32) * 1e9
-    fslm = 4.0 * PI * f_hz / SPEED_OF_LIGHT
-    k_dop = f_hz / SPEED_OF_LIGHT
+        f_hz = torch.as_tensor(carrier_frequency_ghz, **f32) * 1e9
+        fslm = 4.0 * PI * f_hz / SPEED_OF_LIGHT
+        k_dop = f_hz / SPEED_OF_LIGHT
 
-    if launch_dirs is None:
-        launch_dirs = launch_directions(P, cfg.resolved_launch_order, dev)
-    eta = precompute_eta(materials, carrier_frequency_ghz)
-    access = (LocalSceneAccess(tris, cfg, eta) if make_access is None
-              else make_access(tris, eta))
+        if launch_dirs is None:
+            launch_dirs = launch_directions(P, cfg.resolved_launch_order,
+                                            dev)
+        eta = precompute_eta(materials, carrier_frequency_ghz)
+        access = (LocalSceneAccess(tris, cfg, eta) if make_access is None
+                  else make_access(tris, eta))
+    nrx, ntx = rx_pos.shape[0], tx_pos.shape[0]
 
-    los, rays_los, los_blocked = _los_pass(access, rx_pos, tx_pos, rx_vel,
-                                           tx_vel, fslm, k_dop, cfg)
+    with span("hrt.los"):
+        los, rays_los, los_blocked = _los_pass(access, rx_pos, tx_pos,
+                                               rx_vel, tx_vel, fslm, k_dop,
+                                               cfg)
 
     pattern = (transmit_patterns(ntx * P, B, dev) if cfg.spawn_transmission
                else None)
@@ -875,10 +895,12 @@ def trace_with(tris: TriangleSoA, materials, rx_pos, tx_pos, rx_vel, tx_vel,
         return launch_state(wrap(tx_pos), wrap(tx_vel), launch_dirs, k,
                             transmit_pattern=pattern), k
 
-    state, _ = relaunch(lambda x: x)
+    with span("hrt.assemble"):
+        state, _ = relaunch(lambda x: x)
     o0, d0 = state[0], state[1]
     ys = body(access, rx_pos, fslm, k_dop, state, relaunch, cfg)
-    scatter, rays_scatter = assemble_scatter(ys, d0, o0, nrx, ntx, P, B,
-                                             cfg.keep_rays)
+    with span("hrt.assemble"):
+        scatter, rays_scatter = assemble_scatter(ys, d0, o0, nrx, ntx, P, B,
+                                                 cfg.keep_rays)
     return PathsResult(los=los, scatter=scatter, rays_los=rays_los,
                        rays_scatter=rays_scatter, los_blocked=los_blocked)
