@@ -25,8 +25,13 @@ class TracerConfig:
                    "physical" uses distance-correct occlusion.
       occlusion_offset: self-hit epsilon for "physical" occlusion.
       keep_rays:   also return per-bounce ray segments (RaysInfo).
-      compact_rays: pass the per-ray activity mask into the nearest-hit
-                   query, so dead rays cost nothing there.
+      compact_rays: pass the per-ray activity mask into every bounce and
+                   shadow query, so dead rays cost nothing there.  True by
+                   default, unlike the JAX package: the outputs and
+                   gradients are the same bits either way (a dead ray's
+                   answer is masked away), the card's kernels pack live
+                   rays, and a dead ray walked is pure waste.  False
+                   queries every ray, as the JAX package's default does.
       launch_order: "fibonacci" (reference path order), "coherent"
                    (the same directions in direction-Morton order) or "auto"
                    ("fibonacci" under reference parity, else "coherent").
@@ -131,7 +136,7 @@ class TracerConfig:
     occlusion_offset: float = 1e-4
     rx_query_rays: int = 1 << 22
     launch_order: str = "auto"
-    compact_rays: bool = False
+    compact_rays: bool = True
     grad_geometry: bool = True
     shade: str = "xla"
     grad_positions: bool = True

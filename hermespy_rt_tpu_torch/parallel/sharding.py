@@ -271,6 +271,7 @@ class TriShardedSceneAccess(LocalSceneAccess):
             # global -> slab-local id: an id outside the slab falls outside
             # [0, slab size) and matches nothing (the queries compare it)
             exclude = (exclude - self.offset).to(torch.int32)
+        # counted once a rank by LocalSceneAccess.intersect (``queries``)
         t, i = super().intersect(o, d, t_max=t_max, exclude=exclude,
                                  live=live, any_hit=any_hit)
         i_glob = torch.where(i >= 0, i + self.offset, _I32_MAX)

@@ -68,8 +68,8 @@ from .ops.shade_cuda import shade_a_rows
 from .ops.walk import cull_boxes, prepare_walk, triangle_records
 from .ops.walk_cuda import walk_query
 from .scene.model import TriangleSoA, _morton_order
-from .utils.profiling import (api_call, current_call, open_span, span,
-                              traced_backward)
+from .utils.profiling import (api_call, count, current_call, open_span,
+                              span, traced_backward)
 
 __all__ = ["ChannelInfo", "RaysInfo", "PathsResult", "trace_paths",
            "LocalSceneAccess", "run_bounce_loop", "transmit_patterns",
@@ -201,7 +201,11 @@ class LocalSceneAccess:
         ``any_hit`` declares that the caller reads only whether a hit within
         ``t_max`` exists: the walk may then return any such hit; the brute
         scan ignores it (the nearest hit is a valid answer).  Decisions
-        only: no gradient flows through them."""
+        only: no gradient flows through them.  Counts ``queries`` and, with
+        ``live``, ``queries.masked`` (host only)."""
+        count("queries")
+        if live is not None:
+            count("queries.masked")
         o, d = o.detach().contiguous(), d.detach().contiguous()
         if self.walk is not None:
             return walk_query(o, d, self.walk, exclude=exclude, t_max=t_max,

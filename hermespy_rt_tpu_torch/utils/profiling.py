@@ -56,7 +56,9 @@ COUNTERS: Dict[str, float] = {"launches": 0}
 """Every counter of the program by name, counted whether or not spans are
 recorded: ``launches`` (all kernel launches), ``launches.<kernel>`` (one
 wrapper's, :class:`LaunchCounter`), ``collective.calls`` / ``.bytes`` /
-``.seconds`` (``parallel.sharding.COLLECTIVES``)."""
+``.seconds`` (``parallel.sharding.COLLECTIVES``), ``queries`` (every
+nearest-hit query of a scene access) and ``queries.masked`` (those given the
+rays' activity mask)."""
 
 ROOT = "hrt.api"          # the span of one API call
 BACKWARD = "hrt.backward"

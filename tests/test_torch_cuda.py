@@ -42,7 +42,8 @@ step on a 5,000-row material table through the per-stage kernels.
 The walk kernel must give the (t, idx) of its plain version and of the
 brute kernel (in any-hit mode the same `blocked`, each reported hit a
 valid one); traces through the walk equal traces through the brute kernel
-bit for bit.
+bit for bit, and on the box city at 2^20 paths the default trace, which
+walks only live rays, equals ``compact_rays=False``'s bit for bit.
 Under the transmission modes a calibration step makes the launches
 ``testing.transmission_launches`` counts, agrees with the same step
 through ``backend="torch"`` (slots; gradients within the op path's tier),
@@ -76,7 +77,9 @@ from hermespy_rt_tpu_torch.ops.walk import (cull_boxes, prepare_walk,
                                             walk_plain)
 from hermespy_rt_tpu_torch.ops.walk_cuda import walk, walk_prepass, walk_query
 from hermespy_rt_tpu_torch.scene import (HostMesh, HostScene, box_scene,
-                                         flatten_scene, random_soup_scene)
+                                         flatten_scene, load_scene, make_city,
+                                         random_soup_scene)
+from hermespy_rt_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -599,6 +602,35 @@ def test_trace_through_walk_equals_brute(dev, parity):
         for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
             assert torch.equal(getattr(out[False][part], f),
                                getattr(out[True][part], f)), (part, f)
+
+
+def test_city_default_mask_gives_the_unmasked_bits(dev, tmp_path):
+    """The box city (``make_city``'s defaults, 131,072 triangles,
+    Morton-sorted) at the box-city forward cell's shape: 2^20 coherent
+    paths, 3 bounces, 4 RX at 1.5 m in the streets, rooftop TX, physical
+    parity.  The default, whose bounce and shadow queries walk only live
+    rays, gives ``compact_rays=False``'s bits."""
+    tris = flatten_scene(load_scene(make_city(str(tmp_path))),
+                         sort_triangles=True, device=dev)
+    pitch = 2 * 400.0 * 0.9 / 13          # the street grid of 13 x 13 lots
+    rx = np.array([[-360.0 + i * pitch, -360.0 + j * pitch, 1.5]
+                   for i, j in ((3, 5), (6, 6), (9, 4), (4, 10))], np.float32)
+    tx = np.array([[-120.0, 80.0, 45.0]], np.float32)
+    z = np.zeros((4, 3), np.float32)
+    out = []
+    for kw in ({}, dict(compact_rays=False)):
+        c0 = dict(profiling.COUNTERS)
+        out.append(compute_paths(tris, rx, tx, z, z[:1], 3.0, 4, 1, 1 << 20,
+                                 3, device=dev, parity="physical", **kw))
+        grew = [profiling.COUNTERS[k] - c0.get(k, 0)
+                for k in ("queries", "queries.masked")]
+        assert grew == [7, 6 if not kw else 0], grew
+    written = out[0][1].a_te.abs() > 0
+    assert written.any() and not written.all()
+    for part in (0, 1):
+        for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
+            assert torch.equal(getattr(out[0][part], f),
+                               getattr(out[1][part], f)), (part, f)
 
 
 def _grad_step(dev, tris, nrx, paths, parity, **kw):

@@ -9,7 +9,9 @@ The port's ``trace_paths`` (plain torch nearest hit) is held against the JAX
 than 99.5% of slots agree on being written, and written slots agree to rtol
 1e-4 with an absolute floor of 1e-5 of the largest value (a decision that
 flips at an f32 triangle edge changes a whole path).  Material gradients of
-``sum |a_te|^2 + |a_tm|^2`` must match ``jax.grad`` to rtol 1e-4."""
+``sum |a_te|^2 + |a_tm|^2`` must match ``jax.grad`` to rtol 1e-4.  The
+port's default, whose bounce and shadow queries take the rays' activity
+mask, gives ``compact_rays=False``'s outputs and gradients bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -174,7 +176,7 @@ def test_compact_rays_and_rx_groups_do_not_change_outputs():
     tris = soa_from_jax(vars(soa))
     mats = materials_from_jax(vars(jax_materials()))
     outs = []
-    for kw in (dict(), dict(compact_rays=True), dict(rx_query_rays=256)):
+    for kw in (dict(), dict(compact_rays=False), dict(rx_query_rays=256)):
         with torch.no_grad():
             res = trace_paths(tris, mats, rx, tx, rxv, txv, 3.0,
                               TracerConfig(num_paths=256, num_bounces=3,
@@ -183,6 +185,47 @@ def test_compact_rays_and_rx_groups_do_not_change_outputs():
     for other in outs[1:]:
         for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
             assert torch.equal(getattr(outs[0], f), getattr(other, f)), f
+
+
+@pytest.mark.parametrize("parity,kw", [
+    ("reference", {}), ("physical", {}),
+    ("physical", dict(transmission=True)),
+    ("physical", dict(shade="fused", grad_positions=False,
+                      grad_geometry=False))])
+def test_default_mask_gives_the_unmasked_bits(parity, kw, monkeypatch):
+    """The default (every bounce and shadow query given the rays' activity
+    mask) against ``compact_rays=False``, through the walk on a scene that
+    rays leave: outputs, LoS and material gradients bit-equal."""
+    import hermespy_rt_tpu_torch.tracer as tracer_module
+    assert TracerConfig().compact_rays
+    soa, rx, tx, rxv, txv = _inputs("soup", 3)
+    tris = soa_from_jax(vars(soa))
+    dead = []
+    real = tracer_module.walk_query
+
+    def spy(*args, live=None, **kwargs):
+        dead.append(live is not None and not bool(live.all()))
+        return real(*args, live=live, **kwargs)
+
+    monkeypatch.setattr(tracer_module, "walk_query", spy)
+    out = []
+    for off in ({}, dict(compact_rays=False)):
+        mats = materials_from_jax(vars(jax_materials()))
+        res = trace_paths(tris, mats, rx, tx, rxv, txv, 3.0,
+                          TracerConfig(num_paths=128, num_bounces=3,
+                                       parity=parity, walk=True,
+                                       keep_rays=False, **kw, **off))
+        res.scatter.a_te.abs().square().sum().backward()
+        out.append((res, [_grad(mats, f) for f in MATERIAL_FIELDS]))
+    assert any(dead)                 # the mask dropped rays somewhere
+    (r0, g0), (r1, g1) = out
+    for part in ("los", "scatter"):
+        for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
+            assert torch.equal(getattr(getattr(r0, part), f),
+                               getattr(getattr(r1, part), f)), (part, f)
+    assert any(bool(g.any()) for g in g0)
+    for f, a, b in zip(MATERIAL_FIELDS, g0, g1):
+        assert torch.equal(a, b), f
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda", "auto"])

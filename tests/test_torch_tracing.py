@@ -8,6 +8,9 @@ CPU.
 * the span tree and call ids of the op path, of the fused path and through
   its backwards (the whole-loop node and the per-stage nodes);
 * the wrappers' ``launches`` and ``COLLECTIVES`` are views of the registry;
+* ``queries`` counts every query and ``queries.masked`` those given the
+  rays' activity mask: all but the LoS by default, none under
+  ``compact_rays=False``;
 * ``profile_trace`` writes the spans as ranges with their arguments, and
   ``hrt-torch-trace --profile`` calls it.
 """
@@ -178,6 +181,18 @@ def test_launches_count_through_the_registry(recorder):
     assert recorder.latest_session().counters["launches"] == 3
     wk.launches = 0
     assert profiling.COUNTERS["launches.walk"] == 0
+
+
+@pytest.mark.parametrize("kw,masked", [({}, 1), (dict(compact_rays=False),
+                                                  0)])
+def test_queries_count_the_masked_ones(tris, kw, masked):
+    """Every query is counted; by default all but the LoS take the mask."""
+    c0 = dict(profiling.COUNTERS)
+    drop(tris, **kw)
+    grew = {k: profiling.COUNTERS.get(k, 0) - c0.get(k, 0)
+            for k in ("queries", "queries.masked")}
+    assert grew["queries"] == 5              # LoS + 2 x (bounce, shadow)
+    assert grew["queries.masked"] == masked * (grew["queries"] - 1)
 
 
 def test_collectives_are_a_view_of_the_registry(recorder):
