@@ -9,7 +9,10 @@ idx[r] == k of g[r]``).
 runs the plain version; given CUDA tensors it launches the kernel on the
 current stream (:func:`~.fetch.gather_plan`: one warp per 32 output rows,
 16-byte stores, a small table staged in shared memory) or raises.  Its
-``launches`` count goes up by one per launch and nowhere else.
+``launches`` count goes up by one per launch and nowhere else.  Every call,
+on either device, adds the rows it fetched to the counter ``fetch.rows``
+and the values it wrote (rows times columns) to ``fetch.values``, from the
+shapes alone.
 
 :data:`scatter_add` takes the arguments of
 :func:`~hermespy_rt_tpu_torch.ops.fetch.scatter_add_plain` and, optionally,
@@ -39,7 +42,7 @@ import ctypes
 
 import torch
 
-from ..utils.profiling import LaunchCounter
+from ..utils.profiling import LaunchCounter, count
 from ._cuda_build import (CSRC, LIBRARY, OperandChecker, cuda_device,
                           raise_on)
 from .fetch import (dense_plan, gather_plain, gather_plan, scatter_add_plain,
@@ -81,10 +84,12 @@ class GatherKernel(LaunchCounter):
         if not (0 <= col and width >= 0 and col + width <= W):
             raise ValueError(f"gather: columns {col} .. {col + width} of a "
                              f"{W}-column table")
+        N = idx.shape[0]
+        count("fetch.rows", N)
+        count("fetch.values", N * width)
         if table.device.type == "cpu":
             return gather_plain(table, idx, col, width)
         dev = cuda_device("gather", table)
-        N = idx.shape[0]
         chk = OperandChecker("gather", dev)
         chk("table", table, torch.float32, (T, W))
         chk("idx", idx, torch.int32, (N,))

@@ -41,6 +41,9 @@ nearest blocker, not any), and ``spawn_transmission`` sends each ray through
 the surfaces its pattern bits select (:func:`transmit_patterns`).
 ``shade="fused"`` warns and runs the op path under either, and
 ``shade="pallas"`` runs the torch shading under ``spawn_transmission``.
+Under ``transmission`` the blocker fetches and the penetration gains run in
+the span ``hrt.transmit``, and ``transmit.blocker_rows`` counts the blocker
+rows fetched.
 """
 from __future__ import annotations
 
@@ -267,19 +270,23 @@ def _los_pass(access: LocalSceneAccess, rx_pos, tx_pos, rx_vel, tx_vel, fslm,
     if cfg.transmission:
         # a blocked LoS passes through its nearest blocker with the ITU
         # transmission coefficients (eqs. 31c/31d)
-        hit_b = access.fetch(torch.clamp(idx, min=0))
-        cos1 = torch.clamp(torch.abs(dot3(hit_b["normal"], dn)), 0.0, _CLIP)
-        sin1 = torch.sqrt(1.0 - cos1 * cos1)
-        tte_re, tte_im, ttm_re, ttm_im = trans_coefs(hit_b["eta"], cos1, sin1)
-        bf = blocked.to(torch.float32)
-        te_re = torch.where(coincident, 1.0,
-                            amp * (1.0 + bf * (tte_re - 1.0)))
-        te_im = torch.where(coincident, 0.0, amp * bf * tte_im)
-        tm_re = torch.where(coincident, 1.0,
-                            amp * (1.0 + bf * (ttm_re - 1.0)))
-        tm_im = torch.where(coincident, 0.0, amp * bf * ttm_im)
-        a_te = torch.complex(te_re, te_im)
-        a_tm = torch.complex(tm_re, tm_im)
+        with span("hrt.transmit"):
+            count("transmit.blocker_rows", idx.numel())
+            hit_b = access.fetch(torch.clamp(idx, min=0))
+            cos1 = torch.clamp(torch.abs(dot3(hit_b["normal"], dn)), 0.0,
+                               _CLIP)
+            sin1 = torch.sqrt(1.0 - cos1 * cos1)
+            tte_re, tte_im, ttm_re, ttm_im = trans_coefs(hit_b["eta"], cos1,
+                                                         sin1)
+            bf = blocked.to(torch.float32)
+            te_re = torch.where(coincident, 1.0,
+                                amp * (1.0 + bf * (tte_re - 1.0)))
+            te_im = torch.where(coincident, 0.0, amp * bf * tte_im)
+            tm_re = torch.where(coincident, 1.0,
+                                amp * (1.0 + bf * (ttm_re - 1.0)))
+            tm_im = torch.where(coincident, 0.0, amp * bf * ttm_im)
+            a_te = torch.complex(te_re, te_im)
+            a_tm = torch.complex(tm_re, tm_im)
         tau = torch.where(coincident, 0.0, dist / SPEED_OF_LIGHT)
     else:
         a_re = torch.where(coincident, 1.0, torch.where(blocked, 0.0, amp))
@@ -488,20 +495,23 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
     if cfg.transmission:
         # a blocked shadow ray passes through its nearest blocker with the
         # ITU transmission coefficients instead of being zeroed
-        hit_o = access.fetch(torch.clamp(idx_o, min=0).reshape(nrx, -1))
-        cos1b = torch.clamp(torch.abs(dot3(hit_o["normal"], ds)), 0.0, _CLIP)
-        sin1b = torch.sqrt(1.0 - cos1b * cos1b)
-        tte_re, tte_im, ttm_re, ttm_im = trans_coefs(hit_o["eta"], cos1b,
-                                                     sin1b)
-        bf = blocked.to(torch.float32)
-        fte_re = 1.0 + bf * (tte_re - 1.0)
-        fte_im = bf * tte_im
-        ftm_re = 1.0 + bf * (ttm_re - 1.0)
-        ftm_im = bf * ttm_im
-        out_te_re, out_te_im = (out_te_re * fte_re - out_te_im * fte_im,
-                                out_te_re * fte_im + out_te_im * fte_re)
-        out_tm_re, out_tm_im = (out_tm_re * ftm_re - out_tm_im * ftm_im,
-                                out_tm_re * ftm_im + out_tm_im * ftm_re)
+        with span("hrt.transmit"):
+            count("transmit.blocker_rows", idx_o.numel())
+            hit_o = access.fetch(torch.clamp(idx_o, min=0).reshape(nrx, -1))
+            cos1b = torch.clamp(torch.abs(dot3(hit_o["normal"], ds)), 0.0,
+                                _CLIP)
+            sin1b = torch.sqrt(1.0 - cos1b * cos1b)
+            tte_re, tte_im, ttm_re, ttm_im = trans_coefs(hit_o["eta"], cos1b,
+                                                         sin1b)
+            bf = blocked.to(torch.float32)
+            fte_re = 1.0 + bf * (tte_re - 1.0)
+            fte_im = bf * tte_im
+            ftm_re = 1.0 + bf * (ttm_re - 1.0)
+            ftm_im = bf * ttm_im
+            out_te_re, out_te_im = (out_te_re * fte_re - out_te_im * fte_im,
+                                    out_te_re * fte_im + out_te_im * fte_re)
+            out_tm_re, out_tm_im = (out_tm_re * ftm_re - out_tm_im * ftm_im,
+                                    out_tm_re * ftm_im + out_tm_im * ftm_re)
         write = live[None].expand_as(blocked)
     else:
         write = live[None] & ~blocked

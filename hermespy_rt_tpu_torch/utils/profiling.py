@@ -57,8 +57,10 @@ COUNTERS: Dict[str, float] = {"launches": 0}
 recorded: ``launches`` (all kernel launches), ``launches.<kernel>`` (one
 wrapper's, :class:`LaunchCounter`), ``collective.calls`` / ``.bytes`` /
 ``.seconds`` (``parallel.sharding.COLLECTIVES``), ``queries`` (every
-nearest-hit query of a scene access) and ``queries.masked`` (those given the
-rays' activity mask)."""
+nearest-hit query of a scene access), ``queries.masked`` (those given the
+rays' activity mask), ``fetch.rows`` / ``fetch.values`` (the rows and the
+values the row gather fetched) and ``transmit.blocker_rows`` (the blocker
+rows fetched under ``transmission``)."""
 
 ROOT = "hrt.api"          # the span of one API call
 BACKWARD = "hrt.backward"
