@@ -589,12 +589,13 @@ def phase_kernel(scenes, dev):
 
 
 def run_paths(host, nrx, dev, backend, paths, **kw):
-    """The main path: ``compute_paths`` as bench.py drives it."""
+    """``compute_paths`` as bench.py drives it, on the op path
+    (``shade="xla"``; the default runs the fused forward on a card)."""
     los, sc = compute_paths(host, rx_positions(nrx), TX, np.zeros((nrx, 3)),
                             np.zeros((1, 3)), FREQ_GHZ, nrx, 1, paths,
                             BOUNCES, device=dev, parity="reference",
                             backend=backend, keep_rays=False,
-                            compact_rays=True, **kw)
+                            compact_rays=True, **{"shade": "xla", **kw})
     torch.cuda.synchronize()
     return los, sc
 
@@ -1411,7 +1412,8 @@ def phase_city_equal(dev):
 
 
 def phase_city_forward(tris):
-    """D: config-5 forward on the op path."""
+    """D: config-5 forward at the port's default (on a card the fused
+    forward: no gradient can be asked of ``compute_paths``)."""
     nrx = 1
     city_paths(tris, nrx, PATHS)                                 # warm-up
     zero_counts()

@@ -42,14 +42,22 @@ class TracerConfig:
                    are split into equal RX groups run one after another.
       grad_geometry: keep fetched triangle geometry differentiable; False
                    detaches it (material gradients are unchanged).
-      shade:       bounce shading: "xla" (the default; the name is the JAX
-                   package's) runs it as torch ops, whose autograd gives
-                   every gradient; "pallas" (the JAX package's name for its
-                   reflection-half kernel) runs each bounce's reflection
-                   half as one kernel (``ops/shade_cuda.py``) whose
-                   backward is autograd of the torch ops at the saved
-                   inputs, the rest of the bounce as "xla"; "fused" runs each bounce as two fused
-                   kernels around the shadow query
+      shade:       bounce shading: "auto" (the default) picks one of the
+                   next three from what the trace can observe
+                   (``tracer.resolve_shade``): the fused forward kernels
+                   where no gradient can be asked for (grad mode off, or no
+                   tensor the bounce loop reads requires grad), neither
+                   transmission mode is set, the scene access is the whole
+                   scene's and the rays are on a card whose fused kernels
+                   take their shapes; the op path ("xla") everywhere else,
+                   with no warning.  "xla" (the JAX package's name and
+                   default) runs the shading as torch ops, whose autograd
+                   gives every gradient; "pallas" (the JAX package's name
+                   for its reflection-half kernel) runs each bounce's
+                   reflection half as one kernel (``ops/shade_cuda.py``)
+                   whose backward is autograd of the torch ops at the saved
+                   inputs, the rest of the bounce as "xla"; "fused" runs
+                   each bounce as two fused kernels around the shadow query
                    (``ops/bounce_fused_cuda.py``), each an autograd node
                    whose backward is a kernel too (with ``grad_positions``
                    the full backward, which gives every gradient the op
@@ -73,8 +81,8 @@ class TracerConfig:
                    material table of more than 4842 rows, more than that
                    kernel holds, takes the per-stage nodes either way.
                    That is its only meaning here: the port has no scan to
-                   unroll, and the op path and the full-gradient fused
-                   path ignore it.
+                   unroll, and the op path, the full-gradient fused path
+                   and the fused forward of "auto" (no backward) ignore it.
       backend:     nearest-hit implementation: "torch" (plain tensor ops),
                    "cuda" (the hand-written kernel) or "auto".  "cuda" and
                    "auto" both call the kernel's wrapper, which runs the
@@ -138,7 +146,7 @@ class TracerConfig:
     launch_order: str = "auto"
     compact_rays: bool = True
     grad_geometry: bool = True
-    shade: str = "xla"
+    shade: str = "auto"
     grad_positions: bool = True
     walk: "bool | str" = "auto"
     shadow_any_hit: bool = True
@@ -177,9 +185,9 @@ class TracerConfig:
                              f"{self.rx_query_rays}")
         if self.ray_chunk <= 0:
             raise ValueError(f"ray_chunk must be > 0, got {self.ray_chunk}")
-        if self.shade not in ("xla", "pallas", "fused"):
-            raise ValueError("shade must be 'xla', 'pallas' or 'fused', got "
-                             f"{self.shade!r}")
+        if self.shade not in ("auto", "xla", "pallas", "fused"):
+            raise ValueError("shade must be 'auto', 'xla', 'pallas' or "
+                             f"'fused', got {self.shade!r}")
         if self.walk in ("resident", "dma"):
             raise ValueError(
                 f"walk={self.walk!r} places the triangles in TPU memory "

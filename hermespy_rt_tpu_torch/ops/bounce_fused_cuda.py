@@ -50,7 +50,7 @@ __all__ = ["bounce_pre", "bounce_post", "loop_bwd_slim", "bounce_pre_bwd",
            "bounce_post_bwd", "bounce_pre_bwd_slim", "bounce_post_bwd_slim",
            "BouncePreFn", "BouncePostFn", "bounce_pre_stage",
            "bounce_post_stage", "SOURCE", "BWD_SOURCE", "MAX_MATERIALS",
-           "PRE_BWD_MAX_RX"]
+           "PRE_BWD_MAX_RX", "FWD_MAX_RAYS", "forward_takes"]
 
 SOURCE = CSRC / "bounce_fused.cu"
 BWD_SOURCE = CSRC / "bounce_bwd.cu"
@@ -64,6 +64,15 @@ _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 _SMEM_BYTES = 232448
 _TABLE_BYTES_PER_MATERIAL = 4 * len(ETA_FIELDS)
 MAX_MATERIALS = _SMEM_BYTES // _TABLE_BYTES_PER_MATERIAL
+# the forward kernels take R as a C int and index a ray's xyz as 3 r + c
+FWD_MAX_RAYS = (2 ** 31 - 1) // 3
+
+
+def forward_takes(rays: int, nrx: int) -> bool:
+    """Whether :data:`bounce_pre` and :data:`bounce_post` take ``rays`` rays
+    and ``nrx`` RX: at least one RX (:class:`.bounce_fused.FusedSpec`) and
+    at most :data:`FWD_MAX_RAYS` rays."""
+    return nrx >= 1 and rays <= FWD_MAX_RAYS
 
 
 class BouncePreKernel(LaunchCounter):

@@ -514,6 +514,13 @@ def material_table(n, rng, device):
     return MaterialTable(cols, device=device)
 
 
+def _step_shade(cfg, nrx):
+    """The shade a :func:`calibration_step` of ``cfg`` at ``nrx`` RX runs
+    on the card: it asks for a gradient, on the whole scene."""
+    return tracer_module.resolve_shade(cfg, True, "cuda", False,
+                                       cfg.num_paths, nrx)
+
+
 def calibration_launches(cfg, nrx):
     """The launches of one :func:`calibration_step` of ``cfg`` at ``nrx``
     receivers (the bench flags, one TX, one material table, loss of the
@@ -523,12 +530,14 @@ def calibration_launches(cfg, nrx):
     the two fused stages a bounce, the whole-loop material backward once and
     the gather of the payload table's eta rows; with ``shade="xla"`` that
     gather, a bounce's payload rows and hit normals, one gather each, and
-    each but the normals' summed back by one scatter-add."""
+    each but the normals' summed back by one scatter-add.  The shade is
+    the one ``tracer.resolve_shade`` gives a step on the card that asks for
+    a gradient."""
     B = cfg.num_bounces
     groups = nrx // tracer_module.rx_rows_per_query(nrx, cfg.num_paths,
                                                     cfg.rx_query_rays)
     out = {**{n: 0 for n in KERNELS}, "nearest_hit": 1 + B * (1 + groups)}
-    if cfg.shade == "fused":
+    if _step_shade(cfg, nrx) == "fused":
         out.update(bounce_pre=B, bounce_post=B, loop_bwd_slim=1, gather=1)
     else:
         out.update(gather=1 + 2 * B, scatter_add=1 + B)
@@ -566,7 +575,7 @@ def transmission_launches(cfg, walk=False):
     out = {**{n: 0 for n in KERNELS}, "walk_prepass": 0, "walk": 0,
            "gather": 1 + cfg.transmission + B * per_bounce,
            "scatter_add": 1 + B * per_bounce,
-           "shade_a": (B if cfg.shade == "pallas"
+           "shade_a": (B if _step_shade(cfg, 1) == "pallas"
                        and not cfg.spawn_transmission else 0)}
     if walk:
         out.update(walk_prepass=queries, walk=queries)

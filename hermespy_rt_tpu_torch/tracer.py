@@ -22,6 +22,10 @@ than that kernel holds, each stage is an autograd node whose backward is a
 kernel (:func:`run_fused_loop_stages`), as JAX's per-stage ``bounce_pre`` /
 ``bounce_post``.  Past the RX count the full per-stage backward takes, a
 ``grad_positions`` trace runs the op path and warns (:func:`fused_loop`).
+The default, ``shade="auto"``, runs the fused forward alone, with no
+autograd node, where no gradient can be asked for and the rest of the
+trace allows it (:func:`resolve_shade`), else the op path; the counters
+``trace.fused`` and ``trace.op`` count the bounce loops each runs.
 
 Scenes of 4096 padded triangles and more (``walk="auto"``) answer every
 query through the visit-list walk (``ops/walk_cuda.py``) instead of the brute
@@ -75,8 +79,8 @@ from .utils.profiling import (api_call, count, current_call, open_span,
                               span, traced_backward)
 
 __all__ = ["ChannelInfo", "RaysInfo", "PathsResult", "trace_paths",
-           "LocalSceneAccess", "run_bounce_loop", "transmit_patterns",
-           "trace_with",
+           "LocalSceneAccess", "run_bounce_loop", "resolve_shade",
+           "transmit_patterns", "trace_with",
            "SPEED_OF_LIGHT", "PI"]
 
 PI = float(np.float32(np.pi))
@@ -698,7 +702,8 @@ def run_fused_loop_slim(access: LocalSceneAccess, rx_pos, state0, fslm,
     """The fused bounce loop from the :func:`launch_state` tuple as one
     :class:`FusedLoopSlim` node, its outputs in the per-bounce ``ys`` layout
     of :func:`assemble_scatter`.  Residuals are kept only when a gradient
-    can be asked for."""
+    can be asked for; where none can, this is the forward alone, the route
+    of ``shade="auto"``."""
     o, d, st0, act, pidx = _launch_rows(state0)
     spec = _fused_spec(cfg, rx_pos.shape[0])
     sc = torch.stack([fslm, k_dop]).detach()
@@ -773,23 +778,62 @@ def fused_loop(cfg: TracerConfig, nrx: int, n_materials: int):
     return run_fused_loop_stages
 
 
+def resolve_shade(cfg: TracerConfig, grad: bool, device: str,
+                  tri_sharded: bool, rays: int, nrx: int) -> str:
+    """The shading a bounce loop of ``cfg`` runs: ``cfg.shade`` where the
+    caller named one; for ``"auto"``, ``"fused"`` (the fused forward alone)
+    where no gradient can be asked for (``grad`` False), neither
+    transmission mode is set (the fused stages reflect only), the scene
+    access is the whole scene's (``tri_sharded`` False), the rays are on a
+    card (``device``, their device type: on the CPU the fused wrappers run
+    plain torch, which gains nothing) and the fused forward kernels take
+    ``rays`` rays of ``nrx`` RX; else ``"xla"``, the op path."""
+    if cfg.shade != "auto":
+        return cfg.shade
+    fused = (not grad and not cfg.transmission
+             and not cfg.spawn_transmission and not tri_sharded
+             and device == "cuda" and fused_ops.forward_takes(rays, nrx))
+    return "fused" if fused else "xla"
+
+
+def _grad_possible(access: LocalSceneAccess, rx_pos, state0, fslm,
+                   k_dop) -> bool:
+    """Whether a gradient can be asked of the bounce loop: grad mode on and
+    a tensor it reads (the access's tables, the RX positions, the launch
+    state, the carrier scalars) requiring grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad
+        for x in (access._eta_tab, access._table, rx_pos, fslm, k_dop,
+                  *state0))
+
+
 def run_bounce_loop(access: LocalSceneAccess, rx_pos, state0, fslm, k_dop,
                     cfg: TracerConfig):
     """The bounce loop from the :func:`launch_state` tuple, its outputs per
     bounce in the ``ys`` layout of :func:`assemble_scatter`: the fused loop
-    :func:`fused_loop` picks under ``shade="fused"``, else
-    :func:`bounce_step` per bounce.  Shared by :func:`trace_paths` and the
-    shard body of ``parallel.trace_paths_sharded``, where the fused kernels
-    run per ray shard (they are per-ray maps).  A triangle-sharded access
-    holds no whole-scene table for the fused kernels: ``shade="fused"``
-    then warns and runs the op path, as the JAX package."""
+    :func:`fused_loop` picks under ``shade="fused"``, the fused forward
+    where ``"auto"`` resolves to it (:func:`resolve_shade`), else
+    :func:`bounce_step` per bounce; counts ``trace.fused`` or ``trace.op``
+    (host only).  Shared by :func:`trace_paths` and the shard body of
+    ``parallel.trace_paths_sharded``, where the fused kernels run per ray
+    shard (they are per-ray maps).  A triangle-sharded access holds no
+    whole-scene table for the fused kernels: ``shade="fused"`` then warns
+    and runs the op path, as the JAX package."""
+    shade = resolve_shade(
+        cfg, _grad_possible(access, rx_pos, state0, fslm, k_dop),
+        state0[0].device.type, access.tri_sharded, state0[0].shape[0],
+        rx_pos.shape[0])
     run = None
-    if cfg.shade == "fused":
-        if access.tri_sharded:
+    if shade == "fused":
+        if cfg.shade == "auto":
+            # no gradient can be asked for: the forward alone
+            run = run_fused_loop_slim
+        elif access.tri_sharded:
             warnings.warn("shade='fused' falling back to the op path: "
                           "tri-sharded scene access", stacklevel=5)
         else:
             run = fused_loop(cfg, rx_pos.shape[0], access._eta_tab.shape[0])
+    count("trace.op" if run is None else "trace.fused")
     if run is not None:
         return run(access, rx_pos, state0, fslm, k_dop, cfg)
     ys, state = [], state0

@@ -58,9 +58,11 @@ recorded: ``launches`` (all kernel launches), ``launches.<kernel>`` (one
 wrapper's, :class:`LaunchCounter`), ``collective.calls`` / ``.bytes`` /
 ``.seconds`` (``parallel.sharding.COLLECTIVES``), ``queries`` (every
 nearest-hit query of a scene access), ``queries.masked`` (those given the
-rays' activity mask), ``fetch.rows`` / ``fetch.values`` (the rows and the
-values the row gather fetched) and ``transmit.blocker_rows`` (the blocker
-rows fetched under ``transmission``)."""
+rays' activity mask), ``trace.fused`` / ``trace.op`` (the bounce loops
+run through the fused kernels / through the op path), ``fetch.rows`` /
+``fetch.values`` (the rows and the values the row gather fetched) and
+``transmit.blocker_rows`` (the blocker rows fetched under
+``transmission``)."""
 
 ROOT = "hrt.api"          # the span of one API call
 BACKWARD = "hrt.backward"

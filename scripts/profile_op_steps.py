@@ -34,8 +34,8 @@ and the device-to-host copies and host synchronisations in one profiler
 window over one call (the window's own closing synchronise included):
 
 - ``path``: the seven brute queries of one op-path forward
-  (``chip_smoke.py`` phases 3-4: ``compute_paths``, its default launch
-  order, compact rays) at nrx = 1 and 4;
+  (``chip_smoke.py`` phases 3-4: ``compute_paths``, ``shade="xla"``, its
+  default launch order, compact rays) at nrx = 1 and 4;
 - ``N``: the seven culled queries of one N step at nrx = 1, each with the
   culled kernel's skipped (block, tile) pairs and the brute kernel's time
   on the same query;
@@ -648,7 +648,7 @@ def child(tree, steps):
         compute_paths(scene, rx_positions(nrx), TX, np.zeros((nrx, 3)),
                       np.zeros((1, 3)), FREQ_GHZ, nrx, 1, PATHS, BOUNCES,
                       device=dev, parity="reference", keep_rays=False,
-                      compact_rays=True)
+                      compact_rays=True, shade="xla")
         torch.cuda.synchronize()
 
     out = dict(tree=tree, gpu=smi())

@@ -43,7 +43,11 @@ The walk kernel must give the (t, idx) of its plain version and of the
 brute kernel (in any-hit mode the same `blocked`, each reported hit a
 valid one); traces through the walk equal traces through the brute kernel
 bit for bit, and on the box city at 2^20 paths the default trace, which
-walks only live rays, equals ``compact_rays=False``'s bit for bit.
+walks only live rays, equals ``compact_rays=False``'s bit for bit.  There
+the default drop (``shade="auto"``) runs the fused forward (two kernels a
+bounce, no backward kernel) and agrees with ``shade="xla"`` (the same
+written slots, values within the fused tier); under the O2I cell's flags
+it is the op path's bits, with no warning.
 Under the transmission modes a calibration step makes the launches
 ``testing.transmission_launches`` counts, agrees with the same step
 through ``backend="torch"`` (slots; gradients within the op path's tier),
@@ -52,6 +56,7 @@ holds against its plain version; ``shade="fused"`` warns and gives the op
 path's bits; the walk, answering the shadow queries with the nearest
 blocker, gives the brute scan's trace bit for bit."""
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -604,26 +609,48 @@ def test_trace_through_walk_equals_brute(dev, parity):
                                getattr(out[True][part], f)), (part, f)
 
 
-def test_city_default_mask_gives_the_unmasked_bits(dev, tmp_path):
+@pytest.fixture(scope="module")
+def city(tmp_path_factory):
     """The box city (``make_city``'s defaults, 131,072 triangles,
-    Morton-sorted) at the box-city forward cell's shape: 2^20 coherent
-    paths, 3 bounces, 4 RX at 1.5 m in the streets, rooftop TX, physical
-    parity.  The default, whose bounce and shadow queries walk only live
-    rays, gives ``compact_rays=False``'s bits."""
-    tris = flatten_scene(load_scene(make_city(str(tmp_path))),
-                         sort_triangles=True, device=dev)
-    pitch = 2 * 400.0 * 0.9 / 13          # the street grid of 13 x 13 lots
-    rx = np.array([[-360.0 + i * pitch, -360.0 + j * pitch, 1.5]
-                   for i, j in ((3, 5), (6, 6), (9, 4), (4, 10))], np.float32)
-    tx = np.array([[-120.0, 80.0, 45.0]], np.float32)
+    Morton-sorted) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
+                    "CPU mode)")
+    return flatten_scene(load_scene(make_city(str(
+        tmp_path_factory.mktemp("city")))), sort_triangles=True,
+        device=torch.device("cuda"))
+
+
+_PITCH = 2 * 400.0 * 0.9 / 13          # the street grid of 13 x 13 lots
+CITY_RX = np.array([[-360.0 + i * _PITCH, -360.0 + j * _PITCH, 1.5]
+                    for i, j in ((3, 5), (6, 6), (9, 4), (4, 10))],
+                   np.float32)
+CITY_TX = np.array([[-120.0, 80.0, 45.0]], np.float32)
+
+
+def _city_drop(tris, **kw):
+    """``compute_paths`` at the box-city forward cell's shape: 2^20
+    coherent paths, 3 bounces, 4 RX at 1.5 m in the streets, rooftop TX,
+    physical parity; ``kw`` over the port's defaults.  Returns ``(los,
+    scatter)`` and the growth of every counter."""
     z = np.zeros((4, 3), np.float32)
+    c0 = dict(profiling.COUNTERS)
+    out = compute_paths(tris, CITY_RX, CITY_TX, z, z[:1], 3.0, 4, 1, 1 << 20,
+                        3, device=tris.device, parity="physical", **kw)
+    torch.cuda.synchronize()
+    return out, {k: v - c0.get(k, 0) for k, v in profiling.COUNTERS.items()
+                 if v != c0.get(k, 0)}
+
+
+def test_city_default_mask_gives_the_unmasked_bits(city):
+    """The box city at the box-city forward cell's shape.  The default,
+    whose bounce and shadow queries walk only live rays, gives
+    ``compact_rays=False``'s bits."""
     out = []
     for kw in ({}, dict(compact_rays=False)):
-        c0 = dict(profiling.COUNTERS)
-        out.append(compute_paths(tris, rx, tx, z, z[:1], 3.0, 4, 1, 1 << 20,
-                                 3, device=dev, parity="physical", **kw))
-        grew = [profiling.COUNTERS[k] - c0.get(k, 0)
-                for k in ("queries", "queries.masked")]
+        drop, grew = _city_drop(city, **kw)
+        out.append(drop)
+        grew = [grew.get(k, 0) for k in ("queries", "queries.masked")]
         assert grew == [7, 6 if not kw else 0], grew
     written = out[0][1].a_te.abs() > 0
     assert written.any() and not written.all()
@@ -631,6 +658,64 @@ def test_city_default_mask_gives_the_unmasked_bits(dev, tmp_path):
         for f in ("a_te", "a_tm", "tau", "freq_shift", "directions_rx"):
             assert torch.equal(getattr(out[0][part], f),
                                getattr(out[1][part], f)), (part, f)
+
+
+def _as_rows(x):
+    """An output ``[nrx, ntx, K(, 3)]`` as f32 row groups ``[n, g, K]``,
+    paths last: a complex one's (re, im) a group of two rows, a vector's
+    components a group of three."""
+    if x.is_complex():
+        x = torch.stack([x.real, x.imag], dim=-2)
+    elif x.ndim == 4:
+        x = x.movedim(-1, -2)
+    else:
+        x = x.unsqueeze(-2)
+    return x.reshape(-1, x.shape[-2], x.shape[-1])
+
+
+def test_city_default_drop_runs_the_fused_forward(city):
+    """The default drop (``shade="auto"``, under ``compute_paths``'s
+    ``no_grad``) against ``shade="xla"``: the fused forward's two kernels a
+    bounce, one ``trace.fused``, no backward kernel and no payload fetch
+    but the eta rows'; the written slots (the decisions) identical, every
+    value within the fused forward's tier (ROW_RTOL of its row's largest,
+    (re, im) and a vector's components as one row group)."""
+    out, grew = _city_drop(city)
+    want, grew_x = _city_drop(city, shade="xla")
+    launched = {k[len("launches."):]: v for k, v in grew.items()
+                if k.startswith("launches.")}
+    assert launched == {"walk_prepass": 7, "walk": 7, "bounce_pre": 3,
+                        "bounce_post": 3, "gather": 1}, launched
+    assert grew.get("trace.fused") == 1 and "trace.op" not in grew
+    assert grew_x.get("trace.op") == 1 and "trace.fused" not in grew_x
+    for part in (0, 1):
+        for f in checks.OUTPUT_FIELDS:
+            a, b = getattr(out[part], f), getattr(want[part], f)
+            written = (lambda x: (x.abs() > 0).any(-1) if x.ndim == 4
+                       else x.abs() > 0)
+            assert torch.equal(written(a), written(b)), (part, f)
+            a, b = _as_rows(a), _as_rows(b)
+            checks.rows_close(a, b, checks.ROW_RTOL, f"{part} {f}",
+                              (tuple(range(a.shape[1])),))
+    assert (out[1].a_te.abs() > 0).any()
+
+
+def test_city_o2i_drop_default_is_the_op_path(city):
+    """The O2I cell's flags (``transmission``, ``spawn_transmission``,
+    straight refraction) with the default shade: ``shade="xla"``'s bits,
+    one ``trace.op``, no fused kernel and no warning."""
+    flags = dict(transmission=True, spawn_transmission=True,
+                 refraction="straight")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out, grew = _city_drop(city, **flags)
+    want, _ = _city_drop(city, shade="xla", **flags)
+    assert grew.get("trace.op") == 1 and "trace.fused" not in grew
+    assert not any(k.startswith("launches.bounce_") for k in grew)
+    for part in (0, 1):
+        for f in checks.OUTPUT_FIELDS:
+            assert torch.equal(getattr(out[part], f),
+                               getattr(want[part], f)), (part, f)
 
 
 def _grad_step(dev, tris, nrx, paths, parity, **kw):

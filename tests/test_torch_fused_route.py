@@ -10,7 +10,15 @@ are decided as on the card.
   magnitude plus 1e-16), rows past 4842 included.
 - Past ``PRE_BWD_MAX_RX`` (340) RX the full pre backward's sums do not fit
   its shared memory: a ``grad_positions`` trace warns and runs the op path,
-  whose outputs and gradients it then gives bit for bit."""
+  whose outputs and gradients it then gives bit for bit.
+
+And where the default, ``shade="auto"``, goes (``tracer.resolve_shade``):
+the fused forward only where no gradient can be asked for, no
+transmission mode is set, the access is the whole scene's, the rays are on
+a card and the fused kernels take their shapes; the op path, silently,
+everywhere else.  The device type is a value of the resolution, so the
+card's route is taken here too by handing it ``"cuda"``: it gives the
+explicit ``shade="fused"`` forward's bits and keeps no residuals."""
 import dataclasses
 import warnings
 
@@ -18,12 +26,14 @@ import numpy as np
 import pytest
 import torch
 
-from hermespy_rt_tpu_torch import TracerConfig, default_materials
+from hermespy_rt_tpu_torch import TracerConfig, api, default_materials
 from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.scene import flatten_scene, random_soup_scene
-from hermespy_rt_tpu_torch.tracer import fused_loop, trace_paths
+from hermespy_rt_tpu_torch.tracer import (fused_loop, resolve_shade,
+                                          trace_paths)
+from hermespy_rt_tpu_torch.utils import profiling
 
 FREQ = 3.0
 # a dense soup around the TX (tests/test_torch_fused.py's), so rays hit,
@@ -184,3 +194,133 @@ def test_341_rx_full_gradient_falls_back_to_op_path(routes):
     for name, g in grads["xla"].items():
         assert g is not None and torch.equal(grads["fused"][name], g), name
     assert float(grads["xla"]["rx"].abs().max()) > 0
+
+
+_R, _NRX = 1 << 20, 4          # the box-city drop's rays and RX
+
+
+@pytest.mark.parametrize("grad,device,tri_sharded,rays,nrx,kw,want", [
+    (False, "cuda", False, _R, _NRX, {}, "fused"),
+    (True, "cuda", False, _R, _NRX, {}, "xla"),
+    (False, "cpu", False, _R, _NRX, {}, "xla"),
+    (True, "cpu", False, _R, _NRX, {}, "xla"),
+    (False, "cuda", False, _R, _NRX, dict(transmission=True), "xla"),
+    (False, "cuda", False, _R, _NRX, dict(spawn_transmission=True), "xla"),
+    (False, "cuda", True, _R, _NRX, {}, "xla"),
+    (False, "cuda", False, fused_ops.FWD_MAX_RAYS, 1, {}, "fused"),
+    (False, "cuda", False, fused_ops.FWD_MAX_RAYS + 1, 1, {}, "xla"),
+    (False, "cuda", False, _R, 0, {}, "xla"),
+    (True, "cuda", True, _R, _NRX, dict(transmission=True, shade="fused"),
+     "fused"),
+    (False, "cuda", False, _R, _NRX, dict(shade="xla"), "xla"),
+    (False, "cuda", False, _R, _NRX, dict(shade="pallas"), "pallas"),
+    (False, "cpu", False, _R, _NRX, dict(shade="fused"), "fused")])
+def test_resolve_shade(grad, device, tri_sharded, rays, nrx, kw, want):
+    """"auto" is the fused forward only with no gradient, no transmission
+    mode, the whole scene, a card and shapes its kernels take; a named
+    shade is itself whatever the trace looks like."""
+    cfg = TracerConfig(parity="physical", **kw)
+    assert resolve_shade(cfg, grad, device, tri_sharded, rays, nrx) == want
+
+
+def test_default_shade_is_auto():
+    assert TracerConfig().shade == "auto"
+
+
+def _grew(c0):
+    return {k: profiling.COUNTERS.get(k, 0) - c0.get(k, 0)
+            for k in ("trace.fused", "trace.op")}
+
+
+def _drop(parity="physical", **kw):
+    """``compute_paths`` on the dense soup, two RX, 512 paths, 2 bounces;
+    returns the outputs and the bounce loops it counted."""
+    tris, _ = _soup(17)
+    c0 = dict(profiling.COUNTERS)
+    los, sc = api.compute_paths(tris, RX, TX, None, None, FREQ, len(RX), 1,
+                                512, 2, device="cpu", parity=parity, **kw)
+    return (los, sc), _grew(c0)
+
+
+def _same_bits(a, b):
+    for part in (0, 1):
+        for f in OUTPUTS:
+            assert torch.equal(getattr(a[part], f), getattr(b[part], f)), (
+                part, f)
+
+
+@pytest.mark.parametrize("parity", ["reference", "physical"])
+def test_default_drop_on_cpu_is_the_op_path(parity):
+    """On the CPU the default ``compute_paths`` runs the op path:
+    ``shade="xla"``'s bits, one ``trace.op``."""
+    out, grew = _drop(parity)
+    want, grew_x = _drop(parity, shade="xla")
+    assert (out[1].a_te.abs() > 0).any()
+    _same_bits(out, want)
+    assert grew == grew_x == {"trace.fused": 0, "trace.op": 1}
+
+
+@pytest.fixture()
+def card_route(monkeypatch):
+    """``resolve_shade`` told that the rays are on a card; the
+    ``_fused_forward`` calls' ``save`` flags, in order."""
+    real_resolve, real_forward = resolve_shade, tracer_module._fused_forward
+    saves = []
+
+    def forward(*args, save, **kw):
+        saves.append(save)
+        return real_forward(*args, save=save, **kw)
+    monkeypatch.setattr(tracer_module, "resolve_shade",
+                        lambda cfg, grad, _device, *rest: real_resolve(
+                            cfg, grad, "cuda", *rest))
+    monkeypatch.setattr(tracer_module, "_fused_forward", forward)
+    return saves
+
+
+@pytest.mark.parametrize("parity", ["reference", "physical"])
+def test_card_route_runs_the_fused_forward(card_route, routes, parity):
+    """Where the rays are on a card, the default drop runs the fused
+    forward once with no residuals, whatever ``grad_positions`` and
+    ``unroll_bounces`` say, and gives the explicit ``shade="fused"``
+    trace's bits; ``trace.fused`` counts it."""
+    out, grew = _drop(parity)
+    assert routes == ["run_fused_loop_slim"] and card_route == [False]
+    assert grew == {"trace.fused": 1, "trace.op": 0}
+    del routes[:], card_route[:]
+    want, _ = _drop(parity, shade="fused")
+    assert routes == ["run_fused_loop_stages"] and card_route == []
+    _same_bits(out, want)
+    assert (out[1].a_te.abs() > 0).any()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(transmission=True), dict(spawn_transmission=True),
+    dict(transmission=True, spawn_transmission=True)])
+def test_card_route_under_transmission_is_the_silent_op_path(card_route,
+                                                             routes, kw):
+    """Under either transmission mode the default drop, even on a card,
+    runs the op path with no warning (warnings are errors here) and gives
+    ``shade="xla"``'s bits; ``trace.op`` counts it."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out, grew = _drop(**kw)
+    want, _ = _drop(shade="xla", **kw)
+    assert routes == [] and card_route == []
+    assert grew == {"trace.fused": 0, "trace.op": 1}
+    _same_bits(out, want)
+
+
+def test_card_route_with_a_gradient_is_the_op_path(card_route, routes):
+    """``api.trace`` with grad mode on and a material table that requires
+    grad: the op path, on a card too, and the gradient reaches the
+    table."""
+    tris, table = _soup(17)
+    mats = table()
+    c0 = dict(profiling.COUNTERS)
+    res = api.trace(tris, RX, TX, config=TracerConfig(
+        num_paths=512, num_bounces=2, parity="physical", keep_rays=False),
+        materials=mats, device="cpu")
+    _loss(res).backward()
+    assert routes == [] and card_route == []
+    assert _grew(c0) == {"trace.fused": 0, "trace.op": 1}
+    assert float(mats.a.grad.abs().max()) > 0
