@@ -44,7 +44,7 @@ class TracerConfig:
                    detaches it (material gradients are unchanged).
       shade:       bounce shading: "auto" (the default) picks one of the
                    next three from what the trace can observe
-                   (``tracer.resolve_shade``): the fused forward kernels
+                   (``tracer.plan_bounce_loop``): the fused forward kernels
                    where no gradient can be asked for (grad mode off, or no
                    tensor the bounce loop reads requires grad), neither
                    transmission mode is set, the scene access is the whole

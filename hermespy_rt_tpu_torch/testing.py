@@ -514,33 +514,31 @@ def material_table(n, rng, device):
     return MaterialTable(cols, device=device)
 
 
-def _step_shade(cfg, nrx):
-    """The shade a :func:`calibration_step` of ``cfg`` at ``nrx`` RX runs
-    on the card: it asks for a gradient, on the whole scene."""
-    return tracer_module.resolve_shade(cfg, True, "cuda", False,
-                                       cfg.num_paths, nrx)
-
-
 def calibration_launches(cfg, nrx):
     """The launches of one :func:`calibration_step` of ``cfg`` at ``nrx``
     receivers (the bench flags, one TX, one material table, loss of the
     scatter gains only): one nearest-hit query for the LoS, one a bounce
     for the bounce rays and one a bounce per group of RX rows of its shadow
-    rays (``tracer.rx_rows_per_query``); with ``shade="fused"``
-    the two fused stages a bounce, the whole-loop material backward once and
-    the gather of the payload table's eta rows; with ``shade="xla"`` that
+    rays (``tracer.rx_rows_per_query``); on the ``"fused_slim"`` route the
+    two fused stages a bounce, the whole-loop material backward once and
+    the gather of the payload table's eta rows; on the op path that
     gather, a bounce's payload rows and hit normals, one gather each, and
-    each but the normals' summed back by one scatter-add.  The shade is
-    the one ``tracer.resolve_shade`` gives a step on the card that asks for
-    a gradient."""
+    each but the normals' summed back by one scatter-add.  The route is
+    the one ``tracer.plan_bounce_loop`` gives a step on the card that asks
+    for a gradient; any other raises ValueError."""
     B = cfg.num_bounces
     groups = nrx // tracer_module.rx_rows_per_query(nrx, cfg.num_paths,
                                                     cfg.rx_query_rays)
     out = {**{n: 0 for n in KERNELS}, "nearest_hit": 1 + B * (1 + groups)}
-    if _step_shade(cfg, nrx) == "fused":
+    route = tracer_module.plan_bounce_loop(
+        cfg, grad=True, device="cuda", tri_sharded=False,
+        rays=cfg.num_paths, nrx=nrx, n_materials=1).route
+    if route == "fused_slim":
         out.update(bounce_pre=B, bounce_post=B, loop_bwd_slim=1, gather=1)
-    else:
+    elif route == "op":
         out.update(gather=1 + 2 * B, scatter_add=1 + B)
+    else:
+        raise ValueError(f"no launch count for the {route!r} route")
     return out
 
 
@@ -575,7 +573,7 @@ def transmission_launches(cfg, walk=False):
     out = {**{n: 0 for n in KERNELS}, "walk_prepass": 0, "walk": 0,
            "gather": 1 + cfg.transmission + B * per_bounce,
            "scatter_add": 1 + B * per_bounce,
-           "shade_a": (B if _step_shade(cfg, 1) == "pallas"
+           "shade_a": (B if cfg.shade == "pallas"
                        and not cfg.spawn_transmission else 0)}
     if walk:
         out.update(walk_prepass=queries, walk=queries)

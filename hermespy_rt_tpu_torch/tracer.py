@@ -13,19 +13,16 @@ re-derived from the gathered triangle row, so ``loss.backward()`` reaches the
 material table (and, with ``grad_geometry``, the triangle payload) through
 plain autograd.  The bounce scan of the JAX package is a Python loop here.
 
-With ``shade="fused"`` the bounce loop runs per bounce two fused kernels
-around the shadow query (``ops/bounce_fused_cuda.py``).  With
-``grad_positions=False`` (and ``unroll_bounces``) the loop is one autograd
-node, :class:`FusedLoopSlim`, whose material backward is one kernel, as the
-JAX package's ``fused_loop_slim``; otherwise, and for material tables larger
-than that kernel holds, each stage is an autograd node whose backward is a
-kernel (:func:`run_fused_loop_stages`), as JAX's per-stage ``bounce_pre`` /
-``bounce_post``.  Past the RX count the full per-stage backward takes, a
-``grad_positions`` trace runs the op path and warns (:func:`fused_loop`).
-The default, ``shade="auto"``, runs the fused forward alone, with no
-autograd node, where no gradient can be asked for and the rest of the
-trace allows it (:func:`resolve_shade`), else the op path; the counters
-``trace.fused`` and ``trace.op`` count the bounce loops each runs.
+The fused bounce loop runs per bounce two fused kernels around the shadow
+query (``ops/bounce_fused_cuda.py``): as one autograd node,
+:class:`FusedLoopSlim`, whose material backward is one kernel, as the JAX
+package's ``fused_loop_slim``; or with each stage an autograd node whose
+backward is a kernel (:func:`run_fused_loop_stages`), as JAX's per-stage
+``bounce_pre`` / ``bounce_post``; or as the forward alone, with no node.
+Which of these or the op path a trace runs, and where ``shade="fused"``
+warns and falls back, is decided in one place, :func:`plan_bounce_loop`;
+the counters ``trace.fused`` and ``trace.op`` count the bounce loops each
+runs.
 
 Scenes of 4096 padded triangles and more (``walk="auto"``) answer every
 query through the visit-list walk (``ops/walk_cuda.py``) instead of the brute
@@ -55,7 +52,7 @@ import copy
 import dataclasses
 import warnings
 from functools import partial
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -79,8 +76,8 @@ from .utils.profiling import (api_call, count, current_call, open_span,
                               span, traced_backward)
 
 __all__ = ["ChannelInfo", "RaysInfo", "PathsResult", "trace_paths",
-           "LocalSceneAccess", "run_bounce_loop", "resolve_shade",
-           "transmit_patterns", "trace_with",
+           "LocalSceneAccess", "run_bounce_loop", "plan_bounce_loop",
+           "BouncePlan", "transmit_patterns", "trace_with",
            "SPEED_OF_LIGHT", "PI"]
 
 PI = float(np.float32(np.pi))
@@ -702,8 +699,8 @@ def run_fused_loop_slim(access: LocalSceneAccess, rx_pos, state0, fslm,
     """The fused bounce loop from the :func:`launch_state` tuple as one
     :class:`FusedLoopSlim` node, its outputs in the per-bounce ``ys`` layout
     of :func:`assemble_scatter`.  Residuals are kept only when a gradient
-    can be asked for; where none can, this is the forward alone, the route
-    of ``shade="auto"``."""
+    can be asked for; where none can, this is the forward alone, the
+    plan's ``"fused_forward"`` route."""
     o, d, st0, act, pidx = _launch_rows(state0)
     spec = _fused_spec(cfg, rx_pos.shape[0])
     sc = torch.stack([fslm, k_dop]).detach()
@@ -744,98 +741,96 @@ def run_fused_loop_stages(access: LocalSceneAccess, rx_pos, state0, fslm,
                 fused_ops.bounce_post_stage)]
 
 
-def fused_loop(cfg: TracerConfig, nrx: int, n_materials: int):
-    """The fused bounce loop that runs a ``shade="fused"`` trace of ``nrx``
-    RX and ``n_materials`` materials, or None for the op path.
+class BouncePlan(NamedTuple):
+    """The bounce loop a trace runs (:func:`plan_bounce_loop`): ``route`` is
+    ``"op"`` (:func:`bounce_step` a bounce), ``"fused_forward"`` (the fused
+    forward alone, no autograd node), ``"fused_slim"``
+    (:func:`run_fused_loop_slim`) or ``"fused_stages"``
+    (:func:`run_fused_loop_stages`); ``warning`` the fallback's message
+    where an explicit ``shade="fused"`` runs the op path, else None."""
 
-    Under ``grad_positions=False`` with ``unroll_bounces``, the whole loop
-    as one node (:func:`run_fused_loop_slim`), unless the material table has
-    more than ``MAX_MATERIALS`` rows, which its backward's per-warp ``[M,
-    12]`` tables in shared memory cannot hold: then the per-stage nodes,
-    whose slim backwards read per-ray rows and sum them into the table with
-    the scatter-add, at any table size.  With ``grad_positions``, the
-    per-stage nodes up to ``PRE_BWD_MAX_RX`` RX (the full pre backward keeps
-    its sums across rays in shared memory); beyond, the op path on the same
-    device, with a warning, as the JAX package falls back past its own
-    limits.  Under ``transmission`` or ``spawn_transmission`` the op path,
-    with a warning, as the JAX package: the fused stages reflect only and
-    zero a blocked shadow ray."""
-    if cfg.transmission or cfg.spawn_transmission:
-        warnings.warn("shade='fused' falling back to the op path: "
-                      "transmission modes run on the op path only",
-                      stacklevel=6)
-        return None
+    route: str
+    warning: Optional[str] = None
+
+
+_FALLBACK = "shade='fused' falling back to the op path: "
+
+
+def plan_bounce_loop(cfg: TracerConfig, *, grad: bool, device: str,
+                     tri_sharded: bool, rays: int, nrx: int,
+                     n_materials: int) -> BouncePlan:
+    """The one rule for which bounce loop a trace of ``cfg`` runs, from
+    what it observes: whether a gradient can be asked for (``grad``), the
+    rays' device type, whether the scene access is triangle-sharded, the
+    ray, RX and material counts.
+
+    ``"xla"`` and ``"pallas"`` run the op path.  ``"auto"`` runs the fused
+    forward alone where no gradient can be asked for, neither transmission
+    mode is set (the fused stages reflect only), the access is the whole
+    scene's, the rays are on a card (on the CPU the fused wrappers run
+    plain torch, which gains nothing) and the forward kernels take ``rays``
+    rays of ``nrx`` RX; else the op path, silently.  ``"fused"`` runs the
+    op path with a warning, as the JAX package falls back past its own
+    limits, where a triangle-sharded access holds no whole-scene table for
+    the fused kernels, under either transmission mode, and with
+    ``grad_positions`` past ``PRE_BWD_MAX_RX`` RX (the full pre backward
+    keeps its sums across rays in shared memory).  Otherwise it runs the
+    per-stage nodes with ``grad_positions``; without, the whole loop as one
+    node under ``unroll_bounces`` up to ``MAX_MATERIALS`` materials (its
+    backward's per-warp ``[M, 12]`` tables live in shared memory), else the
+    per-stage nodes, whose slim backwards sum per-ray rows into the table
+    with the scatter-add at any table size."""
+    transmits = cfg.transmission or cfg.spawn_transmission
+    if cfg.shade == "auto":
+        fused = (not grad and not transmits and not tri_sharded
+                 and device == "cuda" and fused_ops.forward_takes(rays, nrx))
+        return BouncePlan("fused_forward" if fused else "op")
+    if cfg.shade != "fused":
+        return BouncePlan("op")
+    if tri_sharded:
+        return BouncePlan("op", _FALLBACK + "tri-sharded scene access")
+    if transmits:
+        return BouncePlan("op", _FALLBACK + "transmission modes run on the "
+                          "op path only")
     if cfg.grad_positions:
         if nrx > fused_ops.PRE_BWD_MAX_RX:
-            warnings.warn(
-                "shade='fused' falling back to the op path: "
-                f"nrx={nrx} > {fused_ops.PRE_BWD_MAX_RX}, the most RX the "
-                "full pre-stage backward takes", stacklevel=6)
-            return None
-        return run_fused_loop_stages
+            return BouncePlan(
+                "op", _FALLBACK + f"nrx={nrx} > {fused_ops.PRE_BWD_MAX_RX}, "
+                "the most RX the full pre-stage backward takes")
+        return BouncePlan("fused_stages")
     if cfg.unroll_bounces and n_materials <= fused_ops.MAX_MATERIALS:
-        return run_fused_loop_slim
-    return run_fused_loop_stages
-
-
-def resolve_shade(cfg: TracerConfig, grad: bool, device: str,
-                  tri_sharded: bool, rays: int, nrx: int) -> str:
-    """The shading a bounce loop of ``cfg`` runs: ``cfg.shade`` where the
-    caller named one; for ``"auto"``, ``"fused"`` (the fused forward alone)
-    where no gradient can be asked for (``grad`` False), neither
-    transmission mode is set (the fused stages reflect only), the scene
-    access is the whole scene's (``tri_sharded`` False), the rays are on a
-    card (``device``, their device type: on the CPU the fused wrappers run
-    plain torch, which gains nothing) and the fused forward kernels take
-    ``rays`` rays of ``nrx`` RX; else ``"xla"``, the op path."""
-    if cfg.shade != "auto":
-        return cfg.shade
-    fused = (not grad and not cfg.transmission
-             and not cfg.spawn_transmission and not tri_sharded
-             and device == "cuda" and fused_ops.forward_takes(rays, nrx))
-    return "fused" if fused else "xla"
-
-
-def _grad_possible(access: LocalSceneAccess, rx_pos, state0, fslm,
-                   k_dop) -> bool:
-    """Whether a gradient can be asked of the bounce loop: grad mode on and
-    a tensor it reads (the access's tables, the RX positions, the launch
-    state, the carrier scalars) requiring grad."""
-    return torch.is_grad_enabled() and any(
-        isinstance(x, torch.Tensor) and x.requires_grad
-        for x in (access._eta_tab, access._table, rx_pos, fslm, k_dop,
-                  *state0))
+        return BouncePlan("fused_slim")
+    return BouncePlan("fused_stages")
 
 
 def run_bounce_loop(access: LocalSceneAccess, rx_pos, state0, fslm, k_dop,
                     cfg: TracerConfig):
-    """The bounce loop from the :func:`launch_state` tuple, its outputs per
-    bounce in the ``ys`` layout of :func:`assemble_scatter`: the fused loop
-    :func:`fused_loop` picks under ``shade="fused"``, the fused forward
-    where ``"auto"`` resolves to it (:func:`resolve_shade`), else
-    :func:`bounce_step` per bounce; counts ``trace.fused`` or ``trace.op``
-    (host only).  Shared by :func:`trace_paths` and the shard body of
+    """The bounce loop from the :func:`launch_state` tuple that
+    :func:`plan_bounce_loop` picks, its outputs per bounce in the ``ys``
+    layout of :func:`assemble_scatter`; warns where the plan falls back and
+    counts ``trace.fused`` or ``trace.op`` (host only).  Shared by
+    :func:`trace_paths` and the shard body of
     ``parallel.trace_paths_sharded``, where the fused kernels run per ray
-    shard (they are per-ray maps).  A triangle-sharded access holds no
-    whole-scene table for the fused kernels: ``shade="fused"`` then warns
-    and runs the op path, as the JAX package."""
-    shade = resolve_shade(
-        cfg, _grad_possible(access, rx_pos, state0, fslm, k_dop),
-        state0[0].device.type, access.tri_sharded, state0[0].shape[0],
-        rx_pos.shape[0])
-    run = None
-    if shade == "fused":
-        if cfg.shade == "auto":
-            # no gradient can be asked for: the forward alone
-            run = run_fused_loop_slim
-        elif access.tri_sharded:
-            warnings.warn("shade='fused' falling back to the op path: "
-                          "tri-sharded scene access", stacklevel=5)
-        else:
-            run = fused_loop(cfg, rx_pos.shape[0], access._eta_tab.shape[0])
-    count("trace.op" if run is None else "trace.fused")
-    if run is not None:
-        return run(access, rx_pos, state0, fslm, k_dop, cfg)
+    shard (they are per-ray maps).  A gradient can be asked for where grad
+    mode is on and a tensor the loop reads (the access's tables, the RX
+    positions, the launch state, the carrier scalars) requires grad."""
+    grad = torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad
+        for x in (access._eta_tab, access._table, rx_pos, fslm, k_dop,
+                  *state0))
+    plan = plan_bounce_loop(
+        cfg, grad=grad, device=state0[0].device.type,
+        tri_sharded=access.tri_sharded, rays=state0[0].shape[0],
+        nrx=rx_pos.shape[0], n_materials=access._eta_tab.shape[0])
+    if plan.warning is not None:
+        warnings.warn(plan.warning, stacklevel=5)
+    count("trace.op" if plan.route == "op" else "trace.fused")
+    if plan.route == "fused_stages":
+        return run_fused_loop_stages(access, rx_pos, state0, fslm, k_dop,
+                                     cfg)
+    if plan.route in ("fused_slim", "fused_forward"):
+        # where no gradient can be asked for, its forward alone
+        return run_fused_loop_slim(access, rx_pos, state0, fslm, k_dop, cfg)
     ys, state = [], state0
     for k in range(cfg.num_bounces):
         with span("hrt.bounce", k=k):

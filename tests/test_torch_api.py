@@ -2,6 +2,8 @@
 ``tests/test_api.py``, argument validation, ``.hrt`` input, agreement of
 ``compute_paths`` with the JAX package's, and that importing the port
 leaves JAX out."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import inspect
 import os
 import re

@@ -16,6 +16,8 @@ Counterparts of ``tests/test_aux.py`` and of
 * the C++ reader, writer, PLY reader and flattening equal the Python ones
   (skipped only where no ``g++`` builds the library).
 """
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import io
 import json
 import os

@@ -8,6 +8,8 @@ and nrx 4 (``shade="xla"``): the loss within ``SUM_RTOL`` (a sum of ~10^4
 f32 terms in another order), each material leaf within ``PATH_GRAD_RTOL``
 of its largest magnitude (``testing.py``); and the port's flags against the
 text of the repository's ``bench.py``."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import ast
 import contextlib
 import io

@@ -55,6 +55,8 @@ and every gather, shading call, culled query and scatter-add it records
 holds against its plain version; ``shade="fused"`` warns and gives the op
 path's bits; the walk, answering the shadow queries with the nearest
 blocker, gives the brute scan's trace bit for bit."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 import warnings
 

@@ -11,6 +11,8 @@ wrapper, which runs the plain brute query there) is held against JAX's
 and ``live``, to the tier of ``tests/test_torch_intersect.py`` (every
 decision flip an f64 edge or tie case, ``t`` to rtol 2e-5).  The kernel
 itself is tested on the card by ``tests/test_torch_cuda.py``."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import types
 
 import numpy as np

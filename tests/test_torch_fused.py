@@ -14,6 +14,8 @@ through ``precompute_eta``), at 3e-5 of each leaf's largest magnitude plus
 1e-16 (``tests/test_bounce_fused.py:125``).  Then the port's own contracts:
 int32 material ids past 256, the config's refusals, no residuals without
 gradient, no launches for CPU tensors."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 
 import numpy as np

@@ -2,6 +2,8 @@
 (``ops/bounce_fused_cuda.py``), on the CPU: the block's threads from the
 material count (the warps' tables in shared memory), and the grid, a few
 waves of blocks that the card deals out as they finish."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import pytest
 
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops

@@ -1,6 +1,6 @@
-"""Which bounce loop a ``shade="fused"`` trace takes (``tracer.fused_loop``),
-on the CPU, where each kernel wrapper runs its plain version and the routes
-are decided as on the card.
+"""Which bounce loop a trace takes (``tracer.plan_bounce_loop``), on the
+CPU, where each kernel wrapper runs its plain version and the routes are
+decided as on the card.  Under ``shade="fused"``:
 
 - Past ``MAX_MATERIALS`` (4842) materials the whole-loop backward's per-warp
   ``[M, 12]`` shared-memory tables do not fit: a ``grad_positions=False``
@@ -12,13 +12,15 @@ are decided as on the card.
   its shared memory: a ``grad_positions`` trace warns and runs the op path,
   whose outputs and gradients it then gives bit for bit.
 
-And where the default, ``shade="auto"``, goes (``tracer.resolve_shade``):
-the fused forward only where no gradient can be asked for, no
-transmission mode is set, the access is the whole scene's, the rays are on
-a card and the fused kernels take their shapes; the op path, silently,
-everywhere else.  The device type is a value of the resolution, so the
-card's route is taken here too by handing it ``"cuda"``: it gives the
-explicit ``shade="fused"`` forward's bits and keeps no residuals."""
+And where the default, ``shade="auto"``, goes: the fused forward only
+where no gradient can be asked for, no transmission mode is set, the access
+is the whole scene's, the rays are on a card and the fused kernels take
+their shapes; the op path, silently, everywhere else.  The device type is a
+value of the plan, so the card's route is taken here too by handing it
+``"cuda"``: it gives the explicit ``shade="fused"`` forward's bits and
+keeps no residuals."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 import warnings
 
@@ -31,7 +33,7 @@ from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.scene import flatten_scene, random_soup_scene
-from hermespy_rt_tpu_torch.tracer import (fused_loop, resolve_shade,
+from hermespy_rt_tpu_torch.tracer import (BouncePlan, plan_bounce_loop,
                                           trace_paths)
 from hermespy_rt_tpu_torch.utils import profiling
 
@@ -83,30 +85,6 @@ def routes(monkeypatch):
             return _real(*args, **kw)
         monkeypatch.setattr(tracer_module, name, spy)
     return taken
-
-
-@pytest.mark.parametrize("kw,nrx,M,route", [
-    (dict(), 1, fused_ops.MAX_MATERIALS, "run_fused_loop_slim"),
-    (dict(), 1, fused_ops.MAX_MATERIALS + 1, "run_fused_loop_stages"),
-    (dict(unroll_bounces=False), 1, 17, "run_fused_loop_stages"),
-    (dict(unroll_bounces=False), 341, 5000, "run_fused_loop_stages"),
-    (dict(grad_positions=True), fused_ops.PRE_BWD_MAX_RX, 5000,
-     "run_fused_loop_stages"),
-    (dict(grad_positions=True, grad_geometry=True),
-     fused_ops.PRE_BWD_MAX_RX + 1, 17, None)])
-def test_fused_loop_route(routes, kw, nrx, M, route):
-    """The slim loop up to MAX_MATERIALS materials; the per-stage nodes
-    past it, without unrolling and with grad_positions up to 340 RX; the
-    op path (None) past 340 RX with grad_positions, with a warning that
-    names the limit, and no warning elsewhere."""
-    cfg = _cfg(**kw)
-    if route is None:
-        with pytest.warns(UserWarning, match="340"):
-            assert fused_loop(cfg, nrx, M) is None
-    else:
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            assert fused_loop(cfg, nrx, M) is getattr(tracer_module, route)
 
 
 def test_5000_materials_take_the_stage_path(routes, monkeypatch):
@@ -197,30 +175,99 @@ def test_341_rx_full_gradient_falls_back_to_op_path(routes):
 
 
 _R, _NRX = 1 << 20, 4          # the box-city drop's rays and RX
+_M = fused_ops.MAX_MATERIALS
+# the three fallbacks' warnings, word for word
+_TRI = "shade='fused' falling back to the op path: tri-sharded scene access"
+_TRANS = ("shade='fused' falling back to the op path: transmission modes "
+          "run on the op path only")
+_RX341 = ("shade='fused' falling back to the op path: nrx=341 > 340, the "
+          "most RX the full pre-stage backward takes")
+_FUSED = dict(shade="fused", grad_positions=False, grad_geometry=False)
 
 
-@pytest.mark.parametrize("grad,device,tri_sharded,rays,nrx,kw,want", [
-    (False, "cuda", False, _R, _NRX, {}, "fused"),
-    (True, "cuda", False, _R, _NRX, {}, "xla"),
-    (False, "cpu", False, _R, _NRX, {}, "xla"),
-    (True, "cpu", False, _R, _NRX, {}, "xla"),
-    (False, "cuda", False, _R, _NRX, dict(transmission=True), "xla"),
-    (False, "cuda", False, _R, _NRX, dict(spawn_transmission=True), "xla"),
-    (False, "cuda", True, _R, _NRX, {}, "xla"),
-    (False, "cuda", False, fused_ops.FWD_MAX_RAYS, 1, {}, "fused"),
-    (False, "cuda", False, fused_ops.FWD_MAX_RAYS + 1, 1, {}, "xla"),
-    (False, "cuda", False, _R, 0, {}, "xla"),
-    (True, "cuda", True, _R, _NRX, dict(transmission=True, shade="fused"),
-     "fused"),
-    (False, "cuda", False, _R, _NRX, dict(shade="xla"), "xla"),
-    (False, "cuda", False, _R, _NRX, dict(shade="pallas"), "pallas"),
-    (False, "cpu", False, _R, _NRX, dict(shade="fused"), "fused")])
-def test_resolve_shade(grad, device, tri_sharded, rays, nrx, kw, want):
-    """"auto" is the fused forward only with no gradient, no transmission
-    mode, the whole scene, a card and shapes its kernels take; a named
-    shade is itself whatever the trace looks like."""
+@pytest.mark.parametrize("kw,grad,device,tri_sharded,rays,nrx,M,want", [
+    # "auto": the fused forward only with no gradient, no transmission
+    # mode, the whole scene, a card and shapes its kernels take
+    ({}, False, "cuda", False, _R, _NRX, 17, BouncePlan("fused_forward")),
+    ({}, True, "cuda", False, _R, _NRX, 17, BouncePlan("op")),
+    ({}, False, "cpu", False, _R, _NRX, 17, BouncePlan("op")),
+    ({}, True, "cpu", False, _R, _NRX, 17, BouncePlan("op")),
+    (dict(transmission=True), False, "cuda", False, _R, _NRX, 17,
+     BouncePlan("op")),
+    (dict(spawn_transmission=True), False, "cuda", False, _R, _NRX, 17,
+     BouncePlan("op")),
+    ({}, False, "cuda", True, _R, _NRX, 17, BouncePlan("op")),
+    ({}, False, "cuda", False, fused_ops.FWD_MAX_RAYS, 1, 17,
+     BouncePlan("fused_forward")),
+    ({}, False, "cuda", False, fused_ops.FWD_MAX_RAYS + 1, 1, 17,
+     BouncePlan("op")),
+    ({}, False, "cuda", False, _R, 0, 17, BouncePlan("op")),
+    # "xla" and "pallas": the op path whatever the trace looks like
+    (dict(shade="xla"), False, "cuda", False, _R, _NRX, 17,
+     BouncePlan("op")),
+    (dict(shade="pallas"), False, "cuda", False, _R, _NRX, 17,
+     BouncePlan("op")),
+    (dict(shade="pallas", transmission=True), True, "cuda", True, _R, 341,
+     _M + 1, BouncePlan("op")),
+    # "fused": the fallbacks, in their order, with their warnings
+    (dict(transmission=True, shade="fused"), True, "cuda", True, _R, _NRX,
+     17, BouncePlan("op", _TRI)),
+    (dict(shade="fused"), False, "cpu", True, _R, _NRX, 17,
+     BouncePlan("op", _TRI)),
+    (dict(shade="fused", transmission=True), True, "cuda", False, _R, _NRX,
+     17, BouncePlan("op", _TRANS)),
+    (dict(shade="fused", spawn_transmission=True), True, "cuda", False, _R,
+     341, 17, BouncePlan("op", _TRANS)),
+    (dict(grad_positions=True, grad_geometry=True, shade="fused"), True,
+     "cuda", False, 512, fused_ops.PRE_BWD_MAX_RX + 1, 17,
+     BouncePlan("op", _RX341)),
+    # "fused" without a fallback: per-stage nodes with grad_positions up to
+    # 340 RX, whatever the device; the slim loop up to MAX_MATERIALS
+    # materials under unroll_bounces; the per-stage nodes past it or
+    # without unrolling
+    (dict(shade="fused"), False, "cpu", False, _R, _NRX, 17,
+     BouncePlan("fused_stages")),
+    (dict(_FUSED, grad_positions=True), True, "cuda", False, 512,
+     fused_ops.PRE_BWD_MAX_RX, 5000, BouncePlan("fused_stages")),
+    (_FUSED, True, "cuda", False, 512, 1, _M, BouncePlan("fused_slim")),
+    (_FUSED, False, "cuda", False, 512, 341, _M, BouncePlan("fused_slim")),
+    (_FUSED, True, "cuda", False, 512, 1, _M + 1,
+     BouncePlan("fused_stages")),
+    (dict(_FUSED, unroll_bounces=False), True, "cuda", False, 512, 1, 17,
+     BouncePlan("fused_stages")),
+    (dict(_FUSED, unroll_bounces=False), True, "cuda", False, 512, 341,
+     5000, BouncePlan("fused_stages"))])
+def test_plan_bounce_loop(kw, grad, device, tri_sharded, rays, nrx, M,
+                          want):
+    """Each row of the rule: the route and the fallback's warning, which
+    the plan returns and never emits itself."""
     cfg = TracerConfig(parity="physical", **kw)
-    assert resolve_shade(cfg, grad, device, tri_sharded, rays, nrx) == want
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        plan = plan_bounce_loop(cfg, grad=grad, device=device,
+                                tri_sharded=tri_sharded, rays=rays, nrx=nrx,
+                                n_materials=M)
+    assert plan == want
+
+
+@pytest.mark.parametrize("kw,route", [
+    (_FUSED, "fused_slim"), (dict(shade="xla"), "op"),
+    (dict(shade="fused"), "fused_stages"),
+    (dict(_FUSED, unroll_bounces=False), "fused_stages")])
+def test_calibration_launches_count_the_plan(kw, route):
+    """``testing.calibration_launches`` counts a step on the route the
+    plan gives it: the whole-loop backward once on ``"fused_slim"``, the
+    scatter-adds of the op path on ``"op"``, and no count (ValueError) for
+    the per-stage nodes, whose launches it does not know."""
+    cfg = TracerConfig(num_paths=1 << 20, num_bounces=3, **kw)
+    if route == "fused_stages":
+        with pytest.raises(ValueError, match="fused_stages"):
+            checks.calibration_launches(cfg, 4)
+        return
+    got = checks.calibration_launches(cfg, 4)
+    slim = route == "fused_slim"
+    assert got["loop_bwd_slim"] == slim and got["bounce_pre"] == 3 * slim
+    assert got["scatter_add"] == (0 if slim else 4)
 
 
 def test_default_shade_is_auto():
@@ -262,17 +309,17 @@ def test_default_drop_on_cpu_is_the_op_path(parity):
 
 @pytest.fixture()
 def card_route(monkeypatch):
-    """``resolve_shade`` told that the rays are on a card; the
+    """``plan_bounce_loop`` told that the rays are on a card; the
     ``_fused_forward`` calls' ``save`` flags, in order."""
-    real_resolve, real_forward = resolve_shade, tracer_module._fused_forward
+    real_plan, real_forward = plan_bounce_loop, tracer_module._fused_forward
     saves = []
 
     def forward(*args, save, **kw):
         saves.append(save)
         return real_forward(*args, save=save, **kw)
-    monkeypatch.setattr(tracer_module, "resolve_shade",
-                        lambda cfg, grad, _device, *rest: real_resolve(
-                            cfg, grad, "cuda", *rest))
+    monkeypatch.setattr(tracer_module, "plan_bounce_loop",
+                        lambda cfg, *, device, **kw: real_plan(
+                            cfg, device="cuda", **kw))
     monkeypatch.setattr(tracer_module, "_fused_forward", forward)
     return saves
 

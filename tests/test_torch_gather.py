@@ -10,6 +10,8 @@ and without its column window, is held against ``jax.vjp`` of
 ``pallas_scatter_add``) to 3e-5 of each table row's largest magnitude (the
 sums are taken in other orders).  The kernel itself is tested on the card by
 ``tests/test_torch_cuda.py``."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import numpy as np
 import pytest
 import torch

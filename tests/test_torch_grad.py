@@ -11,6 +11,8 @@ loss carries the gradient.  Then RX, TX and triangle velocities are
 differentiated against ``jax.grad`` on the same inputs with a seeded
 weighting of the Doppler outputs (so that the TX term does not cancel over
 the launch sphere), within rtol 1e-4 of each leaf's largest magnitude."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 
 import numpy as np

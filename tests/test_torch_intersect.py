@@ -9,6 +9,8 @@ and ``t`` must agree to rtol 2e-5 where the index agrees, as
 False) are left out of the comparison: their result is unspecified in the JAX
 package and a miss in the port.  The kernel itself is tested on the card by
 ``tests/test_torch_cuda.py``."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import numpy as np
 import pytest
 import torch

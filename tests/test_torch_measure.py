@@ -3,6 +3,8 @@ the bound, the walk prepass's bounds against counts made by hand on a
 small query, the prune's operation count against its source, the
 whole-loop backward's bytes and operations against a count by hand, and
 the ``ptxas`` parser on a build log's lines."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import re
 from pathlib import Path
 

@@ -9,6 +9,8 @@ magnitude, as ``tests/test_torch_tracer.py``), coverage maps with and
 without ``transmission`` (the same blockage, gains within that tier), the
 sweep's chunks read by both packages' ``load_sweep_results`` and resumed by
 either, and the validators' verdicts."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 import inspect
 import json

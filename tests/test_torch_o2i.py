@@ -11,6 +11,8 @@ above it.  Then the cell's RX drawer, the span ``hrt.transmit`` with the
 counters ``fetch.rows``, ``fetch.values`` and ``transmit.blocker_rows``,
 and the byte count behind ``gather.roofline_pct``.
 """
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import ast
 import contextlib
 import os
@@ -47,19 +49,6 @@ F_GHZ = float(CFG["tracer"]["frequency_ghz"])
 FAULT_PATHS = 512
 FLAGS = dict(parity="physical", transmission=True, spawn_transmission=True,
              refraction="straight")
-
-
-@contextlib.contextmanager
-def _one_thread():
-    """One intra-op thread: the walk's plain version is many small CPU ops,
-    which a pool of threads only slows down while other test workers share
-    the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -124,8 +113,7 @@ def test_planted_faults_fail_the_limit(city, fault_reference, fault):
     fault planted under ``compute_paths`` it reads above the limit."""
     P = FAULT_PATHS
     with (o2i_faults.planted(fault) if fault
-          else contextlib.nullcontext()), (
-            _one_thread() if fault == "any_hit" else contextlib.nullcontext()):
+          else contextlib.nullcontext()):
         los, sc = api.compute_paths(city.scene, city.rx, TX[None], None,
                                     None, F_GHZ, len(city.rx), 1, P, B,
                                     device="cpu", **FLAGS)

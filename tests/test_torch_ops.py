@@ -5,6 +5,8 @@ Inputs are made with numpy from a seed and fed to both packages.  Tolerance
 rtol 1e-6 / atol 1e-7 throughout: the two sides run the same f32 operations
 in the same order, and the remaining differences are the last-ulp results of
 the libraries' own pow/exp/sin/sqrt."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import numpy as np
 import pytest
 import torch

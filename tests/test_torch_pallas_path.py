@@ -14,6 +14,8 @@ of the largest, ``tests/test_torch_tracer.py``'s tier) and the loss to
 1e-5; gradients to the materials, the RX and TX positions, the carrier
 frequency and the vertices within 3e-5 of each leaf's largest magnitude plus
 1e-16 (``tests/test_torch_stages.py``'s tier)."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 
 import numpy as np

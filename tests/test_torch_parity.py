@@ -8,6 +8,8 @@ by the JAX tests' own comparisons (``check_los``, ``check_scatter``,
 ``assert_mostly_allclose``) at their tolerances.  Every case skips where the
 reference checkout (``$HERMESPY_RT_REFERENCE``, or the default of
 ``tests/utils.py``) is absent."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import ctypes
 import os
 import types

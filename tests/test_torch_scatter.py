@@ -11,6 +11,8 @@ its terms' magnitudes (the sums are taken in other orders).  The plans
 (which route, how many blocks and warps, which rows a warp owns; the
 gather's 32-row groups) are pure Python and checked at the shapes the
 tracer gives them."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import numpy as np
 import pytest
 import torch

@@ -1,5 +1,7 @@
 """PyTorch port vs JAX package: scene flattening and the HRT reader.
 Flattening is host numpy on both sides, so the SoA must be bit-equal."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 import io
 

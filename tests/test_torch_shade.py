@@ -18,6 +18,8 @@ tier of each row plus 1e-16, except where the port is nearer than JAX to the
 float64 evaluation of the plain chain (a near-grazing hit's vertex
 cotangents, where f32 rounding orders part: at most 1% of the rays).  The
 kernel itself is tested on the card by ``tests/test_torch_cuda.py``."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 
 import numpy as np

@@ -25,6 +25,8 @@ npz.  Held here:
   fused path's warning under triangle sharding, and that no worker
   imported ``jax``.
 """
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import json
 import os
 import socket

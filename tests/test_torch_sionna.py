@@ -7,6 +7,8 @@ the port may not), and the port's ``load_scene`` reads that city, a CSV
 override and XML that is not well formed exactly as the JAX ``load_scene``
 does: vertices, faces, material ids, velocities, names, the baked
 ``to_world`` lift, and the flattened, Morton-sorted triangles."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import os
 import shutil
 import sys

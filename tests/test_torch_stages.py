@@ -16,6 +16,8 @@ against the whole-loop ``FusedLoopSlim``.  Tolerance: 3e-5 of each row's or
 leaf's largest magnitude plus 1e-16 (``tests/test_bounce_fused.py:43-56``,
 ``:125``), a complex value's (re, im) rows and a vector's components taken
 together."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 
 import numpy as np

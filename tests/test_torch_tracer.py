@@ -12,6 +12,8 @@ flips at an f32 triangle edge changes a whole path).  Material gradients of
 ``sum |a_te|^2 + |a_tm|^2`` must match ``jax.grad`` to rtol 1e-4.  The
 port's default, whose bounce and shadow queries take the rays' activity
 mask, gives ``compact_rays=False``'s outputs and gradients bit for bit."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import numpy as np
 import pytest
 import torch

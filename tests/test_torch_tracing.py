@@ -14,6 +14,8 @@ CPU.
 * ``profile_trace`` writes the spans as ranges with their arguments, and
   ``hrt-torch-trace --profile`` calls it.
 """
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import json
 import os
 from collections import Counter

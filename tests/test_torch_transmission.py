@@ -16,6 +16,8 @@ the pattern carried in the launch state.
 Tolerances are ``tests/test_torch_tracer.py``'s: the written slots of every
 output identical, written values within rtol 1e-4 with a floor of 1e-5 of
 the largest magnitude; gradients within rtol 1e-4 of ``jax.grad``."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import dataclasses
 import warnings
 
@@ -575,9 +577,11 @@ def test_fused_loop_ignores_the_pattern():
         state = tt.launch_state(torch.as_tensor(C_TX), torch.as_tensor(C_TXV),
                                 dirs, k_dop, transmit_pattern=pat)
         assert len(state) == 11 and (state[10] is None) == (pat is None)
-        run = tt.fused_loop(cfg, 3, mats.num_materials)
-        assert run is tt.run_fused_loop_slim
-        ys = run(access, rx, state, fslm, k_dop, cfg)
+        plan = tt.plan_bounce_loop(
+            cfg, grad=True, device="cpu", tri_sharded=False, rays=64, nrx=3,
+            n_materials=mats.num_materials)
+        assert plan == tt.BouncePlan("fused_slim")
+        ys = tt.run_fused_loop_slim(access, rx, state, fslm, k_dop, cfg)
         sum(y[0].square().sum() + y[2].square().sum() for y in ys).backward()
         outs.append((ys, mats.a.grad.clone(), mats.s.grad.clone()))
     (ys0, ga0, gs0), (ys1, ga1, gs1) = outs

@@ -24,6 +24,8 @@ the same numpy inputs at the same tile sizes:
   gradients too), and agree with the JAX ``trace_paths`` within the tier of
   ``tests/test_torch_tracer.py`` (``testing.slots_agree``).  The kernels
   are tested on the card by ``tests/test_torch_cuda.py``."""
+import _torch_threads  # noqa: F401  (first: the thread share)
+
 import numpy as np
 import pytest
 import torch
