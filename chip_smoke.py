@@ -172,8 +172,10 @@ M. culled     -- every recorded culled query of N (LoS, bounce, shadow;
                  shadow query and C's city bounce query timed against the
                  brute kernel and the plain version, with their bounds.
 
-The transmission modes and the models (the op path; ``shade="fused"``
-warns and runs it, as in the JAX package), after phase M and phase J:
+The transmission modes and the models (steps with a gradient run the op
+path, and ``shade="fused"`` warns and runs it, as in the JAX package; the
+no-gradient coverage map runs the fused forward), after phase M and phase
+J:
 
 O. transmission -- the canyon stand-in at 2^20 paths, B = 3, physical
                  parity, nrx 1 and 4, bench.py's step (loss to the material
@@ -208,7 +210,11 @@ Q. models     -- ``coverage_map`` under ``transmission`` on the canyon
                  batches) over x, y in [-60, 60] at 2 m, 1.5 m high (3,721
                  probes, 15 batches): every cell finite, both LoS verdicts,
                  the first batch against ``trace`` + ``path_gain_db`` and its
-                 trace against the plain query's; ``run_sweep`` over the same
+                 trace against the plain query's; a third map's launches
+                 (45 ``bounce_pre``, 45 ``bounce_post``) and every call of
+                 its fused forward (``transmission`` alone: pre ``<0>``,
+                 post ``<1>``) held against its plain version (equal
+                 decisions, values within ``ROW_RTOL``); ``run_sweep`` over the same
                  probes into a temporary directory (15 chunks, a resume 0, 1
                  after one chunk file is removed, the chunks' power the map's
                  gain); seconds and probes a second of each.
@@ -253,6 +259,19 @@ T. bench      -- the step ``hrt-torch-bench`` times (``hermespy_rt_tpu_torch/
                  2^16 paths the fused gradients against the op path's
                  (``PATH_GRAD_RTOL``) and the scatter slots alike, as phase 7
                  holds them at nrx 1 and 4.
+U. o2i        -- the O2I cell's drop (``umi_o2i131k.fwd.nrx5``: the
+                 benchmark's 131,072-triangle box city, 2^20 paths, B = 3,
+                 5 RX from its drawer, 4 indoor) on the fused forward under
+                 each transmission mode it takes: both (the cell's; pre
+                 ``<2>``, post ``<3>``), ``transmission`` alone (``<0>``,
+                 ``<1>``) and ``spawn_transmission`` alone (``<2>``,
+                 ``<2>``).  Each: one drop's launches (counts zeroed just
+                 before, read just after), every ``bounce_pre`` /
+                 ``bounce_post`` call held against its plain version (equal
+                 decisions, values within ``ROW_RTOL``), then timed
+                 (profiler) against its bound, with its live rays, written
+                 pairs and ptxas line.  The kernel summary's fused rows
+                 carry these launches, errors and times.
 
 Then the profiler's windows (each opened on a warm-up cycle and taken
 again while it misses launches; every device time is a window's sum over
@@ -856,6 +875,32 @@ def fused_work(name, spec, rest, outs):
     return bwd_work(name, spec, rest, outs)
 
 
+def fused_symbol(name, spec):
+    """The stem of kernel ``name``'s mangled name in the build log
+    (``measure.kernel_ptxas``'s key) for the instantiation ``spec``
+    launches: the forward kernels are templates on the transmission modes
+    (``csrc/bounce_fused.cu``; the pre kernel on ``kSpawn`` alone)."""
+    if name not in ("bounce_pre", "bounce_post"):
+        return f"{name}_kernel"
+    trans = 2 * int(spec.spawn_transmission)
+    if name == "bounce_post":
+        trans |= int(spec.transmission)
+    return f"{name}_kernelILi{trans}E"
+
+
+def hold_fused_forward(calls, label):
+    """Every recorded ``bounce_pre`` / ``bounce_post`` launch against its
+    plain version (``hold_pre`` / ``hold_post``: equal decisions, values
+    within ``ROW_RTOL``).  Returns the largest error per kernel."""
+    worst = {}
+    for name, hold in (("bounce_pre", hold_pre), ("bounce_post", hold_post)):
+        worst[name] = 0.0
+        for i, (args, out) in enumerate(calls[name]):
+            err, _ = hold(args[0], args[1:], out, f"{label}/{name}/call{i}")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
 def phase_fused_kernel(recorded, dev):
     """Every recorded fused kernel call against its plain version; the
     backward on a 300-row material table, run twice to the same bits; then
@@ -923,7 +968,7 @@ def phase_fused_kernel(recorded, dev):
                           ops=n_ops)
             timing.update(share=bound_ms / timing["ms"],
                           ptxas=kernel_ptxas(LIBRARY.build_log,
-                                             f"{name}_kernel"))
+                                             fused_symbol(name, spec)))
             summary[name].setdefault("timing", {})[nrx] = timing
             emit(phase="fused_kernel_time", kernel=name, nrx=nrx, **timing,
                  gpu=smi())
@@ -2516,10 +2561,14 @@ def phase_models(host, dev):
     [-60, 60] at 2 m, 1.5 m high (3,721 probes, 15 batches, the last
     zero-padded): every cell finite, both LoS verdicts present, the first
     batch's gains those of ``trace`` + ``path_gain_db`` on its probes,
-    whose trace agrees with the plain query's (slots); then ``run_sweep``
-    over the same probes into a temporary directory: 15 chunks, a resume
-    computes 0, 1 after a chunk is removed, and the chunks' LoS + scatter
-    power is the map's gain.  Seconds and probes a second of each."""
+    whose trace agrees with the plain query's (slots); a third map's
+    launches (counts zeroed just before: the fused forward's 45
+    ``bounce_pre`` and 45 ``bounce_post``, no backward) and each of those
+    calls held against its plain version; then ``run_sweep`` over the same
+    probes into a temporary directory: 15 chunks, a resume computes 0, 1
+    after a chunk is removed, and the chunks' LoS + scatter power is the
+    map's gain.  Seconds and probes a second of each.  Returns the third
+    map's launches and the held calls' largest errors."""
     cfg = TracerConfig(**COVERAGE_CFG)
     kw = dict(x_range=(-60.0, 60.0), y_range=(-60.0, 60.0), resolution=2.0,
               height=1.5, carrier_frequency_ghz=FREQ_GHZ, config=cfg,
@@ -2533,6 +2582,21 @@ def phase_models(host, dev):
     n = grid.gain_db.size
     check(grid.gain_db.shape == (61, 61) and n == 3721,
           f"Q: grid {grid.gain_db.shape}")
+    # one more map with its launches counted and its fused forward's calls
+    # (the transmission-only instantiations, pre <0> and post <1>) held
+    zero_counts()
+    with recording_fused() as calls:
+        coverage_map(host, TX, **kw)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    fwd = -(-n // 256) * cfg.num_bounces
+    check(launches["bounce_pre"] == launches["bounce_post"] == fwd
+          and launches["loop_bwd_slim"] == 0
+          and all(a[0].transmission and not a[0].spawn_transmission
+                  for a, _ in calls["bounce_post"]),
+          f"Q: the map's fused launches {launches}")
+    held = hold_fused_forward(calls, "Q")
+    del calls
     check(bool(np.isfinite(grid.gain_db).all()
                and np.isfinite(grid.rms_delay).all()), "Q: non-finite cell")
     check(bool(grid.los_blocked.any() and (~grid.los_blocked).any()),
@@ -2581,7 +2645,9 @@ def phase_models(host, dev):
          los_blocked_share=float(grid.los_blocked.mean()),
          gain_db_range=[float(grid.gain_db.min()),
                         float(grid.gain_db.max())],
-         first_batch_slot_agreement=agree, gpu=smi())
+         first_batch_slot_agreement=agree, fused_launches_held=fwd,
+         fused_max_abs_err=held, gpu=smi())
+    return dict(launches=launches, max_abs_err=held)
 
 
 # --- multi-rank tracing and the host-side modules ---------------------------
@@ -2717,9 +2783,11 @@ def rank_tris(dev, city_path):
                        num_triangles=num)
     dirs = launch_directions(PATHS, "coherent", dev)
     rx = rx_positions(1, CITY_RX0)
+    # the op path on both sides: a tri-sharded access runs no fused kernel,
+    # and the default would run the single process's forward through them
     cfg = TracerConfig(num_paths=PATHS, num_bounces=BOUNCES,
                        parity="physical", launch_order="coherent",
-                       compact_rays=True, keep_rays=False)
+                       compact_rays=True, keep_rays=False, shade="xla")
     mats = default_materials(dev)
 
     def fwd(mesh_=mesh):
@@ -3089,6 +3157,130 @@ def phase_bench(dev):
     return counts
 
 
+# --- the O2I cell's drop on the fused forward's transmission variants -------
+
+O2I_CELL = "umi_o2i131k.fwd.nrx5"
+O2I_RX_SEED = 2718281828
+# each mode's kernels: (pre, post) template arguments (csrc/bounce_fused.cu)
+O2I_MODES = {"both": {}, "transmission": dict(spawn_transmission=False),
+             "spawn_straight": dict(transmission=False)}
+
+
+def o2i_deployment(dev):
+    """The O2I cell's deployment, built by the benchmark's own files: the
+    box city of its configuration (``rtbench/scenes/city.py``, written to a
+    temporary directory under ``_build/`` and read as the cell reads it,
+    Morton-sorted), its TX, frequency, paths, bounces and flags, and one
+    drop of 5 RX from its entry's drawer (4 indoor, 1 outdoor)."""
+    from rtbench import harness
+    rt = os.path.join(REPO, "rtbench")
+    cfg = harness.load_json(os.path.join(rt, "configs", "umi_o2i131k.json"))
+    wl = harness.load_json(os.path.join(rt, "workloads", f"{O2I_CELL}.json"))
+    entry = harness.load_module(os.path.join(rt, "entries", "forward_o2i.py"),
+                                "rtbench_entry_forward_o2i")
+    gen = harness.load_module(os.path.join(rt, "scenes", "city.py"),
+                              "rtbench_scene_city")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as out_dir:
+        out = gen.generate(cfg["scene"], out_dir)
+        tris = flatten_scene(load_scene(out["file"]), sort_triangles=True,
+                             device=dev)
+    t = cfg["tracer"]
+    tx = np.asarray(t["tx"], np.float32)
+    boxes = entry.building_boxes(out["meshes"], cfg["scene"]["n_buildings"])
+    rx = entry.draw_drops(wl["traffic_params"], boxes, 1,
+                          np.random.default_rng(O2I_RX_SEED), tx)[0]
+    return types.SimpleNamespace(
+        tris=tris, rx=rx, tx=tx, f_ghz=float(t["frequency_ghz"]),
+        paths=int(t["num_paths"]), bounces=int(t["num_bounces"]),
+        flags={k: t[k] for k in ("parity", "transmission",
+                                 "spawn_transmission", "refraction")})
+
+
+def phase_o2i(dev):
+    """U: the O2I cell's drop (``compute_paths``, 2^20 paths, B = 3, 5 RX,
+    the 131,072-triangle box city) under each transmission mode the fused
+    forward takes: the cell's (both), ``transmission`` alone and
+    ``spawn_transmission`` alone.  Each: a warm-up drop, then one with the
+    launch counts zeroed just before and read just after (``bounce_pre``
+    and ``bounce_post`` 3 each, no backward or scatter-add; the cell's
+    mode also its walk queries and the 2 gathers of the eta rows and the
+    LoS blockers) and its fused calls recorded; every call held against
+    its plain version (equal decisions, values within ``ROW_RTOL``; under
+    ``transmission`` an indoor RX written), then timed (profiler, 20
+    launches) against ``fused_work``'s bound (the payload table's 14 MB
+    counted once whole), with its live rays, written pairs and the
+    instantiation's ptxas line.  Returns each mode's launches, the largest
+    error per kernel and the timed rows."""
+    o2i = o2i_deployment(dev)
+    nrx, R, B = len(o2i.rx), o2i.paths, o2i.bounces
+
+    def drop(**kw):
+        return compute_paths(o2i.tris, o2i.rx, o2i.tx[None], None, None,
+                             o2i.f_ghz, nrx, 1, R, B, device=dev,
+                             **{**o2i.flags, **kw})
+
+    queries = 1 + B * (1 + nrx // tracer_module.rx_rows_per_query(
+        nrx, R, TracerConfig().rx_query_rays))
+    launches, worst, timed = {}, {"bounce_pre": 0.0, "bounce_post": 0.0}, []
+    for mode, kw in O2I_MODES.items():
+        drop(**kw)
+        torch.cuda.synchronize()
+        zero_counts()
+        with recording_fused() as calls:
+            drop(**kw)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        launches[mode] = counts
+        ran = {k: v for k, v in counts.items() if v}
+        check(counts["bounce_pre"] == counts["bounce_post"] == B
+              and not any(counts[n] for n in ("loop_bwd_slim", *STAGE_BWD,
+                                              "scatter_add")),
+              f"U {mode}: launches {ran}")
+        if mode == "both":
+            want = {"walk_prepass": queries, "walk": queries,
+                    "bounce_pre": B, "bounce_post": B, "gather": 2}
+            check(ran == want, f"U {mode}: launches {ran}, expected {want}")
+        flags = {**o2i.flags, **kw}
+        for name, err in hold_fused_forward(calls, f"U {mode}").items():
+            worst[name] = max(worst[name], err)
+        if flags["transmission"]:
+            check(bool(calls["bounce_post"][0][1].write[:4].any()),
+                  f"U {mode}: no indoor RX written")
+        for name in ("bounce_pre", "bounce_post"):
+            for i, (args, out) in enumerate(calls[name]):
+                spec, rest = args[0], args[1:]
+                check((spec.transmission, spec.spawn_transmission)
+                      == (flags["transmission"],
+                          flags["spawn_transmission"]),
+                      f"U {mode}: {name} spec {spec}")
+                n_bytes, n_ops = fused_work(name, spec, rest, list(out))
+                bound_ms, bound_by = bound(n_bytes, n_ops)
+                ms = device_ms(lambda: KERNELS[name](spec, *rest),  # noqa: B023
+                               20, name)
+                live = (rest[3] & (rest[4] >= 0) if name == "bounce_pre"
+                        else rest[8])
+                row = dict(mode=mode, kernel=name, bounce=i,
+                           symbol=fused_symbol(name, spec), nrx=nrx, R=R,
+                           live=int(live.sum()), ms=ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=n_bytes, ops=n_ops,
+                           share=bound_ms / ms)
+                if name == "bounce_post":
+                    row["written_pairs"] = int(out.write.sum())
+                timed.append(row)
+                emit(phase="o2i_kernel_time", **row)
+        del calls
+        torch.cuda.empty_cache()
+    ptxas = {r["symbol"]: kernel_ptxas(LIBRARY.build_log, r["symbol"])
+             for r in timed}
+    emit(phase="o2i", cell=O2I_CELL, triangles=o2i.tris.num_triangles,
+         nrx=nrx, paths=R, bounces=B,
+         launches={m: {k: v for k, v in c.items() if v}
+                   for m, c in launches.items()},
+         max_abs_err=worst, ptxas=ptxas, gpu=smi())
+    return dict(launches=launches, max_abs_err=worst, timed=timed,
+                ptxas=ptxas)
+
+
 def grads_of_fields(grads):
     return {f: grads[f] for f in MATERIAL_FIELDS}
 
@@ -3153,13 +3345,15 @@ def main():
     del city_gathers, city_scatters
     city_grad_counts = phase_city_grad(city, dev, f_grads)
     trans_counts["city_nrx1"] = phase_transmission_city(city, dev)
-    phase_models(main_scene, dev)
+    models = phase_models(main_scene, dev)
     torch.cuda.empty_cache()
     sharded = phase_sharded(city)
     phase_aux(main_scene, dev)
     torch.cuda.empty_cache()
     phase_bench_cli()
     bench_counts = phase_bench(dev)
+    torch.cuda.empty_cache()
+    o2i = phase_o2i(dev)
 
     t = timing["bounce_2^20"]
     rows = [{
@@ -3335,6 +3529,22 @@ def main():
         steps = {k: c[row["name"]] for k, c in bench_counts.items()}
         row["launches_per_step"].update(steps)
         row["launches"] += sum(steps.values())
+    # and the fused forward's transmission variants: phase Q's third map
+    # and phase U's O2I drops, each call held there, U's also timed
+    variant_steps = {"coverage_map": models["launches"],
+                     **{f"o2i_{m}": c for m, c in o2i["launches"].items()}}
+    for row in rows:
+        name = row["name"]
+        steps = {k: c[name] for k, c in variant_steps.items()}
+        row["launches_per_step"].update(steps)
+        row["launches"] += sum(steps.values())
+        if name in o2i["max_abs_err"]:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     o2i["max_abs_err"][name],
+                                     models["max_abs_err"][name])
+            row["transmission_variants"] = [
+                {**t, "ptxas": o2i["ptxas"][t["symbol"]]}
+                for t in o2i["timed"] if t["kernel"] == name]
     emit(phase="profiler", **PROFILER)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)

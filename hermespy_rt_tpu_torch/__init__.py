@@ -8,7 +8,8 @@ kernels and the whole loop's material backward as one
 (``csrc/bounce_fused.cu``).  The nearest-hit query is a hand-written CUDA
 kernel too (``csrc/intersect.cu``).  Every kernel has a plain torch version
 that CPU tensors use.  The transmission modes (penetration loss, spawned
-transmitted paths, straight or Snell continuation) run on the op path.
+transmitted paths, straight or Snell continuation) run on the op path, and
+with straight continuation through the fused forward kernels too.
 ``models`` holds the channel models (impulse responses, narrowband
 coefficients, gains, delay spreads), coverage maps and resumable sweeps,
 ``utils`` the input validation and profiling, ``parallel`` the trace over

@@ -46,8 +46,9 @@ class TracerConfig:
                    next three from what the trace can observe
                    (``tracer.plan_bounce_loop``): the fused forward kernels
                    where no gradient can be asked for (grad mode off, or no
-                   tensor the bounce loop reads requires grad), neither
-                   transmission mode is set, the scene access is the whole
+                   tensor the bounce loop reads requires grad), the
+                   refraction is straight (the forward kernels take both
+                   transmission modes), the scene access is the whole
                    scene's and the rays are on a card whose fused kernels
                    take their shapes; the op path ("xla") everywhere else,
                    with no warning.  "xla" (the JAX package's name and
@@ -66,7 +67,8 @@ class TracerConfig:
                    ``grad_positions=False`` and ``unroll_bounces``, the
                    whole loop as one node whose material backward is one
                    kernel.  Under ``transmission`` or ``spawn_transmission``
-                   "fused" warns and runs the op path, and "pallas" under
+                   "fused" warns and runs the op path (its backwards
+                   reflect only), and "pallas" under
                    ``spawn_transmission`` runs the shading as torch ops (the
                    kernel reflects only), as in the JAX package.
       grad_positions: False declares positions, launch geometry and the

@@ -7,6 +7,9 @@
 // scat_vjp), each honouring the plain version's guards as torch autograd
 // differentiates them.  Built with -fmad=false: every product and sum is
 // rounded on its own, in the plain versions' operation order.
+// pre_forward and post_rx take the forward's transmission modes as a
+// template parameter (kTransmission, kSpawn), 0 by default: what the
+// backwards and the reflect-only forward compile is the same code at 0.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +34,11 @@ constexpr float kHalfPi = 0x1.921fb6p+0f;      // f32(pi / 2)
 constexpr float kPi = 0x1.921fb6p+1f;          // f32(pi)
 constexpr float kPhase = 0x1.99999ap-4f;       // f32(0.1)
 constexpr float kNormMin = 0x1.0c6f7ap-20f;    // f32(1e-6)
+
+// the fused forward's transmission modes (TracerConfig's flags, straight
+// refraction only), bits of the forward kernels' template parameter
+constexpr int kTransmission = 1;  // blocked shadow rays pass their blocker
+constexpr int kSpawn = 2;         // rays transmit by their pattern bits
 
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
@@ -175,6 +183,50 @@ __device__ __forceinline__ void refl_out(const Refl& f, const float* eta,
   r[3] = f.tir ? 0.0f : f.tm_im * rr;
 }
 
+// ops/fresnel.py::trans_coefs: (T_TE re, im, T_TM re, im), 0 under total
+// internal reflection, from refl_core's cos(t2) terms (its reflection
+// quotients go unused); reads the eta columns 3-8
+__device__ __forceinline__ void trans_out(const float* eta, float cos_t1,
+                                          float sin_t1, float* t) {
+  const Refl f = refl_core(eta, cos_t1, sin_t1);
+  float te_re, te_im, tm_re, tm_im;
+  cdiv(2.0f * cos_t1, 0.0f, cos_t1 + f.sec_re, f.sec_im, &te_re, &te_im);
+  cdiv(2.0f * f.sc1_re, 2.0f * f.sc1_im, f.sc1_re + f.c2r, f.sc1_im + f.c2i,
+       &tm_re, &tm_im);
+  t[0] = f.tir ? 0.0f : te_re;
+  t[1] = f.tir ? 0.0f : te_im;
+  t[2] = f.tir ? 0.0f : tm_re;
+  t[3] = f.tir ? 0.0f : tm_im;
+}
+
+// ops/shade.py::through_blocker for one blocked (ray, RX): its gains amp
+// times the blocker's transmission coefficients at the shadow direction
+// ds; the blocker's normal and eta columns 3-8 read from its payload row
+__device__ __forceinline__ void through_blocker(const float* table,
+                                                int blocker, const float* ds,
+                                                float* amp) {
+  const float* row = table + static_cast<size_t>(blocker) * kCols;
+  float n[3], eta[kEta];
+  for (int c = 0; c < 3; ++c) n[c] = __ldg(row + kNormal + c);
+  for (int j = kEtaAbsPow2; j <= kEtaInvIm; ++j)
+    eta[j] = __ldg(row + kGeom + j);
+  const float cos1 = clampf(fabsf(dot3(n, ds)), 0.0f, kClip);
+  const float sin1 = sqrtf(1.0f - cos1 * cos1);
+  float t[4];
+  trans_out(eta, cos1, sin1, t);
+  // the plain version's 1 + b (T - 1) and b T at b = 1
+  const float f_te_re = 1.0f + (t[0] - 1.0f), f_te_im = t[1];
+  const float f_tm_re = 1.0f + (t[2] - 1.0f), f_tm_im = t[3];
+  const float te_re = amp[0] * f_te_re - amp[1] * f_te_im;
+  const float te_im = amp[0] * f_te_im + amp[1] * f_te_re;
+  const float tm_re = amp[2] * f_tm_re - amp[3] * f_tm_im;
+  const float tm_im = amp[2] * f_tm_im + amp[3] * f_tm_re;
+  amp[0] = te_re;
+  amp[1] = te_im;
+  amp[2] = tm_re;
+  amp[3] = tm_im;
+}
+
 // ops/scattering.py::scat_coefs with the trig handed in; keeps the
 // intermediates the vjp needs
 struct Scat {
@@ -243,10 +295,16 @@ __device__ __forceinline__ Payload load_payload(const float* row) {
   return p;
 }
 
+// kTrans & kSpawn: a ray with `transmit` takes the transmission
+// coefficients and keeps its direction (ops/shade.py::shade_a's straight
+// continuation)
+template <int kTrans = 0>
 __device__ __forceinline__ PreFwd pre_forward(const float* o, const float* d,
                                               const float* st,
                                               const Payload& p, float fslm,
-                                              float k_dop, bool live) {
+                                              float k_dop, bool live,
+                                              bool transmit = false) {
+  constexpr bool kSpawnT = (kTrans & kSpawn) != 0;
   PreFwd f;
   cross3(d, p.e2, f.pvec);
   f.det = dot3(p.e1, f.pvec);
@@ -261,7 +319,10 @@ __device__ __forceinline__ PreFwd pre_forward(const float* o, const float* d,
   f.sin_t1 = sqrtf(1.0f - f.cos_t1 * f.cos_t1);
   f.theta = fast_acos(f.cos_t1);
 
-  refl_out(refl_core(p.eta, f.cos_t1, f.sin_t1), p.eta, f.rc);
+  if (kSpawnT && transmit)
+    trans_out(p.eta, f.cos_t1, f.sin_t1, f.rc);
+  else
+    refl_out(refl_core(p.eta, f.cos_t1, f.sin_t1), p.eta, f.rc);
   f.fsl = fslm * f.t;
   f.fsl2 = f.fsl * f.fsl;
   f.fscale = f.fsl2 > 1.0f ? 1.0f / f.fsl2 : 1.0f;
@@ -280,7 +341,7 @@ __device__ __forceinline__ PreFwd pre_forward(const float* o, const float* d,
 
   f.two_dn = 2.0f * dot3(d, p.n);
   for (int c = 0; c < 3; ++c) {
-    f.d_ref[c] = d[c] - f.two_dn * p.n[c];
+    f.d_ref[c] = (kSpawnT && transmit) ? d[c] : d[c] - f.two_dn * p.n[c];
     const float hitp = o[c] + f.t * d[c];
     const float o_ref = hitp + kOffset * f.d_ref[c];
     f.o2[c] = live ? o_ref : o[c];
@@ -349,13 +410,17 @@ struct PostRx {
   float dsd[3], dop;  // ds - d2 and its Doppler dot
 };
 
-// one RX of the post stage; (th_c, cos_c) is the reference clobber carry
+// one RX of the post stage; (th_c, cos_c) is the reference clobber carry.
+// Under physical parity, kTrans & kTransmission: a blocked pair is written
+// and its gains pass its merged blocker (through_blocker); kTrans & kSpawn:
+// a ray with `transmit` writes into the exit side's hemisphere
+template <int kTrans = 0>
 __device__ __forceinline__ PostRx post_rx(
     bool physical, float eps_o, const float* table, const float* ds,
     float d2rx, float t_self, bool crossing, float t_o, int idx_o, int excl,
     bool live, const float* n, const float* vel, float s, float s1a,
     const float* d2, const float* st2, float theta, float cos_t1, float ndot,
-    float fslm, float* th_c, float* cos_c) {
+    float fslm, float* th_c, float* cos_c, bool transmit = false) {
   PostRx q;
   bool blocked;
   q.idx_m = post_decide(physical, eps_o, d2rx, t_self, crossing, t_o, idx_o,
@@ -367,7 +432,14 @@ __device__ __forceinline__ PostRx post_rx(
   if (physical) {
     q.theta_i = theta;
     q.cos_ti = cos_t1;
-    q.write = live && !blocked && q.dsn * ndot < 0.0f;
+    if constexpr (kTrans == 0) {
+      q.write = live && !blocked && q.dsn * ndot < 0.0f;
+    } else {
+      const bool hemi = ((kTrans & kSpawn) && transmit)
+                            ? q.dsn * ndot > 0.0f
+                            : q.dsn * ndot < 0.0f;
+      q.write = live && ((kTrans & kTransmission) || !blocked) && hemi;
+    }
   } else {
     q.occ = q.idx_m >= 0;
     if (q.occ) {
@@ -388,6 +460,9 @@ __device__ __forceinline__ PostRx post_rx(
   q.amp[1] = st2[0] * q.sc.out[1] + st2[1] * q.sc.out[0];
   q.amp[2] = st2[2] * q.sc.out[2] - st2[3] * q.sc.out[3];
   q.amp[3] = st2[2] * q.sc.out[3] + st2[3] * q.sc.out[2];
+  if constexpr ((kTrans & kTransmission) != 0) {
+    if (blocked) through_blocker(table, q.idx_m, ds, q.amp);
+  }
   q.fsl_s = fslm * d2rx;
   q.fsl_s2 = q.fsl_s * q.fsl_s;
   q.sscale = q.fsl_s2 > 1.0f ? 1.0f / q.fsl_s2 : 1.0f;

@@ -5,6 +5,17 @@
 //   bounce_pre_kernel    <- _pre_fwd_kernel (with_mat=True)
 //   bounce_post_kernel   <- _post_fwd_kernel
 //   loop_bwd_slim_kernel <- _loop_bwd_slim_kernel
+// The two forward kernels take the transmission modes as a template
+// parameter (bounce.cuh: kTransmission, kSpawn), which the TPU kernels do
+// not have: there the modes run on the op path only.  At 0 they reflect
+// only; under kSpawn the pre kernel reads each ray's pattern word and sends
+// the rays whose bit k is set through the surface (the transmission
+// coefficients, the direction kept: straight refraction); under
+// kTransmission the post kernel writes a blocked (ray, RX) too, its gains
+// times its nearest blocker's transmission coefficients, the blocker's row
+// read from the payload table (L2-resident at the city's 131,072 rows,
+// 14 MB), so no blocker row goes through device memory; under kSpawn it
+// flips a transmitting ray's hemisphere test.
 // Their plain torch versions are hermespy_rt_tpu_torch/ops/bounce_fused.py::
 // bounce_pre_plain, ::bounce_post_plain and ::loop_bwd_slim_plain.
 //
@@ -70,7 +81,17 @@ struct PreArgs {
   float* res;
 };
 
-__global__ void __launch_bounds__(kThreads) bounce_pre_kernel(PreArgs a) {
+// bit `bounce` of pat[r] (kSpawn): whether ray r transmits at that bounce
+template <int kTrans>
+__device__ __forceinline__ bool transmits(const int* pat, int bounce, int r) {
+  if constexpr ((kTrans & kSpawn) != 0)
+    return ((__ldg(pat + r) >> bounce) & 1) != 0;
+  return false;
+}
+
+template <int kTrans>
+__global__ void __launch_bounds__(kThreads)
+    bounce_pre_kernel(PreArgs a, const int* pat, int bounce) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= a.R) return;
   const size_t R = a.R;
@@ -85,7 +106,8 @@ __global__ void __launch_bounds__(kThreads) bounce_pre_kernel(PreArgs a) {
     d[c] = a.d[3 * r + c];
   }
   for (int j = 0; j < 6; ++j) st[j] = a.st[j * R + r];
-  const PreFwd f = pre_forward(o, d, st, p, fslm, k_dop, live);
+  const PreFwd f = pre_forward<kTrans>(o, d, st, p, fslm, k_dop, live,
+                                       transmits<kTrans>(pat, bounce, r));
 
   for (int c = 0; c < 3; ++c) {
     a.o2[3 * r + c] = f.o2[c];
@@ -135,7 +157,9 @@ struct PostArgs {
   float* res;
 };
 
-__global__ void __launch_bounds__(kThreads) bounce_post_kernel(PostArgs a) {
+template <int kTrans>
+__global__ void __launch_bounds__(kThreads)
+    bounce_post_kernel(PostArgs a, const int* pat, int bounce) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= a.R) return;
   const size_t R = a.R;
@@ -156,6 +180,7 @@ __global__ void __launch_bounds__(kThreads) bounce_post_kernel(PostArgs a) {
   for (int j = 0; j < 6; ++j) st2[j] = a.st2[j * R + r];
   const float theta = a.ex[r], cos_t1 = a.ex[R + r];
   const float ndot = a.physical ? a.ex[2 * R + r] : 0.0f;  // physical only
+  const bool transmit = transmits<kTrans>(pat, bounce, r);
 
   float th_c = theta, cos_c = cos_t1;  // the reference clobber chain
   for (int k = 0; k < a.nrx; ++k) {
@@ -163,10 +188,10 @@ __global__ void __launch_bounds__(kThreads) bounce_post_kernel(PostArgs a) {
     float ds[3];
     for (int c = 0; c < 3; ++c) ds[c] = a.sh_d[3 * i + c];
     const float d2rx = a.d2rx[i];
-    const PostRx q = post_rx(a.physical, a.eps_o, a.table, ds, d2rx,
-                             a.t_self[i], a.crossing[i] != 0, a.t_o[i],
-                             a.idx_o[i], excl, live, n, vel, s, s1a, d2, st2,
-                             theta, cos_t1, ndot, fslm, &th_c, &cos_c);
+    const PostRx q = post_rx<kTrans>(
+        a.physical, a.eps_o, a.table, ds, d2rx, a.t_self[i],
+        a.crossing[i] != 0, a.t_o[i], a.idx_o[i], excl, live, n, vel, s, s1a,
+        d2, st2, theta, cos_t1, ndot, fslm, &th_c, &cos_c, transmit);
     float* out = a.out + 6 * k * R + r;
     out[0] = q.amp[0] * q.wf;
     out[R] = q.amp[1] * q.wf;
@@ -310,6 +335,21 @@ __global__ void __launch_bounds__(kThreads) loop_bwd_slim_kernel(BwdArgs a) {
 
 // Plain C entry points for ctypes.  Pointers are device pointers; each
 // launches on `stream` and returns cudaGetLastError() of the launch.
+// `trans` is the forward's transmission modes (kTransmission | kSpawn, under
+// physical parity only); under kSpawn `pat` holds each ray's pattern word
+// and `bounce` is the bounce.
+
+namespace {
+
+int grid_of(int R) { return (R + kThreads - 1) / kThreads; }
+
+bool modes_ok(int trans, int physical, const int* pat) {
+  if (trans < 0 || trans > (kTransmission | kSpawn)) return false;
+  if (trans != 0 && !physical) return false;
+  return (trans & kSpawn) == 0 || pat != nullptr;
+}
+
+}  // namespace
 
 extern "C" int hrt_bounce_pre(
     const float* o, const float* d, const float* st, const unsigned char* act,
@@ -317,14 +357,21 @@ extern "C" int hrt_bounce_pre(
     const float* sc, int R, int nrx, int physical, float eps_o, float* o2,
     float* d2, float* st2, float* ex, float* sh_o, float* sh_d, float* d2rx,
     float* t_self, unsigned char* crossing, int* excl, unsigned char* live,
-    int* mat, float* res, void* stream) {
+    int* mat, float* res, const int* pat, int bounce, int trans,
+    void* stream) {
+  if (!modes_ok(trans, physical, pat))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return 0;
   const PreArgs a{o,    d,    st,  act,    idx,   table, material, rx,
                   sc,   R,    nrx, physical, eps_o, o2,  d2,       st2,
                   ex,   sh_o, sh_d, d2rx,  t_self, crossing, excl, live,
                   mat,  res};
-  bounce_pre_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the pre stage reads the pattern bits alone: kTransmission acts after it
+  if (trans & kSpawn)
+    bounce_pre_kernel<kSpawn><<<grid_of(R), kThreads, 0, s>>>(a, pat, bounce);
+  else
+    bounce_pre_kernel<0><<<grid_of(R), kThreads, 0, s>>>(a, pat, bounce);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -334,13 +381,30 @@ extern "C" int hrt_bounce_post(
     const int* excl, const unsigned char* live, const float* t_o,
     const int* idx_o, const float* table, const float* sc, int R, int nrx,
     int physical, float eps_o, float* out, unsigned char* write, float* res,
-    void* stream) {
+    const int* pat, int bounce, int trans, void* stream) {
+  if (!modes_ok(trans, physical, pat))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return 0;
   const PostArgs a{d2,   st2, ex,    sh_d,  d2rx,   t_self, crossing,
                    excl, live, t_o,  idx_o, table,  sc,     R,
                    nrx,  physical, eps_o, out, write,  res};
-  bounce_post_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (trans) {
+    case kTransmission:
+      bounce_post_kernel<kTransmission><<<grid_of(R), kThreads, 0, s>>>(
+          a, pat, bounce);
+      break;
+    case kSpawn:
+      bounce_post_kernel<kSpawn><<<grid_of(R), kThreads, 0, s>>>(a, pat,
+                                                                 bounce);
+      break;
+    case kTransmission | kSpawn:
+      bounce_post_kernel<kTransmission | kSpawn>
+          <<<grid_of(R), kThreads, 0, s>>>(a, pat, bounce);
+      break;
+    default:
+      bounce_post_kernel<0><<<grid_of(R), kThreads, 0, s>>>(a, pat, bounce);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,6 +25,14 @@ query, and one per-ray map over the whole loop for the material backward:
   cotangent rows; :func:`~.fetch.scatter_add_plain` sums them into table
   rows.
 
+The two forward stages also run the transmission modes that
+:class:`FusedSpec` sets, as ``tracer.bounce_step`` does under straight
+refraction: under ``spawn_transmission`` a ray whose pattern word ``pat``
+has bit ``k`` set at bounce ``k`` takes the transmission coefficients and
+keeps its direction, and writes into the exit side's hemisphere; under
+``transmission`` a blocked (ray, RX) is written with its gains times its
+nearest blocker's transmission coefficients.  No backward takes them.
+
 These are the plain versions of the CUDA kernels in ``csrc/bounce_fused.cu``
 and ``csrc/bounce_bwd.cu`` (wrappers in :mod:`.bounce_fused_cuda`): the same
 formulas in the same operation order as the op path
@@ -45,7 +53,8 @@ from .fresnel import ETA_FIELDS, EtaPrecomputed, refl_coefs
 from .geometry import dot3, fast_acos
 from .intersect import FLT_EPS
 from .scattering import scat_coefs
-from .shade import _CLIP, GEOM_COLS, SPEED_OF_LIGHT, shade_a
+from .shade import (_CLIP, GEOM_COLS, SPEED_OF_LIGHT, shade_a,
+                    split_payload, through_blocker)
 
 __all__ = ["FusedSpec", "PreOut", "PostOut", "bounce_pre_plain",
            "bounce_post_plain", "loop_bwd_slim_plain", "bounce_pre_bwd_plain",
@@ -69,19 +78,29 @@ class FusedSpec:
     ``grad_positions`` False makes positions, launch geometry and the
     carrier scalars constants of the backward: the stages' backwards are
     then the slim ones, which re-evaluate only the Fresnel and scattering
-    chains at the saved residuals; that needs ``grad_geometry`` False."""
+    chains at the saved residuals; that needs ``grad_geometry`` False.
+
+    ``transmission`` and ``spawn_transmission`` are ``TracerConfig``'s
+    modes under straight refraction, for the forward stages alone; like
+    them they need physical parity."""
 
     nrx: int
     parity: str = "reference"          # "reference" | "physical"
     grad_geometry: bool = True
     grad_positions: bool = True
     eps_o: float = 1e-4
+    transmission: bool = False
+    spawn_transmission: bool = False
 
     def __post_init__(self):
         if self.nrx < 1:
             raise ValueError(f"FusedSpec: nrx must be >= 1, got {self.nrx}")
         if self.parity not in ("reference", "physical"):
             raise ValueError(f"FusedSpec: unknown parity {self.parity!r}")
+        if ((self.transmission or self.spawn_transmission)
+                and self.parity != "physical"):
+            raise ValueError("FusedSpec: the transmission modes need "
+                             "parity='physical'")
         if not self.grad_positions and self.grad_geometry:
             raise ValueError(
                 "FusedSpec(grad_positions=False) requires grad_geometry="
@@ -141,21 +160,30 @@ def _stop_geometry(spec: FusedSpec, row):
                      dim=-1)
 
 
-def _pre_core(spec: FusedSpec, o, d, st, row, rx, sc, live):
+def _transmit(spec: FusedSpec, pat, k):
+    """Which rays transmit at bounce ``k`` (bool[R], bit ``k`` of their
+    pattern words) under ``spawn_transmission``, else None."""
+    if not spec.spawn_transmission:
+        return None
+    return ((pat >> k) & 1) != 0
+
+
+def _pre_core(spec: FusedSpec, o, d, st, row, rx, sc, live, transmit=None):
     """The pre stage after the payload fetch, JAX ``_pre_diff`` and
     ``_pre_nondiff``: ``row`` f32[R, 27] hit payload rows, ``rx`` the RX
     positions as f32[nrx, 1 | R, 3] and ``sc`` (fslm, k_dop) as f32[2] or
-    f32[2, R].  Returns the differentiable outputs ``(o2, d2, st2, ex,
-    sh_d, d2rx)`` and the rest ``(sh_o, t_self, crossing, res)``, which
-    carry no gradient: the shadow-query origins and the residuals are
-    detached, the crossing decisions are comparisons."""
+    f32[2, R]; ``transmit`` as :func:`_transmit` gives it.  Returns the
+    differentiable outputs ``(o2, d2, st2, ex, sh_d, d2rx)`` and the rest
+    ``(sh_o, t_self, crossing, res)``, which carry no gradient: the
+    shadow-query origins and the residuals are detached, the crossing
+    decisions are comparisons."""
     fslm, k_dop = sc[0], sc[1]
     hit = dict(v0=row[:, 0:3], e1=row[:, 3:6], e2=row[:, 6:9],
                normal=row[:, 9:12], velocity=row[:, 12:15])
     (o2, d2, ate_re, ate_im, atm_re, atm_im, tau, freq, theta, cos_t1, ndot,
      sin_t1, fscale) = shade_a(o, d, st[0], st[1], st[2], st[3], st[4],
                                st[5], live, hit, _eta_cols(row[:, GEOM_COLS:]),
-                               fslm, k_dop)
+                               fslm, k_dop, transmit=transmit)
     n = hit["normal"]
 
     # the scatter-pre lines of tracer.bounce_step
@@ -180,15 +208,18 @@ def _pre_core(spec: FusedSpec, o, d, st, row, rx, sc, live):
 
 
 def bounce_pre_plain(spec: FusedSpec, o, d, st, act, idx, table, material,
-                     rx_pos, sc) -> PreOut:
+                     rx_pos, sc, pat=None, k=0) -> PreOut:
     """Pre stage.  ``o``/``d`` f32[R, 3] rays, ``st`` f32[6, R] state,
     ``act`` bool[R], ``idx`` i32[R] bounce hits (-1 miss), ``table``
     f32[T, 27] payload (v0, e1, e2, normal, velocity, eta), ``material``
-    i32[T], ``rx_pos`` f32[nrx, 3], ``sc`` f32[2] = (fslm, k_dop)."""
+    i32[T], ``rx_pos`` f32[nrx, 3], ``sc`` f32[2] = (fslm, k_dop); under
+    ``spec.spawn_transmission`` ``pat`` i32[R] the rays' pattern words and
+    ``k`` the bounce."""
     live = act & (idx >= 0)
     safe = torch.clamp(idx, min=0).long()
     (o2, d2, st2, ex, sh_d, d2rx), (sh_o, t_self, crossing, res) = _pre_core(
-        spec, o, d, st, table[safe], rx_pos[:, None, :], sc, live)
+        spec, o, d, st, table[safe], rx_pos[:, None, :], sc, live,
+        _transmit(spec, pat, k))
     return PreOut(
         o2=o2, d2=d2, st2=st2, ex=ex, sh_o=sh_o, sh_d=sh_d, d2rx=d2rx,
         t_self=t_self, crossing=crossing, excl=torch.where(live, idx, -1),
@@ -217,11 +248,13 @@ def _post_decisions(spec: FusedSpec, t_self, crossing, excl, d2rx, t_o,
 
 
 def _post_core(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, row, n_o, sc, live,
-               blocked, occl_hit):
+               blocked, occl_hit, transmit=None, blockers=None):
     """The post stage after its decisions, JAX ``_post_diff``: ``row``
     f32[R, 27] payload rows of the hit, ``n_o`` f32[nrx, R, 3] the merged
     occluders' normals (read under reference parity only), ``sc`` as in
-    :func:`_pre_core`.  Returns ``(out, write, res)``; ``res`` is
+    :func:`_pre_core`; ``transmit`` as :func:`_transmit` gives it, and under
+    ``spec.transmission`` ``blockers`` f32[nrx, R, 27] the merged
+    occluders' payload rows.  Returns ``(out, write, res)``; ``res`` is
     detached."""
     fslm, k_dop = sc[0], sc[1]
     n, vel = row[:, 9:12], row[:, 12:15]
@@ -251,7 +284,16 @@ def _post_core(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, row, n_o, sc, live,
     else:
         theta_i = theta[None].expand_as(theta_s)
         cos_ti = cos_t1[None].expand_as(theta_s)
-        write = live[None] & ~blocked & (ds_dot_n * ndot[None] < 0.0)
+        # a reflection re-radiates into the incidence-side hemisphere, a
+        # transmission into the exit side; a blocked pair is written under
+        # transmission
+        hemi = ds_dot_n * ndot[None] < 0.0
+        if transmit is not None:
+            hemi = torch.where(transmit[None], ds_dot_n * ndot[None] > 0.0,
+                               hemi)
+        write = live[None] & hemi
+        if not spec.transmission:
+            write = write & ~blocked
     sin_ti = torch.sqrt(1.0 - cos_ti * cos_ti)
 
     s_te_re, s_te_im, s_tm_re, s_tm_im = scat_coefs(
@@ -261,6 +303,11 @@ def _post_core(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, row, n_o, sc, live,
     out_te_im = ate_re[None] * s_te_im + ate_im[None] * s_te_re
     out_tm_re = atm_re[None] * s_tm_re - atm_im[None] * s_tm_im
     out_tm_im = atm_re[None] * s_tm_im + atm_im[None] * s_tm_re
+    if spec.transmission:
+        hit_b, eta_b = split_payload(blockers)
+        out_te_re, out_te_im, out_tm_re, out_tm_im = through_blocker(
+            (out_te_re, out_te_im, out_tm_re, out_tm_im), hit_b["normal"],
+            eta_b, ds, blocked)
 
     fsl_s = fslm * d2rx
     fsl_s2 = fsl_s * fsl_s
@@ -291,13 +338,19 @@ def _post_operands(spec: FusedSpec, t_self, crossing, excl, d2rx, t_o, idx_o,
 
 
 def bounce_post_plain(spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
-                      crossing, excl, live, t_o, idx_o, table, sc) -> PostOut:
+                      crossing, excl, live, t_o, idx_o, table, sc, pat=None,
+                      k=0) -> PostOut:
     """Post stage.  The pre stage's outputs plus the shadow query's
-    ``t_o`` f32[nrx, R] and ``idx_o`` i32[nrx, R]."""
+    ``t_o`` f32[nrx, R] and ``idx_o`` i32[nrx, R] (under ``transmission``
+    the nearest blocker, not any); ``pat`` and ``k`` as in
+    :func:`bounce_pre_plain`."""
     idx_m, blocked, row, n_o = _post_operands(spec, t_self, crossing, excl,
                                               d2rx, t_o, idx_o, table)
+    blockers = (table[torch.clamp(idx_m, min=0).long()] if spec.transmission
+                else None)
     out, write, res = _post_core(spec, d2, st2, ex, sh_d, d2rx, row, n_o, sc,
-                                 live, blocked, idx_m >= 0)
+                                 live, blocked, idx_m >= 0,
+                                 _transmit(spec, pat, k), blockers)
     return PostOut(out=out, write=write, res=res)
 
 

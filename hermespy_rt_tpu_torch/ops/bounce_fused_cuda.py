@@ -11,6 +11,9 @@
 * :data:`bounce_post_bwd_slim` replaces ``::_post_bwd_slim_kernel``.
 
 Each takes the arguments of its plain version in :mod:`.bounce_fused`.
+:data:`bounce_pre` and :data:`bounce_post` run the transmission modes that
+``spec`` sets (the forward alone: no backward kernel takes them), under
+``spawn_transmission`` on each ray's pattern word ``pat`` at bounce ``k``.
 Given CPU tensors it runs that plain version; given CUDA tensors it checks
 device, type, shape and contiguity, allocates the outputs, launches the
 kernel on the current stream and raises on a nonzero ``cudaError``.  Its
@@ -68,6 +71,24 @@ MAX_MATERIALS = _SMEM_BYTES // _TABLE_BYTES_PER_MATERIAL
 FWD_MAX_RAYS = (2 ** 31 - 1) // 3
 
 
+def _modes(spec: FusedSpec) -> int:
+    """The forward kernels' ``trans`` argument: bit 0 ``transmission``,
+    bit 1 ``spawn_transmission``."""
+    return int(spec.transmission) | 2 * int(spec.spawn_transmission)
+
+
+def _pattern(chk, spec: FusedSpec, pat, R):
+    """The pattern words' pointer under ``spawn_transmission``, else
+    None (the kernel reads none)."""
+    if not spec.spawn_transmission:
+        return None
+    return chk("pat", pat, _I32, (R,))
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def forward_takes(rays: int, nrx: int) -> bool:
     """Whether :data:`bounce_pre` and :data:`bounce_post` take ``rays`` rays
     and ``nrx`` RX: at least one RX (:class:`.bounce_fused.FusedSpec`) and
@@ -79,17 +100,17 @@ class BouncePreKernel(LaunchCounter):
     """Wrapper of ``bounce_pre_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.bounce_pre_plain`."""
 
-    _ARGTYPES = (_P,) * 9 + (_I, _I, _I, _F) + (_P,) * 14
+    _ARGTYPES = (_P,) * 9 + (_I, _I, _I, _F) + (_P,) * 14 + (_I, _I, _P)
 
     def __init__(self):
         super().__init__("bounce_pre")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, o, d, st, act, idx, table, material,
-                 rx_pos, sc) -> PreOut:
+                 rx_pos, sc, pat=None, k=0) -> PreOut:
         if o.device.type == "cpu":
             return bounce_pre_plain(spec, o, d, st, act, idx, table,
-                                    material, rx_pos, sc)
+                                    material, rx_pos, sc, pat, k)
         dev = cuda_device("bounce_pre", o)
         chk = OperandChecker("bounce_pre", dev)
         R, nrx, T = o.shape[0], spec.nrx, table.shape[0]
@@ -100,6 +121,7 @@ class BouncePreKernel(LaunchCounter):
                 chk("material", material, _I32, (T,)),
                 chk("rx_pos", rx_pos, _F32, (nrx, 3)),
                 chk("sc", sc, _F32, (2,))]
+        pat_ptr = _pattern(chk, spec, pat, R)
         f32 = dict(dtype=_F32, device=dev)
         out = PreOut(
             o2=torch.empty((R, 3), **f32), d2=torch.empty((R, 3), **f32),
@@ -119,8 +141,8 @@ class BouncePreKernel(LaunchCounter):
             self._fn = LIBRARY.function("hrt_bounce_pre", self._ARGTYPES)
         with torch.cuda.device(dev):
             err = self._fn(*ptrs, R, nrx, int(spec.parity == "physical"),
-                           spec.eps_o, *(x.data_ptr() for x in out),
-                           torch.cuda.current_stream(dev).cuda_stream)
+                           spec.eps_o, *(x.data_ptr() for x in out), pat_ptr,
+                           k, _modes(spec), _stream(dev))
         raise_on("bounce_pre", err)
         self.launched()
         return out
@@ -130,18 +152,19 @@ class BouncePostKernel(LaunchCounter):
     """Wrapper of ``bounce_post_kernel``: see
     :func:`~hermespy_rt_tpu_torch.ops.bounce_fused.bounce_post_plain`."""
 
-    _ARGTYPES = (_P,) * 13 + (_I, _I, _I, _F) + (_P,) * 4
+    _ARGTYPES = (_P,) * 13 + (_I, _I, _I, _F) + (_P,) * 4 + (_I, _I, _P)
 
     def __init__(self):
         super().__init__("bounce_post")
         self._fn = None
 
     def __call__(self, spec: FusedSpec, d2, st2, ex, sh_d, d2rx, t_self,
-                 crossing, excl, live, t_o, idx_o, table, sc) -> PostOut:
+                 crossing, excl, live, t_o, idx_o, table, sc, pat=None,
+                 k=0) -> PostOut:
         if d2.device.type == "cpu":
             return bounce_post_plain(spec, d2, st2, ex, sh_d, d2rx, t_self,
                                      crossing, excl, live, t_o, idx_o, table,
-                                     sc)
+                                     sc, pat, k)
         dev = cuda_device("bounce_post", d2)
         chk = OperandChecker("bounce_post", dev)
         R, nrx, T = d2.shape[0], spec.nrx, table.shape[0]
@@ -156,6 +179,7 @@ class BouncePostKernel(LaunchCounter):
                 chk("idx_o", idx_o, _I32, (nrx, R)),
                 chk("table", table, _F32, (T, TABLE_COLS)),
                 chk("sc", sc, _F32, (2,))]
+        pat_ptr = _pattern(chk, spec, pat, R)
         out = PostOut(
             out=torch.empty((nrx, 6, R), dtype=_F32, device=dev),
             write=torch.empty((nrx, R), dtype=_BOOL, device=dev),
@@ -166,8 +190,8 @@ class BouncePostKernel(LaunchCounter):
             self._fn = LIBRARY.function("hrt_bounce_post", self._ARGTYPES)
         with torch.cuda.device(dev):
             err = self._fn(*ptrs, R, nrx, int(spec.parity == "physical"),
-                           spec.eps_o, *(x.data_ptr() for x in out),
-                           torch.cuda.current_stream(dev).cuda_stream)
+                           spec.eps_o, *(x.data_ptr() for x in out), pat_ptr,
+                           k, _modes(spec), _stream(dev))
         raise_on("bounce_post", err)
         self.launched()
         return out
@@ -238,10 +262,6 @@ class LoopBwdSlimKernel(LaunchCounter):
         raise_on("loop_bwd_slim", err)
         self.launched()
         return d_st0, part.sum(dim=0)
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 class BouncePreBwdKernel(LaunchCounter):

@@ -11,7 +11,9 @@ or bent by Snell's law.
 
 :func:`shade_a_plain` is the same chain on the operands of the CUDA kernel
 ``csrc/shade.cu`` (wrapper in :mod:`.shade_cuda`): the payload rows as
-fetched, the state as six rows.
+fetched, the state as six rows.  :func:`through_blocker` is a shadow ray's
+penetration of its blocker under ``transmission``, one chain for the op
+path and the fused post stage's plain version.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from .fresnel import ETA_FIELDS, EtaPrecomputed, refl_coefs, trans_coefs
 from .geometry import cross3, dot3, fast_acos, reflect3
 from .intersect import FLT_EPS
 
-__all__ = ["shade_a", "shade_a_plain", "split_payload", "GEOM_COLS"]
+__all__ = ["shade_a", "shade_a_plain", "split_payload", "through_blocker",
+           "GEOM_COLS"]
 
 SPEED_OF_LIGHT = float(np.float32(299792458.0))   # m/s, as the reference
 _CLIP = float(np.float32(1.0) - np.float32(FLT_EPS))  # grad-safe acos clamp
@@ -113,6 +116,26 @@ def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
     freq2 = freq + torch.where(live, dot3(d_ref - d, vel) * k_dop, 0.0)
     return (o2, d2, ate_re2, ate_im2, atm_re2, atm_im2, tau2, freq2,
             theta, cos_t1, ndot, sin_t1, fscale)
+
+
+def through_blocker(amp, normal, eta, ds, blocked):
+    """Shadow-ray gains under ``transmission``: a blocked shadow ray passes
+    through its nearest blocker with the ITU transmission coefficients
+    instead of being zeroed.  ``amp`` (te_re, te_im, tm_re, tm_im) and
+    ``blocked`` per (RX, ray), ``normal`` and ``eta`` the blocker rows'
+    (at any clamped index where not blocked), ``ds`` the shadow directions.
+    Returns the four gains; an unblocked pair keeps its own."""
+    cos1 = torch.clamp(torch.abs(dot3(normal, ds)), 0.0, _CLIP)
+    sin1 = torch.sqrt(1.0 - cos1 * cos1)
+    tte_re, tte_im, ttm_re, ttm_im = trans_coefs(eta, cos1, sin1)
+    bf = blocked.to(torch.float32)
+    fte_re = 1.0 + bf * (tte_re - 1.0)
+    fte_im = bf * tte_im
+    ftm_re = 1.0 + bf * (ttm_re - 1.0)
+    ftm_im = bf * ttm_im
+    te_re, te_im, tm_re, tm_im = amp
+    return (te_re * fte_re - te_im * fte_im, te_re * fte_im + te_im * fte_re,
+            tm_re * ftm_re - tm_im * ftm_im, tm_re * ftm_im + tm_im * ftm_re)
 
 
 def shade_a_plain(o, d, st, live, row, sc):

@@ -35,16 +35,20 @@ On the op path every payload fetch is the row-gather kernel, whose backward
 is the scatter-add kernel (``ops/fetch_cuda.py``), and ``shade="pallas"``
 runs each bounce's reflection half as one kernel (``ops/shade_cuda.py``).
 
-The transmission modes run on the op path only, as in the JAX package:
-``transmission`` attenuates a blocked LoS path or shadow ray by its nearest
-blocker's transmission coefficients (so its shadow queries ask for the
-nearest blocker, not any), and ``spawn_transmission`` sends each ray through
-the surfaces its pattern bits select (:func:`transmit_patterns`).
-``shade="fused"`` warns and runs the op path under either, and
-``shade="pallas"`` runs the torch shading under ``spawn_transmission``.
-Under ``transmission`` the blocker fetches and the penetration gains run in
-the span ``hrt.transmit``, and ``transmit.blocker_rows`` counts the blocker
-rows fetched.
+The transmission modes: ``transmission`` attenuates a blocked LoS path or
+shadow ray by its nearest blocker's transmission coefficients (so its
+shadow queries ask for the nearest blocker, not any), and
+``spawn_transmission`` sends each ray through the surfaces its pattern bits
+select (:func:`transmit_patterns`).  The JAX package runs them on the op
+path only; here the fused forward runs them too under straight refraction,
+where no gradient can be asked for (``shade="auto"``).  ``shade="fused"``
+warns and runs the op path under either, and ``shade="pallas"`` runs the
+torch shading under ``spawn_transmission``.  Under ``transmission`` the LoS
+pass's blocker fetch and the op path's shadow blocker fetches and
+penetration gains run in the span ``hrt.transmit``, and
+``transmit.blocker_rows`` counts the blocker rows they gather (the fused
+forward's post kernel reads its blockers from the payload table and
+gathers none).
 """
 from __future__ import annotations
 
@@ -67,7 +71,8 @@ from .ops.geometry import dot3, fast_acos, fibonacci_sphere
 from .ops.intersect import FLT_EPS, intersect_torch
 from .ops.intersect_cuda import nearest_hit, nearest_hit_culled
 from .ops.scattering import scat_coefs
-from .ops.shade import _CLIP, GEOM_COLS, SPEED_OF_LIGHT, shade_a, split_payload
+from .ops.shade import (_CLIP, GEOM_COLS, SPEED_OF_LIGHT, shade_a,
+                        split_payload, through_blocker)
 from .ops.shade_cuda import shade_a_rows
 from .ops.walk import cull_boxes, prepare_walk, triangle_records
 from .ops.walk_cuda import walk_query
@@ -499,20 +504,9 @@ def bounce_step(state, *, access: LocalSceneAccess, rx_pos, fslm, k_dop,
         with span("hrt.transmit"):
             count("transmit.blocker_rows", idx_o.numel())
             hit_o = access.fetch(torch.clamp(idx_o, min=0).reshape(nrx, -1))
-            cos1b = torch.clamp(torch.abs(dot3(hit_o["normal"], ds)), 0.0,
-                                _CLIP)
-            sin1b = torch.sqrt(1.0 - cos1b * cos1b)
-            tte_re, tte_im, ttm_re, ttm_im = trans_coefs(hit_o["eta"], cos1b,
-                                                         sin1b)
-            bf = blocked.to(torch.float32)
-            fte_re = 1.0 + bf * (tte_re - 1.0)
-            fte_im = bf * tte_im
-            ftm_re = 1.0 + bf * (ttm_re - 1.0)
-            ftm_im = bf * ttm_im
-            out_te_re, out_te_im = (out_te_re * fte_re - out_te_im * fte_im,
-                                    out_te_re * fte_im + out_te_im * fte_re)
-            out_tm_re, out_tm_im = (out_tm_re * ftm_re - out_tm_im * ftm_im,
-                                    out_tm_re * ftm_im + out_tm_im * ftm_re)
+            out_te_re, out_te_im, out_tm_re, out_tm_im = through_blocker(
+                (out_te_re, out_te_im, out_tm_re, out_tm_im),
+                hit_o["normal"], hit_o["eta"], ds, blocked)
         write = live[None].expand_as(blocked)
     else:
         write = live[None] & ~blocked
@@ -573,25 +567,30 @@ def _fused_spec(cfg: TracerConfig, nrx: int) -> FusedSpec:
     return FusedSpec(nrx=nrx, parity=cfg.parity,
                      grad_geometry=cfg.grad_geometry,
                      grad_positions=cfg.grad_positions,
-                     eps_o=cfg.occlusion_offset)
+                     eps_o=cfg.occlusion_offset,
+                     transmission=cfg.transmission,
+                     spawn_transmission=cfg.spawn_transmission)
 
 
 def _fused_bounces(access: LocalSceneAccess, spec: FusedSpec,
                    cfg: TracerConfig, rx_pos, sc, table, st, o, d, act, pidx,
-                   pre_fn, post_fn):
+                   pre_fn, post_fn, pat=None):
     """The fused bounce loop: per bounce the nearest hit, the pre stage
-    ``pre_fn``, one all-RX shadow query and the post stage ``post_fn``
-    (each called as its kernel wrapper, ``bounce_pre`` / ``bounce_post``).
-    Yields ``(pre, post)`` per bounce."""
+    ``pre_fn``, one all-RX shadow query (for the nearest blocker under
+    ``transmission``) and the post stage ``post_fn`` (each called as its
+    kernel wrapper, ``bounce_pre`` / ``bounce_post``, and given the pattern
+    words ``pat`` and the bounce under ``spawn_transmission``).  Yields
+    ``(pre, post)`` per bounce."""
     nrx, R = spec.nrx, o.shape[0]
     for k in range(cfg.num_bounces):
+        spawn = (pat, k) if spec.spawn_transmission else ()
         with span("hrt.bounce", k=k):
             with span("hrt.intersect"):
                 _, idx = access.intersect(
                     o, d, exclude=pidx, live=act if cfg.compact_rays else None)
             with span("hrt.shade"):
                 pre = pre_fn(spec, o, d, st, act, idx, table,
-                             access._material, rx_pos, sc)
+                             access._material, rx_pos, sc, *spawn)
             t_max = (None if spec.parity == "reference"
                      else (pre.d2rx - 2.0 * spec.eps_o).detach().reshape(-1))
             excl_q = pre.excl[None].expand(nrx, R).reshape(-1)
@@ -599,12 +598,14 @@ def _fused_bounces(access: LocalSceneAccess, spec: FusedSpec,
                       if cfg.compact_rays else None)
             t_o, idx_o = _shadow_intersect(
                 access, pre.sh_o, pre.sh_d, t_max, excl_q, cfg, live=live_q,
-                any_hit=cfg.shadow_any_hit and spec.parity != "reference")
+                any_hit=(cfg.shadow_any_hit and spec.parity != "reference"
+                         and not spec.transmission))
             with span("hrt.shade_post"):
                 post = post_fn(
                     spec, pre.d2, pre.st2, pre.ex, pre.sh_d, pre.d2rx,
                     pre.t_self, pre.crossing, pre.excl, pre.live,
-                    t_o.reshape(nrx, R), idx_o.reshape(nrx, R), table, sc)
+                    t_o.reshape(nrx, R), idx_o.reshape(nrx, R), table, sc,
+                    *spawn)
         yield pre, post
         o, d, st, act, pidx = pre.o2, pre.d2, pre.st2, pre.live, pre.excl
 
@@ -618,7 +619,7 @@ def _bounce_ys(out, write, sh_d, cfg: TracerConfig, o2, d2, live):
 
 
 def _fused_forward(access: LocalSceneAccess, spec: FusedSpec,
-                   cfg: TracerConfig, rx_pos, sc, st0, o, d, act, pidx,
+                   cfg: TracerConfig, rx_pos, sc, st0, o, d, act, pidx, pat,
                    save: bool):
     """The fused bounce loop's forward through the kernel wrappers, on
     detached operands.  Returns the stacked per-bounce outputs ``(out [B,
@@ -633,7 +634,7 @@ def _fused_forward(access: LocalSceneAccess, spec: FusedSpec,
     for pre, post in _fused_bounces(
             access, spec, cfg, rx_pos, sc, access._table.detach(), st, o, d,
             act, pidx, lambda *a: fused_ops.bounce_pre(*a),
-            lambda *a: fused_ops.bounce_post(*a)):
+            lambda *a: fused_ops.bounce_post(*a), pat):
         outs.append(post.out)
         writes.append(post.write)
         sh_ds.append(pre.sh_d)
@@ -700,12 +701,15 @@ def run_fused_loop_slim(access: LocalSceneAccess, rx_pos, state0, fslm,
     :class:`FusedLoopSlim` node, its outputs in the per-bounce ``ys`` layout
     of :func:`assemble_scatter`.  Residuals are kept only when a gradient
     can be asked for; where none can, this is the forward alone, the
-    plan's ``"fused_forward"`` route."""
+    plan's ``"fused_forward"`` route, which alone takes the transmission
+    modes (straight refraction; the launch state's pattern words under
+    ``spawn_transmission``)."""
     o, d, st0, act, pidx = _launch_rows(state0)
     spec = _fused_spec(cfg, rx_pos.shape[0])
     sc = torch.stack([fslm, k_dop]).detach()
     run = partial(_fused_forward, access, spec=spec, cfg=cfg, rx_pos=rx_pos,
-                  sc=sc, st0=st0, o=o, d=d, act=act, pidx=pidx)
+                  sc=sc, st0=st0, o=o, d=d, act=act, pidx=pidx,
+                  pat=state0[10])
     eta_tab = access._eta_tab
     if torch.is_grad_enabled() and (eta_tab.requires_grad
                                     or st0.requires_grad):
@@ -765,14 +769,15 @@ def plan_bounce_loop(cfg: TracerConfig, *, grad: bool, device: str,
     ray, RX and material counts.
 
     ``"xla"`` and ``"pallas"`` run the op path.  ``"auto"`` runs the fused
-    forward alone where no gradient can be asked for, neither transmission
-    mode is set (the fused stages reflect only), the access is the whole
-    scene's, the rays are on a card (on the CPU the fused wrappers run
-    plain torch, which gains nothing) and the forward kernels take ``rays``
-    rays of ``nrx`` RX; else the op path, silently.  ``"fused"`` runs the
-    op path with a warning, as the JAX package falls back past its own
-    limits, where a triangle-sharded access holds no whole-scene table for
-    the fused kernels, under either transmission mode, and with
+    forward alone where no gradient can be asked for, the refraction is
+    straight (the forward kernels take either transmission mode, but bend
+    no ray), the access is the whole scene's, the rays are on a card (on
+    the CPU the fused wrappers run plain torch, which gains nothing) and
+    the forward kernels take ``rays`` rays of ``nrx`` RX; else the op path,
+    silently.  ``"fused"`` runs the op path with a warning, as the JAX
+    package falls back past its own limits, where a triangle-sharded access
+    holds no whole-scene table for the fused kernels, under either
+    transmission mode (its backwards reflect only), and with
     ``grad_positions`` past ``PRE_BWD_MAX_RX`` RX (the full pre backward
     keeps its sums across rays in shared memory).  Otherwise it runs the
     per-stage nodes with ``grad_positions``; without, the whole loop as one
@@ -780,16 +785,16 @@ def plan_bounce_loop(cfg: TracerConfig, *, grad: bool, device: str,
     backward's per-warp ``[M, 12]`` tables live in shared memory), else the
     per-stage nodes, whose slim backwards sum per-ray rows into the table
     with the scatter-add at any table size."""
-    transmits = cfg.transmission or cfg.spawn_transmission
     if cfg.shade == "auto":
-        fused = (not grad and not transmits and not tri_sharded
-                 and device == "cuda" and fused_ops.forward_takes(rays, nrx))
+        fused = (not grad and cfg.refraction == "straight"
+                 and not tri_sharded and device == "cuda"
+                 and fused_ops.forward_takes(rays, nrx))
         return BouncePlan("fused_forward" if fused else "op")
     if cfg.shade != "fused":
         return BouncePlan("op")
     if tri_sharded:
         return BouncePlan("op", _FALLBACK + "tri-sharded scene access")
-    if transmits:
+    if cfg.transmission or cfg.spawn_transmission:
         return BouncePlan("op", _FALLBACK + "transmission modes run on the "
                           "op path only")
     if cfg.grad_positions:

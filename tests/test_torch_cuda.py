@@ -46,8 +46,14 @@ bit for bit, and on the box city at 2^20 paths the default trace, which
 walks only live rays, equals ``compact_rays=False``'s bit for bit.  There
 the default drop (``shade="auto"``) runs the fused forward (two kernels a
 bounce, no backward kernel) and agrees with ``shade="xla"`` (the same
-written slots, values within the fused tier); under the O2I cell's flags
-it is the op path's bits, with no warning.
+written slots, values within the fused tier).  On the O2I cell's scene and
+flags, with 5 RX drawn by its entry (4 indoor), the default drop runs the
+fused forward's transmission variants (two kernels a bounce, no warning,
+no blocker-row gather); under each transmission mode alone and both,
+each launch is held against its plain version (equal decisions, values
+within their tier); and the default drop agrees with ``shade="xla"``:
+the same written slots, values within the fused tier and no sampled entry
+beyond the benchmark's tolerances.
 Under the transmission modes a calibration step makes the launches
 ``testing.transmission_launches`` counts, agrees with the same step
 through ``backend="torch"`` (slots; gradients within the op path's tier),
@@ -58,7 +64,10 @@ blocker, gives the brute scan's trace bit for bit."""
 import _torch_threads  # noqa: F401  (first: the thread share)
 
 import dataclasses
+import os
+import sys
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -68,6 +77,7 @@ from hermespy_rt_tpu_torch import compute_paths, default_materials
 from hermespy_rt_tpu_torch import measure
 from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch import TracerConfig, trace_paths
+from hermespy_rt_tpu_torch import tracer as tracer_module
 from hermespy_rt_tpu_torch.ops import bounce_fused_cuda as fused_ops
 from hermespy_rt_tpu_torch.ops.bounce_fused import (FusedSpec,
                                                     bounce_pre_bwd_slim_plain)
@@ -702,22 +712,135 @@ def test_city_default_drop_runs_the_fused_forward(city):
     assert (out[1].a_te.abs() > 0).any()
 
 
-def test_city_o2i_drop_default_is_the_op_path(city):
-    """The O2I cell's flags (``transmission``, ``spawn_transmission``,
-    straight refraction) with the default shade: ``shade="xla"``'s bits,
-    one ``trace.op``, no fused kernel and no warning."""
-    flags = dict(transmission=True, spawn_transmission=True,
-                 refraction="straight")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+O2I_CELL = "umi_o2i131k.fwd.nrx5"
+O2I_PATHS = 1 << 20
+
+
+@pytest.fixture(scope="module")
+def o2i(tmp_path_factory):
+    """The O2I cell's deployment on the card: its scene (the box city of
+    closed concrete boxes, built by the benchmark's generator and read as
+    the cell reads it), TX, frequency and flags, and one drop of 5 RX
+    drawn by its entry (4 indoor, 1 outdoor)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
+                    "CPU mode)")
+    sys.path.insert(0, REPO)
+    from rtbench import harness
+    rt = os.path.join(REPO, "rtbench")
+    cfg = harness.load_json(os.path.join(rt, "configs", "umi_o2i131k.json"))
+    wl = harness.load_json(os.path.join(rt, "workloads",
+                                        f"{O2I_CELL}.json"))
+    entry = harness.load_module(os.path.join(rt, "entries", "forward_o2i.py"),
+                                "rtbench_entry_forward_o2i")
+    gen = harness.load_module(os.path.join(rt, "scenes", "city.py"),
+                              "rtbench_scene_city")
+    out = gen.generate(cfg["scene"], str(tmp_path_factory.mktemp("o2i")))
+    tx = np.asarray(cfg["tracer"]["tx"], np.float32)
+    boxes = entry.building_boxes(out["meshes"], cfg["scene"]["n_buildings"])
+    rx = entry.draw_drops(wl["traffic_params"], boxes, 1,
+                          np.random.default_rng(2718281828), tx)[0]
+    t = cfg["tracer"]
+    return SimpleNamespace(
+        scene=load_scene(out["file"]), rx=rx, tx=tx,
+        f_ghz=float(t["frequency_ghz"]),
+        flags={k: t[k] for k in ("parity", "transmission",
+                                 "spawn_transmission", "refraction")})
+
+
+def _o2i_drop(o2i, tris, **kw):
+    """One O2I drop (2^20 paths, 3 bounces) with ``kw`` over the cell's
+    flags; ``(los, scatter)`` and the growth of every counter."""
+    c0 = dict(profiling.COUNTERS)
+    out = compute_paths(tris, o2i.rx, o2i.tx[None], None, None, o2i.f_ghz,
+                        len(o2i.rx), 1, O2I_PATHS, 3, device=tris.device,
+                        **{**o2i.flags, **kw})
+    torch.cuda.synchronize()
+    return out, {k: v - c0.get(k, 0) for k, v in profiling.COUNTERS.items()
+                 if v != c0.get(k, 0)}
+
+
+@pytest.fixture(scope="module")
+def o2i_tris(o2i):
+    return flatten_scene(o2i.scene, sort_triangles=True,
+                         device=torch.device("cuda"))
+
+
+# the transmission modes the fused forward takes (straight refraction), as
+# tests/test_torch_transmission.py's FORWARD_MODES: each runs its own
+# instantiations (pre <0> / <2>, post <1> / <2> / <3>)
+O2I_MODES = {"transmission": dict(spawn_transmission=False),
+             "spawn_straight": dict(transmission=False),
+             "both": {}}
+
+
+@pytest.mark.parametrize("mode", sorted(O2I_MODES))
+def test_o2i_fused_kernels_equal_plain(o2i, o2i_tris, mode):
+    """Each launch of the fused forward in an O2I drop (5 RX, 2^20 rays)
+    under each transmission mode against its plain version on the same
+    operands: decisions equal, values within ``checks.ROW_RTOL``."""
+    with checks.recording_fused() as calls:
+        _o2i_drop(o2i, o2i_tris, **O2I_MODES[mode])
+    assert [len(calls[n]) for n in checks.FUSED] == [3, 3, 0]
+    want = {**o2i.flags, **O2I_MODES[mode]}
+    for i, (args, out) in enumerate(calls["bounce_pre"]):
+        spec = args[0]
+        assert (spec.transmission, spec.spawn_transmission, spec.nrx) == (
+            want["transmission"], want["spawn_transmission"], 5)
+        checks.hold_pre(spec, args[1:], out, f"{mode} pre{i}")
+    for i, (args, out) in enumerate(calls["bounce_post"]):
+        checks.hold_post(args[0], args[1:], out, f"{mode} post{i}")
+    if want["transmission"]:
+        # blocked (ray, RX) pairs are written: an indoor RX sees paths
+        assert bool(calls["bounce_post"][0][1].write[:4].any())
+
+
+def test_city_o2i_drop_default_runs_the_fused_forward(o2i, o2i_tris):
+    """The O2I drop with the default shade runs the fused forward: two
+    kernels a bounce, the row gather only for the eta rows and the LoS
+    blockers (the only blocker rows counted), one ``trace.fused``, no
+    warning; against ``shade="xla"`` (the op path) the
+    written slots identical, every value within the fused tier, and no
+    sampled entry beyond the benchmark's tolerances (``path_mismatch``
+    0).  With ``refraction="snell"`` the default stays on the op path."""
+    from rtbench import compare
+    from rtbench.check import program_sample
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        out, grew = _city_drop(city, **flags)
-    want, _ = _city_drop(city, shade="xla", **flags)
-    assert grew.get("trace.op") == 1 and "trace.fused" not in grew
-    assert not any(k.startswith("launches.bounce_") for k in grew)
+        out, grew = _o2i_drop(o2i, o2i_tris)
+    want, grew_x = _o2i_drop(o2i, o2i_tris, shade="xla")
+    nrx, R = len(o2i.rx), O2I_PATHS
+    queries = 1 + 3 * (1 + nrx // tracer_module.rx_rows_per_query(
+        nrx, R, TracerConfig().rx_query_rays))
+    launched = {k[len("launches."):]: v for k, v in grew.items()
+                if k.startswith("launches.")}
+    assert launched == {"walk_prepass": queries, "walk": queries,
+                        "bounce_pre": 3, "bounce_post": 3, "gather": 2}, \
+        launched
+    assert grew.get("trace.fused") == 1 and "trace.op" not in grew
+    assert grew_x.get("trace.op") == 1 and "trace.fused" not in grew_x
+    # the post kernel reads its blockers from the payload table: only the
+    # LoS pass gathers blocker rows
+    assert grew["transmit.blocker_rows"] == nrx
+    assert grew_x["transmit.blocker_rows"] == nrx + 3 * nrx * R
     for part in (0, 1):
         for f in checks.OUTPUT_FIELDS:
-            assert torch.equal(getattr(out[part], f),
-                               getattr(want[part], f)), (part, f)
+            a, b = getattr(out[part], f), getattr(want[part], f)
+            written = (lambda x: (x.abs() > 0).any(-1) if x.ndim == 4
+                       else x.abs() > 0)
+            assert torch.equal(written(a), written(b)), (part, f)
+            a, b = _as_rows(a), _as_rows(b)
+            checks.rows_close(a, b, checks.ROW_RTOL, f"{part} {f}",
+                              (tuple(range(a.shape[1])),))
+    ids = torch.arange(0, O2I_PATHS, 64)
+    bad, live = compare.mismatch_counts(
+        program_sample(*out, ids, 3, O2I_PATHS),
+        program_sample(*want, ids, 3, O2I_PATHS))
+    assert bad == 0 and live > 1000, (bad, live)
+    _, grew_s = _o2i_drop(o2i, o2i_tris, refraction="snell")
+    assert grew_s.get("trace.op") == 1 and "trace.fused" not in grew_s
+    assert not any(k.startswith("launches.bounce_") for k in grew_s)
 
 
 def _grad_step(dev, tris, nrx, paths, parity, **kw):

@@ -13,12 +13,14 @@ decided as on the card.  Under ``shade="fused"``:
   whose outputs and gradients it then gives bit for bit.
 
 And where the default, ``shade="auto"``, goes: the fused forward only
-where no gradient can be asked for, no transmission mode is set, the access
-is the whole scene's, the rays are on a card and the fused kernels take
-their shapes; the op path, silently, everywhere else.  The device type is a
-value of the plan, so the card's route is taken here too by handing it
-``"cuda"``: it gives the explicit ``shade="fused"`` forward's bits and
-keeps no residuals."""
+where no gradient can be asked for, the refraction is straight (either
+transmission mode may be set), the access is the whole scene's, the rays
+are on a card and the fused kernels take their shapes; the op path,
+silently, everywhere else.  The device type is a value of the plan, so the
+card's route is taken here too by handing it ``"cuda"``: it gives the
+explicit ``shade="fused"`` forward's bits and keeps no residuals, and under
+the transmission modes the op path's decisions and its values within the
+fused tier."""
 import _torch_threads  # noqa: F401  (first: the thread share)
 
 import dataclasses
@@ -183,6 +185,8 @@ _TRANS = ("shade='fused' falling back to the op path: transmission modes "
 _RX341 = ("shade='fused' falling back to the op path: nrx=341 > 340, the "
           "most RX the full pre-stage backward takes")
 _FUSED = dict(shade="fused", grad_positions=False, grad_geometry=False)
+# the O2I cell's flags
+_O2I = dict(transmission=True, spawn_transmission=True, refraction="straight")
 
 
 @pytest.mark.parametrize("kw,grad,device,tri_sharded,rays,nrx,M,want", [
@@ -193,9 +197,9 @@ _FUSED = dict(shade="fused", grad_positions=False, grad_geometry=False)
     ({}, False, "cpu", False, _R, _NRX, 17, BouncePlan("op")),
     ({}, True, "cpu", False, _R, _NRX, 17, BouncePlan("op")),
     (dict(transmission=True), False, "cuda", False, _R, _NRX, 17,
-     BouncePlan("op")),
+     BouncePlan("fused_forward")),
     (dict(spawn_transmission=True), False, "cuda", False, _R, _NRX, 17,
-     BouncePlan("op")),
+     BouncePlan("fused_forward")),
     ({}, False, "cuda", True, _R, _NRX, 17, BouncePlan("op")),
     ({}, False, "cuda", False, fused_ops.FWD_MAX_RAYS, 1, 17,
      BouncePlan("fused_forward")),
@@ -236,7 +240,28 @@ _FUSED = dict(shade="fused", grad_positions=False, grad_geometry=False)
     (dict(_FUSED, unroll_bounces=False), True, "cuda", False, 512, 1, 17,
      BouncePlan("fused_stages")),
     (dict(_FUSED, unroll_bounces=False), True, "cuda", False, 512, 341,
-     5000, BouncePlan("fused_stages"))])
+     5000, BouncePlan("fused_stages")),
+    # "auto" under the transmission modes: the fused forward with both
+    # modes and straight refraction; the op path, silently, with snell
+    # refraction, a gradient, a tri-sharded access or on the CPU
+    (_O2I, False, "cuda", False, _R, 5, 17, BouncePlan("fused_forward")),
+    (dict(_O2I, refraction="snell"), False, "cuda", False, _R, 5, 17,
+     BouncePlan("op")),
+    (dict(spawn_transmission=True, refraction="snell"), False, "cuda",
+     False, _R, 5, 17, BouncePlan("op")),
+    (_O2I, True, "cuda", False, _R, 5, 17, BouncePlan("op")),
+    (dict(transmission=True), True, "cuda", False, _R, 5, 17,
+     BouncePlan("op")),
+    (_O2I, False, "cuda", True, _R, 5, 17, BouncePlan("op")),
+    (_O2I, False, "cpu", False, _R, 5, 17, BouncePlan("op")),
+    (dict(spawn_transmission=True), False, "cpu", False, _R, 5, 17,
+     BouncePlan("op")),
+    # "fused" under a transmission mode: its warning and the op path, with
+    # a gradient or without (its backwards reflect only)
+    (dict(_O2I, shade="fused"), True, "cuda", False, _R, 5, 17,
+     BouncePlan("op", _TRANS)),
+    (dict(_O2I, shade="fused"), False, "cuda", False, _R, 5, 17,
+     BouncePlan("op", _TRANS))])
 def test_plan_bounce_loop(kw, grad, device, tri_sharded, rays, nrx, M,
                           want):
     """Each row of the rule: the route and the fallback's warning, which
@@ -345,16 +370,97 @@ def test_card_route_runs_the_fused_forward(card_route, routes, parity):
     dict(transmission=True, spawn_transmission=True)])
 def test_card_route_under_transmission_is_the_silent_op_path(card_route,
                                                              routes, kw):
-    """Under either transmission mode the default drop, even on a card,
-    runs the op path with no warning (warnings are errors here) and gives
-    ``shade="xla"``'s bits; ``trace.op`` counts it."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        out, grew = _drop(**kw)
-    want, _ = _drop(shade="xla", **kw)
+    """Under either transmission mode, on a card too, a trace of which a
+    gradient can be asked for (``api.trace`` with a material table that
+    requires grad), and under ``spawn_transmission`` the default drop with
+    snell refraction, run the op path with no warning (warnings are errors
+    here) and give ``shade="xla"``'s bits; ``trace.op`` counts each."""
+    tris, table = _soup(17)
+    out = {}
+    for shade in ("auto", "xla"):
+        mats = table()
+        c0 = dict(profiling.COUNTERS)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            res = api.trace(tris, RX, TX, config=TracerConfig(
+                num_paths=512, num_bounces=2, parity="physical",
+                keep_rays=False, shade=shade, **kw), materials=mats,
+                device="cpu")
+        _loss(res).backward()
+        out[shade] = (res.scatter, checks.grads_of(mats))
+        assert _grew(c0) == {"trace.fused": 0, "trace.op": 1}
+    for f in OUTPUTS:
+        assert torch.equal(getattr(out["auto"][0], f),
+                           getattr(out["xla"][0], f)), f
+    for f, g in out["xla"][1].items():
+        assert torch.equal(out["auto"][1][f], g), f
+    if kw.get("spawn_transmission"):
+        snell = dict(kw, refraction="snell")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            drop, grew = _drop(**snell)
+        want, _ = _drop(shade="xla", **snell)
+        assert grew == {"trace.fused": 0, "trace.op": 1}
+        _same_bits(drop, want)
     assert routes == [] and card_route == []
-    assert grew == {"trace.fused": 0, "trace.op": 1}
-    _same_bits(out, want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(transmission=True), dict(spawn_transmission=True), _O2I])
+def test_card_route_under_transmission_runs_the_fused_forward(card_route,
+                                                              routes, kw):
+    """Under either transmission mode with straight refraction the
+    default drop on a card runs the fused forward once, with no residuals
+    and no warning, and gives ``shade="xla"``'s decisions (the written
+    slots) and its values within the fused tier (:data:`checks.ROW_RTOL`
+    of each row's largest); ``trace.fused`` counts it, and under
+    ``transmission`` the LoS pass's blocker fetch keeps ``hrt.transmit``."""
+    rows = {}
+    for shade in ("auto", "xla"):
+        profiling.enable()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                drop, grew = _drop(shade=shade, **kw)
+        finally:
+            profiling.disable()
+        rows[shade] = drop
+        assert grew == ({"trace.fused": 1, "trace.op": 0} if shade == "auto"
+                        else {"trace.fused": 0, "trace.op": 1})
+        names = {sp.name for sp in profiling.latest_session().spans}
+        assert ("hrt.transmit" in names) == bool(kw.get("transmission"))
+    assert routes == ["run_fused_loop_slim"] and card_route == [False]
+    assert (rows["auto"][1].a_te.abs() > 0).any()
+    for part in (0, 1):
+        for f in OUTPUTS:
+            a, b = getattr(rows["auto"][part], f), getattr(rows["xla"][part],
+                                                          f)
+            assert torch.equal(a.abs() > 0, b.abs() > 0), (part, f)
+            if a.is_complex():
+                a, b = torch.stack([a.real, a.imag]), torch.stack([b.real,
+                                                                   b.imag])
+            checks.rows_close(a.reshape(-1, a.shape[-1]),
+                              b.reshape(-1, b.shape[-1]), checks.ROW_RTOL,
+                              f"{part} {f}")
+
+
+def test_fused_forward_gathers_no_blocker_rows(card_route):
+    """Under ``transmission`` the fused forward's post stage reads each
+    shadow ray's blocker from the payload table itself: the drop gathers
+    only the LoS pass's nrx blocker rows, and ``transmit.blocker_rows``
+    counts those alone, where the op path gathers nrx x R more a bounce."""
+    nrx, R = len(RX), 512
+    for shade, want in (("auto", nrx), ("xla", nrx + 2 * nrx * R)):
+        c0 = dict(profiling.COUNTERS)
+        with checks.recording_fused() as calls:
+            _drop(shade=shade, **_O2I)
+        assert (profiling.COUNTERS.get("transmit.blocker_rows", 0)
+                - c0.get("transmit.blocker_rows", 0)) == want, shade
+        sizes = [args[1].numel() for args, _ in calls["gather"]]
+        assert nrx in sizes, (shade, sizes)
+        assert sizes.count(nrx * R) == (0 if shade == "auto" else 2), \
+            (shade, sizes)
+        assert len(calls["bounce_post"]) == (2 if shade == "auto" else 0)
 
 
 def test_card_route_with_a_gradient_is_the_op_path(card_route, routes):

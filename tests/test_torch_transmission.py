@@ -11,7 +11,11 @@ and gradients), ``_los_pass``, ``bounce_step`` and ``trace_paths`` under
 the port's shading kernel through its plain version on the CPU), and their
 material gradients against ``jax.grad``.  ``shade="fused"`` must warn under
 either mode and give the op path's bits, and the fused loop must not read
-the pattern carried in the launch state.
+the pattern carried in the launch state where no mode is set.  The fused
+forward's stages (their plain versions, which the CPU runs) under
+``transmission``, ``spawn_transmission`` with straight refraction and both
+must make ``bounce_step``'s decisions and geometry per bounce, its values
+within the fused tier, and a trace through them must agree with JAX.
 
 Tolerances are ``tests/test_torch_tracer.py``'s: the written slots of every
 output identical, written values within rtol 1e-4 with a floor of 1e-5 of
@@ -38,6 +42,8 @@ import hermespy_rt_tpu_torch as hrt
 from hermespy_rt_tpu_torch import testing as checks
 from hermespy_rt_tpu_torch import tracer as tt
 from hermespy_rt_tpu_torch.convert import soa_from_jax
+from hermespy_rt_tpu_torch.ops.bounce_fused import (bounce_post_plain,
+                                                    bounce_pre_plain)
 from hermespy_rt_tpu_torch.materials import (MATERIAL_FIELDS, MATERIAL_METAL,
                                              MaterialTable, default_materials)
 from hermespy_rt_tpu_torch.ops import fresnel as tf
@@ -612,3 +618,76 @@ def test_kernel_calls_of_a_step(mode, shade, cull):
     if cfg.transmission:
         assert sum(args[1].numel() == 3 * 64 for args, _ in calls["gather"]
                    ) == 2
+
+
+# the modes the fused forward takes: straight refraction only
+FORWARD_MODES = {"transmission": dict(transmission=True),
+                 "spawn_straight": dict(spawn_transmission=True),
+                 "both": dict(transmission=True, spawn_transmission=True)}
+
+
+def _fused_route(monkeypatch):
+    """``plan_bounce_loop`` told that the rays are on a card, as the
+    route tests do: the fused forward's route runs its plain stages."""
+    real = tt.plan_bounce_loop
+    monkeypatch.setattr(tt, "plan_bounce_loop",
+                        lambda cfg, *, device, **kw: real(cfg, device="cuda",
+                                                          **kw))
+
+
+@pytest.mark.parametrize("mode", sorted(FORWARD_MODES))
+def test_fused_forward_matches_op_path_and_jax(mode, monkeypatch):
+    """Per bounce on the corridor, the fused forward's stages against
+    ``bounce_step`` from the same launch state (the pattern words of
+    ``transmit_patterns``): the decisions (live rays, their hits, the
+    written (ray, RX)) and the bounced rays equal, the state and the six
+    output rows within ``checks.ROW_RTOL`` of each row's largest; then a
+    trace on the fused forward's route against JAX ``trace_paths(shade=
+    "xla")`` at this file's tolerances."""
+    flags = FORWARD_MODES[mode]
+    _, tris = _corridor()
+    cfg = hrt.TracerConfig(num_paths=64, num_bounces=3, parity="physical",
+                           backend="torch", **flags)
+    mats = default_materials("cpu")
+    access = tt.LocalSceneAccess(tris, cfg, tf.precompute_eta(mats, 3.0))
+    fslm, k_dop = (torch.tensor(x) for x in _scalars())
+    rx = torch.as_tensor(C_RX)
+    dirs = tt.launch_directions(64, "coherent", "cpu")
+    pat = tt.transmit_patterns(64, 3) if cfg.spawn_transmission else None
+    state = tt.launch_state(torch.as_tensor(C_TX), torch.as_tensor(C_TXV),
+                            dirs, k_dop, transmit_pattern=pat)
+    o, d, st, act, pidx = tt._launch_rows(state)
+    spec = tt._fused_spec(cfg, len(C_RX))
+    sc = torch.stack([fslm, k_dop])
+    with torch.no_grad():
+        stages = list(tt._fused_bounces(
+            access, spec, cfg, rx, sc, access._table.detach(), st, o, d,
+            act, pidx, bounce_pre_plain, bounce_post_plain, pat))
+        for b, (pre, post) in enumerate(stages):
+            state, ys = tt.bounce_step(state, access=access, rx_pos=rx,
+                                       fslm=fslm, k_dop=k_dop, cfg=cfg)
+            assert torch.equal(pre.live, state[7]), b
+            assert torch.equal(pre.excl, state[9]), b
+            assert torch.equal(pre.o2, state[0]) and torch.equal(
+                pre.d2, state[1]), b
+            checks.rows_close(pre.st2, torch.stack(state[2:7] + state[8:9]),
+                              checks.ROW_RTOL, f"bounce {b} state",
+                              checks.AMP_GROUPS)
+            assert torch.equal(post.write, (ys[6] != 0).any(-1)), b
+            checks.rows_close(post.out.reshape(-1, 64),
+                              torch.stack(ys[:6], 1).reshape(-1, 64),
+                              checks.ROW_RTOL, f"bounce {b} out")
+    assert bool(stages[0][1].write.any())
+    jcfg = JaxConfig(backend="jnp", num_paths=64, num_bounces=3,
+                     parity="physical", keep_rays=True, **flags)
+    soa, tris = _corridor()
+    ref = jt.trace_paths(soa, jax_materials(), C_RX, C_TX, C_RXV, C_TXV,
+                         3.0, jcfg)
+    _fused_route(monkeypatch)
+    with checks.recording_fused() as calls, torch.no_grad():
+        ours = tt.trace_paths(tris, default_materials("cpu"), C_RX, C_TX,
+                              C_RXV, C_TXV, 3.0,
+                              dataclasses.replace(cfg, keep_rays=True))
+    assert len(calls["bounce_pre"]) == len(calls["bounce_post"]) == 3
+    _close_paths(ref, ours, rays=True)
+    assert (np.abs(_np(ours.scatter.a_te)) > 0).sum() > 40
